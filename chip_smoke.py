@@ -3,29 +3,48 @@
 
     python3 chip_smoke.py
 
-Drives `pointclouds_tpu_torch.kitti_obstacle_pipeline` on the card at the
-benchmark configuration (a 122K-point Velodyne-style frame, voxel 0.15 m,
-ds_cap 98,304, k 20, 500 RANSAC iterations on a 4096-point subsample,
-obstacle cap 8192, cluster radius 0.8 m). Phases:
+Drives `pointclouds_tpu_torch` on the card through its two pipelines, at
+the benchmark's configurations:
+
+- KITTI: `kitti_obstacle_pipeline` on a 122K-point Velodyne-style frame,
+  voxel 0.15 m, ds_cap 98,304, k 20, 500 RANSAC iterations on a 4096-point
+  subsample, obstacle cap 8192, cluster radius 0.8 m;
+- aerial: `aerial_pipeline` on `aerial_scene(42)` (~241K points), voxel
+  0.5 m, ds_cap 229,376, normals k 15 in a 6-voxel (3.0 m) cell, 300
+  RANSAC iterations on a 4096-point subsample, threshold 0.3, obstacle cap
+  196,608, cluster radius 2.0 m in bursts of 16 rounds, viewpoint
+  (0, 0, 10000).
+
+Phases:
 
 1. probe: the card, torch/CUDA/nvcc versions; build the kernels;
-2. per kernel, at the shapes the pipeline gives it (inputs captured from
+2. per kernel, at the shapes the pipelines give it (inputs captured from
    the port's own upstream stages): the CUDA kernel against its plain
    torch version on the card, and both timed with CUDA events;
-3. end to end on the benchmark's frame (velodyne_scene seed 0) with
-   RANSAC seeds 0-4, as bench.py varies them: every kernel launched, no
+3. KITTI end to end with RANSAC seeds 0-4: every KITTI kernel launched, no
    overflow flag, sor_certified, >= 3 clusters, cluster sets equal to the
-   port's own CPU run of the same frame and seed; then per-stage times and
-   the frame p50.
+   port's own CPU run of the same frame and seed; per-stage times and the
+   frame p50;
+4. aerial end to end with RANSAC seeds 0-4: its kernels launched, no
+   overflow, cluster_exact, normals certified on >= 90% of the rows,
+   |plane normal z| > 0.95; for seed 0 the clusters (min size 20) equal to
+   the port's CPU run; per-stage times, cluster rounds and the frame p50;
+5. the pipelines' default kwargs: one KITTI frame with
+   ransac_subsample=None (full scoring through `ransac_score_counts`) and
+   one aerial frame with ransac_subsample=None and normals_rescue=True
+   (`rescue_knn_idx`), each against the port's CPU run.
 
-Prints the kernels' JSON line, the card's name and power limit, and as its
-last line {"ok": true, "device": {...}}. Any failure raises (exit != 0);
-without a CUDA device it exits non-zero before measuring anything. Long
-output (build log) goes to chiprun_out/.
+Every path runs with the launch counts set to 0 just before it and read
+just after; each of its kernels must have launched. Prints the kernels'
+JSON line (launches summed over the paths), the card's name and power
+limit, and as its last line {"ok": true, "device": {...}}. Any failure
+raises (exit != 0); without a CUDA device it exits non-zero before
+measuring anything. Long output (build log) goes to chiprun_out/.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -44,13 +63,34 @@ KERNELS = {
     "sweep_select_rows": ("spatial.sweep", "select.cu", 694),
     "rescue_select": ("spatial.sweep", "select.cu", 835),
     "cluster_multisweep": ("spatial.sweep", "cluster.cu", 1253),
+    "ransac_score_counts": ("ops.segmentation", "ransac.cu", 3169),
+    "sweep_moments": ("spatial.sweep", "moments.cu", 2003),
+    "rescue_knn_idx": ("spatial.sweep", "knn.cu", 2991),
+    "cluster_multisweep_windows": ("spatial.sweep", "cluster.cu", 1574),
 }
-PARAMS = dict(voxel=0.15, sor_std=2.0, ransac_thresh=0.15, cluster_r=0.8,
-              sor_k=20, ransac_iters=500, ds_cap=98_304,
-              ransac_subsample=4096, obstacle_cap=8192)
-N_POINTS = 122_000
+KITTI = dict(voxel=0.15, sor_std=2.0, ransac_thresh=0.15, cluster_r=0.8,
+             sor_k=20, ransac_iters=500, ds_cap=98_304,
+             ransac_subsample=4096, obstacle_cap=8192)
+KITTI_POINTS = 122_000
+AERIAL = dict(ds_cap=229_376, obstacle_cap=196_608, ransac_subsample=4096,
+              normals_cell_factor=6, cluster_sweeps=16)
+VIEWPOINT = [0.0, 0.0, 10000.0]
+# The kernels each path must launch.
+PATHS = {
+    "kitti": ["segmented_scan_sums", "sweep_select_rows", "rescue_select",
+              "cluster_multisweep"],
+    "aerial": ["segmented_scan_sums", "sweep_moments",
+               "cluster_multisweep_windows"],
+    "kitti_default": ["segmented_scan_sums", "sweep_select_rows",
+                      "cluster_multisweep", "ransac_score_counts"],
+    "aerial_default": ["segmented_scan_sums", "sweep_moments",
+                       "rescue_knn_idx", "ransac_score_counts",
+                       "cluster_multisweep_windows"],
+}
 SEEDS = range(5)
-FRAMES = 20
+KITTI_FRAMES = 20
+AERIAL_FRAMES = 10
+NORMALS_OK_MIN = 0.90
 
 
 def log(msg: str) -> None:
@@ -65,27 +105,58 @@ def card() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def run_pipeline(pc, data, seed, device=None, cloud=None):
-    """One frame at the bench configuration, on ``device`` or on a cloud
-    already made there."""
+def run_kitti(pc, data, seed, device=None, cloud=None, **over):
+    """One KITTI frame at the bench configuration (``over`` replaces
+    kwargs), on ``device`` or on a cloud already made there."""
     if cloud is None:
         cloud = pc.make_cloud_arrays(data, device=device)
+    kw = {**KITTI, **over}
     return pc.kitti_obstacle_pipeline(
-        cloud.xyz, cloud.valid, np.float32(PARAMS["voxel"]),
-        np.float32(PARAMS["sor_std"]), np.float32(PARAMS["ransac_thresh"]),
-        seed, np.float32(PARAMS["cluster_r"]), sor_k=PARAMS["sor_k"],
-        ransac_iters=PARAMS["ransac_iters"], ds_cap=PARAMS["ds_cap"],
-        ransac_subsample=PARAMS["ransac_subsample"],
-        obstacle_cap=PARAMS["obstacle_cap"],
+        cloud.xyz, cloud.valid, np.float32(kw["voxel"]),
+        np.float32(kw["sor_std"]), np.float32(kw["ransac_thresh"]),
+        seed, np.float32(kw["cluster_r"]), sor_k=kw["sor_k"],
+        ransac_iters=kw["ransac_iters"], ds_cap=kw["ds_cap"],
+        ransac_subsample=kw["ransac_subsample"],
+        obstacle_cap=kw["obstacle_cap"],
     )
 
 
-def cluster_points(pc, out):
-    """Cluster sets as sorted point coordinates (geometric equality)."""
+def run_aerial(pc, data, seed, device=None, cloud=None, **over):
+    """One aerial frame at bench.py's configuration (``over`` replaces
+    kwargs)."""
+    if cloud is None:
+        cloud = pc.make_cloud_arrays(data, device=device)
+    return pc.aerial_pipeline(
+        cloud.xyz, cloud.valid, np.float32(0.5), np.float32(3.0),
+        np.float32(0.3), seed, np.float32(2.0), VIEWPOINT,
+        **{**AERIAL, **over})
+
+
+def kitti_points(pc, out):
+    """KITTI cluster sets (min size 10) as sorted point coordinates, for
+    geometric equality; members are ranks among the valid obstacle slots."""
     clusters = pc.extract_clusters(out, 10, 20_000)
     cents = out.centroids.cpu().numpy()[out.obstacle_src.cpu().numpy()]
     slots = np.nonzero(out.obstacle_valid.cpu().numpy())[0]
     return [np.sort(cents[slots[c]], axis=0) for c in clusters]
+
+
+def aerial_points(aerial_mod, out):
+    """Aerial cluster sets (min size 20) as sorted point coordinates;
+    members are obstacle slots."""
+    clusters = aerial_mod.extract_clusters(out, 20, 10**6)
+    cents = out.centroids.cpu().numpy()[out.obstacle_src.cpu().numpy()]
+    return [np.sort(cents[c], axis=0) for c in clusters]
+
+
+def normals_ok_share(out) -> float:
+    ds = out.downsampled_valid
+    return float((out.normals_ok & ds).sum()) / max(int(ds.sum()), 1)
+
+
+def same_clusters(a, b) -> bool:
+    return len(a) == len(b) and all(np.array_equal(x, y)
+                                    for x, y in zip(a, b))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -101,33 +172,48 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def capture_inputs(pc, data):
-    """Run one frame with the kernel wrappers wrapped where the pipeline
-    calls them; keep each kernel's first arguments."""
-    import importlib
+class Spy:
+    """Wraps functions in the modules that call them, for the duration of
+    a ``with`` block; each call goes to ``hook(name, orig, args, kwargs)``."""
 
-    captured = {}
-    saved = []
-    for name, (modname, _, _) in KERNELS.items():
-        mod = importlib.import_module(f"pointclouds_tpu_torch.{modname}")
-        orig = getattr(mod, name)
+    def __init__(self, targets, hook):
+        self.targets = targets  # [(module, function name)]
+        self.hook = hook
+        self.saved = []
 
-        def wrapped(*args, _name=name, _orig=orig, **kwargs):
-            if _name not in captured:
-                captured[_name] = (
-                    tuple(a.clone() if torch.is_tensor(a) else a
-                          for a in args), dict(kwargs))
-            return _orig(*args, **kwargs)
+    def __enter__(self):
+        for mod, name in self.targets:
+            orig = getattr(mod, name)
 
-        saved.append((mod, name, orig))
-        setattr(mod, name, wrapped)
-    try:
-        run_pipeline(pc, data, 0, "cuda")
-        torch.cuda.synchronize()
-    finally:
-        for mod, name, orig in saved:
+            def wrapped(*a, _name=name, _orig=orig, **k):
+                return self.hook(_name, _orig, a, k)
+
+            self.saved.append((mod, name, orig))
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self.saved:
             setattr(mod, name, orig)
-    missing = set(KERNELS) - set(captured)
+
+
+def capture_inputs(run, names):
+    """Run one frame with the named kernel wrappers spied on where the
+    pipeline calls them; keep each kernel's first arguments."""
+    captured = {}
+
+    def hook(name, orig, a, k):
+        if name not in captured:
+            captured[name] = (tuple(x.clone() if torch.is_tensor(x) else x
+                                    for x in a), dict(k))
+        return orig(*a, **k)
+
+    targets = [(importlib.import_module(
+        f"pointclouds_tpu_torch.{KERNELS[n][0]}"), n) for n in names]
+    with Spy(targets, hook):
+        run()
+        torch.cuda.synchronize()
+    missing = set(names) - set(captured)
     if missing:
         raise RuntimeError(f"pipeline never called {sorted(missing)}")
     return captured
@@ -140,20 +226,26 @@ def check_kernel(name, args, kwargs, K):
     got = kern(*args, **kwargs)
     want = plain(*args, **kwargs)
     torch.cuda.synchronize()
-    if name == "segmented_scan_sums":
-        # Bitwise: centroids feed every later discrete decision.
-        for g, w in zip(got, want):
+    if name in ("segmented_scan_sums", "ransac_score_counts", "sweep_moments",
+                "rescue_knn_idx"):
+        # Bitwise: the same f32 operations in the same order (counts are
+        # exact integer sums).
+        got_t = got if isinstance(got, tuple) else (got,)
+        want_t = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got_t, want_t):
             if not torch.equal(g, w):
                 raise AssertionError(f"{name}: not bitwise equal")
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        finite = [(g[torch.isfinite(g)] - w[torch.isfinite(w)]).abs()
+                  for g, w in zip(got_t, want_t)]
+        err = max(float(f.max()) if f.numel() else 0.0 for f in finite)
         tol = "bitwise"
-    elif name == "cluster_multisweep":
+    elif name in ("cluster_multisweep", "cluster_multisweep_windows"):
         if bool(got[1].any()) or bool(want[1].any()):
             raise AssertionError(f"{name}: did not converge")
         if not torch.equal(got[0], want[0]):
             raise AssertionError(f"{name}: labels differ")
         err = float((got[0] - want[0]).abs().max())
-        tol = "labels equal"
+        tol = f"labels equal, {got[2]} rounds"
     else:
         # Exact top-k in the same order: count, kth and the ascending sum
         # are bitwise equal.
@@ -166,56 +258,80 @@ def check_kernel(name, args, kwargs, K):
         err = max(float((g - w).abs().max())
                   for g, w in zip(got[:3], want[:3]))
         tol = "bitwise (total, count, kth)"
-    reps_k, reps_p = (20, 3) if name != "cluster_multisweep" else (5, 1)
-    ms = cuda_ms(lambda: kern(*args, **kwargs), reps_k)
-    plain_ms = cuda_ms(lambda: plain(*args, **kwargs), reps_p)
+    loop = name.startswith("cluster")
+    ms = cuda_ms(lambda: kern(*args, **kwargs), 5 if loop else 20)
+    plain_ms = cuda_ms(lambda: plain(*args, **kwargs), 1 if loop else 3)
     return err, tol, ms, plain_ms
 
 
-def stage_timer(kitti_mod):
+def stage_timer(mod, stages):
     """Wrap the pipeline's stage functions in its module so each records a
-    CUDA event pair; returns (restore, read) callables."""
-    stages = ["voxel_downsample_sweep_fused", "structure_from_sorted",
-              "sweep_sor_two_pass", "sor_keep_mask_thr",
-              "ransac_plane_masked", "sweep_cluster_labels"]
+    CUDA event pair; returns (spy, read)."""
     events = {s: [] for s in stages}
-    saved = []
-    for s in stages:
-        orig = getattr(kitti_mod, s)
 
-        def wrapped(*a, _s=s, _orig=orig, **k):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            r = _orig(*a, **k)
-            e1.record()
-            events[_s].append((e0, e1))
-            return r
-
-        saved.append((s, orig))
-        setattr(kitti_mod, s, wrapped)
-
-    def restore():
-        for s, orig in saved:
-            setattr(kitti_mod, s, orig)
+    def hook(name, orig, a, k):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        r = orig(*a, **k)
+        e1.record()
+        events[name].append((e0, e1))
+        return r
 
     def read():
         torch.cuda.synchronize()
         return {s: float(np.median([a.elapsed_time(b) for a, b in ev]))
                 for s, ev in events.items() if ev}
 
-    return restore, read
+    return Spy([(mod, s) for s in stages], hook), read
+
+
+def path_launches(K, name, run):
+    """Run ``run`` with the launch counts set to 0 just before and read just
+    after; every kernel of the path must have launched."""
+    K.reset_launch_counts()
+    result = run()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    log(f"{name} launches: {launches}")
+    for kname in PATHS[name]:
+        if launches[kname] <= 0:
+            raise AssertionError(f"{kname} never launched on the {name} path")
+    return result, launches
+
+
+def timed_frames(run, frames, mod, stages, card_line, what):
+    times = []
+    spy, read = stage_timer(mod, stages)
+    with spy:
+        for f in range(frames):
+            t0 = time.perf_counter()
+            run(f)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        st = read()
+    log(f"{what} stage ms (median, CUDA events): " + ", ".join(
+        f"{s}={v:.3f}" for s, v in st.items()) + f" [{card_line}]")
+    log(f"{what} frame p50 {float(np.percentile(times, 50)):.3f} ms over "
+        f"{frames} frames (min {min(times):.3f}, max {max(times):.3f}) "
+        f"[{card_line}]")
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     import pointclouds_tpu_torch as pc
+    from pointclouds_tpu_torch.pipelines import aerial as aerial_mod
     from pointclouds_tpu_torch.pipelines import kitti as kitti_mod
-    from pointclouds_tpu_torch.pipelines.scenes import velodyne_scene
+    from pointclouds_tpu_torch.pipelines.scenes import (
+        aerial_scene,
+        velodyne_scene,
+    )
     from pointclouds_tpu_torch.spatial import _build
     from pointclouds_tpu_torch.spatial import kernels as K
+    from pointclouds_tpu_torch.spatial import sweep as sweep_mod
 
     # ── Phase 1: probe + build ──
     card_line = card()
@@ -234,9 +350,20 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
-    # ── Phase 2: each kernel against its plain version, bench shapes ──
-    data = velodyne_scene(seed=0, n_points=N_POINTS)
-    captured = capture_inputs(pc, data)
+    kdata = velodyne_scene(seed=0, n_points=KITTI_POINTS)
+    adata = aerial_scene(seed=42, scale=1.0)
+
+    # ── Phase 2: each kernel against its plain version, pipeline shapes ──
+    captured = {}
+    for run, names in (
+            (lambda: run_kitti(pc, kdata, 0, "cuda"), PATHS["kitti"]),
+            (lambda: run_aerial(pc, adata, 0, "cuda"),
+             ["sweep_moments", "cluster_multisweep_windows"]),
+            (lambda: run_kitti(pc, kdata, 0, "cuda", ransac_subsample=None),
+             ["ransac_score_counts"]),
+            (lambda: run_aerial(pc, adata, 0, "cuda", ransac_subsample=None,
+                                normals_rescue=True), ["rescue_knn_idx"])):
+        captured.update(capture_inputs(run, names))
     rows = []
     for name, (_, src, line) in KERNELS.items():
         args, kwargs = captured[name]
@@ -249,24 +376,22 @@ def main() -> int:
                          source=f"pointclouds_tpu_torch/spatial/csrc/{src}",
                          replaces=f"{PALLAS}:{line}", max_abs_err=err,
                          ms=ms, plain_ms=plain_ms))
+    launches_total = {name: 0 for name in KERNELS}
 
-    # ── Phase 3: end to end ──
-    K.reset_launch_counts()
-    outs = {}
-    for seed in SEEDS:
-        outs[seed] = run_pipeline(pc, data, seed, "cuda")
-    torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
-    log(f"e2e launches over {len(SEEDS)} frames: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
+    def add(launches):
+        for name, v in launches.items():
+            launches_total[name] += v
+
+    # ── Phase 3: KITTI end to end ──
+    outs, launches = path_launches(K, "kitti", lambda: {
+        seed: run_kitti(pc, kdata, seed, "cuda") for seed in SEEDS})
+    add(launches)
     for seed, out in outs.items():
         flags = out.grid_flags.cpu().numpy()
-        gpu_sets = cluster_points(pc, out)
-        cpu_out = run_pipeline(pc, data, seed, "cpu")
-        cpu_sets = cluster_points(pc, cpu_out)
-        log(f"e2e seed {seed}: ds={int(out.downsampled_valid.sum())} "
+        gpu_sets = kitti_points(pc, out)
+        cpu_out = run_kitti(pc, kdata, seed, "cpu")
+        cpu_sets = kitti_points(pc, cpu_out)
+        log(f"kitti seed {seed}: ds={int(out.downsampled_valid.sum())} "
             f"kept={int(out.cleaned_valid.sum())} "
             f"inliers={int(out.inlier_mask.sum())} "
             f"clusters={[len(c) for c in gpu_sets]} "
@@ -275,38 +400,118 @@ def main() -> int:
             f"grid_flags={flags.tolist()} "
             f"obstacle_overflow={bool(out.obstacle_overflow)}")
         if flags.any() or bool(out.obstacle_overflow):
-            raise AssertionError(f"seed {seed}: overflow flags set")
+            raise AssertionError(f"kitti seed {seed}: overflow flags set")
         if not bool(out.sor_certified):
-            raise AssertionError(f"seed {seed}: SOR not certified")
+            raise AssertionError(f"kitti seed {seed}: SOR not certified")
         if len(gpu_sets) < 3:
-            raise AssertionError(f"seed {seed}: fewer than 3 clusters")
+            raise AssertionError(f"kitti seed {seed}: fewer than 3 clusters")
         if not torch.equal(out.centroids.cpu(), cpu_out.centroids):
-            raise AssertionError(f"seed {seed}: centroids differ from CPU")
-        if len(gpu_sets) != len(cpu_sets) or not all(
-                np.array_equal(a, b) for a, b in zip(gpu_sets, cpu_sets)):
-            raise AssertionError(f"seed {seed}: clusters differ from CPU")
+            raise AssertionError(f"kitti seed {seed}: centroids differ")
+        if not same_clusters(gpu_sets, cpu_sets):
+            raise AssertionError(f"kitti seed {seed}: clusters differ")
+    kcloud = pc.make_cloud_arrays(kdata, device="cuda")
+    timed_frames(lambda f: run_kitti(pc, kdata, f, cloud=kcloud),
+                 KITTI_FRAMES, kitti_mod,
+                 ["voxel_downsample_sweep_fused", "structure_from_sorted",
+                  "sweep_sor_two_pass", "sor_keep_mask_thr",
+                  "ransac_plane_masked", "sweep_cluster_labels"],
+                 card_line, "kitti")
 
-    times = []
-    restore, read = stage_timer(kitti_mod)
-    try:
-        for f in range(FRAMES):
-            cloud = pc.make_cloud_arrays(data, device="cuda")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run_pipeline(pc, data, f, cloud=cloud)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        stages = read()
-    finally:
-        restore()
-    log("e2e stage ms (median, CUDA events): " + ", ".join(
-        f"{s}={v:.3f}" for s, v in stages.items()) + f" [{card_line}]")
-    log(f"e2e frame p50 {float(np.percentile(times, 50)):.3f} ms over "
-        f"{FRAMES} frames (min {min(times):.3f}, max {max(times):.3f}) "
-        f"[{card_line}]")
+    # ── Phase 4: aerial end to end ──
+    rounds = []
+
+    def count_rounds(name, orig, a, k):
+        r = orig(*a, **k)
+        rounds.append(r[2])
+        return r
+
+    with Spy([(sweep_mod, "cluster_multisweep_windows")], count_rounds):
+        aouts, launches = path_launches(K, "aerial", lambda: {
+            seed: run_aerial(pc, adata, seed, "cuda") for seed in SEEDS})
+    add(launches)
+    log(f"aerial cluster rounds per burst, seeds {list(SEEDS)}: {rounds} "
+        f"(bursts of at most {AERIAL['cluster_sweeps']})")
+    for seed, out in aouts.items():
+        nok = normals_ok_share(out)
+        nz = abs(float(out.plane_normal[2]))
+        sizes = [len(c) for c in aerial_points(aerial_mod, out)]
+        log(f"aerial seed {seed}: ds={int(out.downsampled_valid.sum())} "
+            f"obstacles={int(out.obstacle_valid.sum())} "
+            f"normals_ok={nok:.4f} plane_nz={nz:.6f} "
+            f"clusters={len(sizes)} largest={sizes[:8]} "
+            f"cluster_exact={bool(out.cluster_exact)} "
+            f"ds_overflow={bool(out.ds_overflow)} "
+            f"obstacle_overflow={bool(out.obstacle_overflow)}")
+        if bool(out.ds_overflow) or bool(out.obstacle_overflow):
+            raise AssertionError(f"aerial seed {seed}: overflow")
+        if not bool(out.cluster_exact):
+            raise AssertionError(f"aerial seed {seed}: clusters not exact")
+        if nok < NORMALS_OK_MIN:
+            raise AssertionError(f"aerial seed {seed}: normals_ok {nok}")
+        if nz <= 0.95:
+            raise AssertionError(f"aerial seed {seed}: plane normal z {nz}")
+    a_gpu = aouts[0]
+    a_cpu = run_aerial(pc, adata, 0, "cpu")
+    gpu_sets = aerial_points(aerial_mod, a_gpu)
+    cpu_sets = aerial_points(aerial_mod, a_cpu)
+    log(f"aerial seed 0 vs CPU: clusters {len(gpu_sets)} / {len(cpu_sets)}")
+    if not torch.equal(a_gpu.centroids.cpu(), a_cpu.centroids):
+        raise AssertionError("aerial seed 0: centroids differ from CPU")
+    if not same_clusters(gpu_sets, cpu_sets):
+        raise AssertionError("aerial seed 0: clusters differ from CPU")
+    acloud = pc.make_cloud_arrays(adata, device="cuda")
+    timed_frames(lambda f: run_aerial(pc, adata, f, cloud=acloud),
+                 AERIAL_FRAMES, aerial_mod,
+                 ["voxel_downsample_sweep_fused", "structure_from_sorted",
+                  "sweep_knn_moments_rows", "normals_from_moment_rows",
+                  "ransac_plane_masked", "compaction_order",
+                  "sweep_cluster_labels"],
+                 card_line, "aerial")
+
+    # ── Phase 5: the pipelines' default kwargs ──
+    kd, launches = path_launches(K, "kitti_default", lambda: run_kitti(
+        pc, kdata, 0, "cuda", ransac_subsample=None))
+    add(launches)
+    kd_cpu = run_kitti(pc, kdata, 0, "cpu", ransac_subsample=None)
+    kd_sets, kd_cpu_sets = kitti_points(pc, kd), kitti_points(pc, kd_cpu)
+    log(f"kitti default kwargs: inliers={int(kd.inlier_mask.sum())} "
+        f"cpu_inliers={int(kd_cpu.inlier_mask.sum())} "
+        f"clusters={[len(c) for c in kd_sets]} "
+        f"plane={kd.plane_normal.cpu().tolist()}")
+    if not torch.allclose(kd.plane_normal.cpu(), kd_cpu.plane_normal,
+                          atol=1e-6):
+        raise AssertionError("kitti default: plane differs from CPU")
+    if len(kd_sets) < 3 or not same_clusters(kd_sets, kd_cpu_sets):
+        raise AssertionError("kitti default: clusters differ from CPU")
+
+    over = dict(ransac_subsample=None, normals_rescue=True)
+    ad, launches = path_launches(K, "aerial_default", lambda: run_aerial(
+        pc, adata, 0, "cuda", **over))
+    add(launches)
+    ad_cpu = run_aerial(pc, adata, 0, "cpu", **over)
+    nok_rescue, nok_bench = normals_ok_share(ad), normals_ok_share(a_gpu)
+    ad_sets = aerial_points(aerial_mod, ad)
+    ad_cpu_sets = aerial_points(aerial_mod, ad_cpu)
+    log(f"aerial default kwargs + rescue: normals_ok={nok_rescue:.4f} "
+        f"(bench run {nok_bench:.4f}, CPU run "
+        f"{normals_ok_share(ad_cpu):.4f}) "
+        f"plane={ad.plane_normal.cpu().tolist()} clusters={len(ad_sets)} "
+        f"cluster_exact={bool(ad.cluster_exact)}")
+    if nok_rescue <= nok_bench:
+        raise AssertionError("aerial rescue did not raise normals_ok")
+    if not torch.equal(ad.normals_ok.cpu(), ad_cpu.normals_ok):
+        raise AssertionError("aerial default: normals_ok differs from CPU")
+    if not torch.allclose(ad.plane_normal.cpu(), ad_cpu.plane_normal,
+                          atol=1e-6):
+        raise AssertionError("aerial default: plane differs from CPU")
+    if not bool(ad.cluster_exact) or not same_clusters(ad_sets, ad_cpu_sets):
+        raise AssertionError("aerial default: clusters differ from CPU")
 
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = launches_total[r["name"]]
+        if r["launches"] <= 0:
+            raise AssertionError(f"{r['name']} never launched")
+    log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(card_line)
     log(json.dumps({"ok": True, "device": {

@@ -6,10 +6,11 @@ Pallas kernels on the ported path are hand-written CUDA C++ kernels
 (`spatial/csrc/`), built with nvcc at first use. The package imports
 torch, numpy and the standard library only.
 
-Ported so far: the KITTI obstacle pipeline (sweep backend).
+Ported so far: the KITTI obstacle and aerial pipelines (sweep backend).
 """
 
 from .core.cloud import bucket_size, make_cloud_arrays
+from .pipelines.aerial import AerialPipelineOutput, aerial_pipeline
 from .pipelines.kitti import (
     KittiPipelineOutput,
     extract_clusters,
@@ -17,7 +18,9 @@ from .pipelines.kitti import (
 )
 
 __all__ = [
+    "AerialPipelineOutput",
     "KittiPipelineOutput",
+    "aerial_pipeline",
     "bucket_size",
     "extract_clusters",
     "kitti_obstacle_pipeline",

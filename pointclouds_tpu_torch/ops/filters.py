@@ -1,7 +1,7 @@
-"""Voxel downsample (fused with the sweep SOR ordering) and the SOR keep
-mask: the counterparts of `pointclouds_tpu/ops/filters.py`'s
-`_segment_sums`, `voxel_scan_sor_epilogue`, `voxel_downsample_sweep_fused`
-and `sor_keep_mask_thr`.
+"""Voxel downsample (plain, and fused with the sweep SOR ordering) and the
+SOR keep mask: the counterparts of `pointclouds_tpu/ops/filters.py`'s
+`_segment_sums`, `voxel_downsample_masked`, `voxel_scan_sor_epilogue`,
+`voxel_downsample_sweep_fused` and `sor_keep_mask_thr`.
 
 Centroid values are bitwise equal to the JAX package's: the canonical-key
 stable sort groups each voxel's points in the same order, and the
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..core.cloud import stable_argsort
-from ..spatial.grid import cell_coords, scalar_like
+from ..spatial.grid import INVALID_KEY, cell_coords, pack_cell_key, scalar_like
 from ..spatial.kernels import segmented_scan_sums
 
 INVALID32 = 2**31 - 1
@@ -26,6 +26,38 @@ def _segment_sums(first, sx, sy, sz, scnt):
     return segmented_scan_sums(first.to(torch.float32).contiguous(),
                                sx.contiguous(), sy.contiguous(),
                                sz.contiguous(), scnt.contiguous())
+
+
+def voxel_downsample_masked(xyz, valid, voxel_size):
+    """Masked voxel-grid centroid downsample. ``voxel_size`` is taken as
+    float32.
+
+    Returns (centroids f32[N, 3], out_valid bool[N]): one centroid per
+    occupied voxel in the leading rows, in ascending (ix, iy, iz) cell
+    order; non-finite points are skipped."""
+    n = xyz.shape[0]
+    use = valid & torch.isfinite(xyz).all(dim=1)
+    key = torch.where(use, pack_cell_key(cell_coords(xyz, voxel_size)),
+                      INVALID_KEY)
+    order = stable_argsort(key)
+    skey = key[order]
+    suse = skey != INVALID_KEY
+    sx, sy, sz = (torch.where(suse, xyz[order, i], 0.0) for i in range(3))
+    ones = torch.ones(1, dtype=torch.bool, device=xyz.device)
+    first = torch.cat([ones, skey[1:] != skey[:-1]])
+    is_end = torch.cat([first[1:], ones])
+    cx, cy, cz, ccnt = _segment_sums(first, sx, sy, sz,
+                                     suse.to(torch.float32))
+
+    # Segment totals to the leading rows, in ascending key order.
+    ends = stable_argsort((~is_end).to(torch.int32))
+    ex, ey, ez, ecnt = cx[ends], cy[ends], cz[ends], ccnt[ends]
+    nseg = first.sum()
+    in_range = torch.arange(n, device=xyz.device) < nseg
+    counts = torch.where(in_range, ecnt, 0.0)
+    denom = torch.clamp(counts, min=1.0)
+    centroids = torch.stack([ex / denom, ey / denom, ez / denom], dim=1)
+    return centroids, counts > 0.0
 
 
 def voxel_scan_sor_epilogue(skey, sx, sy, sz, ext_v, esc, *, factor: int,

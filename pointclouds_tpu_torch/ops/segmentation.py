@@ -1,20 +1,40 @@
 """RANSAC ground-plane fit: the counterpart of
-`pointclouds_tpu/ops/segmentation.py::ransac_plane_masked` on the KITTI
-pipeline's tournament path.
+`pointclouds_tpu/ops/segmentation.py::ransac_plane_masked` and
+`_ransac_sequential_scan`.
 
 Hypotheses come from the threefry port, so the same seed draws the same
-three points per iteration as the JAX package; every hypothesis is scored
-on an evenly spaced subsample of the valid points, the top ``rescore_top``
-are rescored over the full cloud, and the first maximum wins.
+three points per iteration as the JAX package. Three scorings, as there:
+the tournament (every hypothesis on an evenly spaced subsample, the top
+``rescore_top`` rescored over the full cloud), full scoring of every
+hypothesis (kernel `ransac_score_counts` up to 4096 iterations), and the
+reference's sequential loop with adaptive early termination, which
+``adaptive=True`` selects below 10,000 valid points or 16 iterations.
 """
 
 from __future__ import annotations
+
+import contextlib
+import math
 
 import numpy as np
 import torch
 
 from ..core.cloud import compaction_order
+from ..spatial.kernels import ransac_score_counts
 from ..utils.threefry import mod_u64, random_bits64
+from .registration import _to_planar
+
+# ln(1 - 0.999), the reference's adaptive-termination constant.
+_LN_OUTLIER = math.log(0.001)
+# Reference dispatch: the sequential adaptive path runs unless n >= 10_000
+# AND iterations >= 16.
+_PARALLEL_MIN_POINTS = 10_000
+_PARALLEL_MIN_ITERS = 16
+# Full scoring goes through the counts kernel up to this many hypotheses
+# (as the JAX package's kernel path), through a matmul above it.
+_KERNEL_MAX_ITERS = 4096
+# Matmul scoring works on at most this many point-hypothesis pairs at once.
+_SCORE_CHUNK_ELEMS = 1 << 26
 
 
 def _sample_three_distinct(seed: int, iterations: int, cnt):
@@ -33,35 +53,117 @@ def _sample_three_distinct(seed: int, iterations: int, cnt):
     return torch.stack([a, b, c], dim=1)
 
 
-def _inlier_counts(xyz, use_pt, normal, d, threshold):
-    """Inliers of each hypothesis (columns of ``normal``/``d``): a plain f32
-    matrix product, TF32 off (TF32 keeps ~3 digits: centimetres at 10 m)."""
+@contextlib.contextmanager
+def _full_fp32_matmul():
+    """TF32 off for the enclosed matmuls (TF32 keeps ~3 digits:
+    centimetres at 10 m), the caller's setting restored afterwards."""
+    saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    dist = torch.abs(xyz @ normal.T + d[None, :])
-    return (use_pt[:, None] & (dist <= threshold)).sum(dim=0)
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _inlier_counts(xyz, use_pt, normal, d, threshold):
+    """Inliers of each hypothesis (rows of ``normal``/``d``) by a plain f32
+    matrix product, the JAX package's `Precision.HIGHEST` dot, over chunks
+    of hypotheses. Returns int64[H]."""
+    step = max(1, _SCORE_CHUNK_ELEMS // max(xyz.shape[0], 1))
+    parts = []
+    with _full_fp32_matmul():
+        for s in range(0, normal.shape[0], step):
+            dist = torch.abs(xyz @ normal[s:s + step].T + d[None, s:s + step])
+            parts.append((use_pt[:, None] & (dist <= threshold)).sum(dim=0))
+    return torch.cat(parts)
+
+
+def _score_all(xyz, use_pt, normal, d, threshold, iterations: int):
+    """Full-cloud inlier counts of every hypothesis, int64[iterations]."""
+    if iterations > _KERNEL_MAX_ITERS:
+        return _inlier_counts(xyz, use_pt, normal, d, threshold)
+    dev = xyz.device
+    nh = -(-iterations // 128) * 128
+    hyp = torch.zeros((5, nh), dtype=torch.float32, device=dev)
+    hyp[:3, :iterations] = normal.T
+    hyp[3, :iterations] = d
+    hyp[4, :iterations] = threshold
+    hyp[4, iterations:] = -1.0  # pad slots count 0
+    counts = ransac_score_counts(hyp, _to_planar(xyz, use_pt))
+    return counts[:iterations].to(torch.int64)
+
+
+def _ransac_sequential_scan(xyz, use_pt, normal, d, degenerate, threshold,
+                            cnt, iterations: int, chunk: int = 16):
+    """The reference's sequential RANSAC with adaptive early termination,
+    scored ``chunk`` hypotheses at a time.
+
+    The reference walks hypotheses in order, keeps the first running
+    maximum (strict ``>``), and at an improving iteration stops when
+    ``iter > ln(0.001)/ln(1 - w^3)`` with ``w = best/n > 0.5``. Each chunk
+    is scored in one matmul and that rule replayed inside it; ``w``,
+    ``needed`` and the comparison run in float64, as in the JAX package.
+    Returns (best_iter, best_count, n_evaluated) as Python ints."""
+    c_len = max(1, min(chunk, iterations))
+    nch = -(-iterations // c_len)
+    n64 = max(float(int(cnt)), 1.0)
+    threshold = float(np.float32(threshold))
+    bc, bi, ne = 0, 0, 0
+    # Host loop: one read of each chunk's counts, and it stops at the
+    # chunk that holds the breaking iteration.
+    for ci in range(nch):
+        base = ci * c_len
+        sl = slice(base, base + c_len)
+        c = _inlier_counts(xyz, use_pt, normal[sl], d[sl], threshold)
+        c = torch.where(degenerate[sl], -1, c).cpu().numpy()
+        c = np.concatenate([c, np.full(c_len - len(c), -1, np.int64)])
+        pre = np.maximum(bc, np.concatenate(
+            [[-(2**31) + 1], np.maximum.accumulate(c)[:-1]]))
+        improved = c > pre
+        w = c.astype(np.float64) / n64
+        with np.errstate(divide="ignore"):
+            denom = np.log(np.clip(1.0 - (w * w) * w, 1e-300, None))
+        needed = _LN_OUTLIER / denom
+        g = (base + np.arange(c_len)).astype(np.float64)
+        brk = np.nonzero(improved & (w > 0.5) & (g > needed))[0]
+        fb = int(brk[0]) if len(brk) else c_len
+        cm = c[: fb + 1]  # the breaking iteration itself is evaluated
+        cmax = int(cm.max())
+        if cmax > bc:
+            bc, bi = cmax, base + int(np.argmax(cm))
+        ne += min(fb + 1, c_len, iterations - base)
+        if fb < c_len:
+            break
+    return bi, bc, ne
 
 
 def ransac_plane_masked(xyz, valid, threshold, seed, iterations: int, *,
+                        assume_compact: bool = False,
                         score_subsample: int | None = None,
-                        rescore_top: int = 8, position_rows=None):
-    """Batched RANSAC plane fit on a masked cloud with tournament scoring.
+                        rescore_top: int = 8, adaptive: bool = False,
+                        position_rows=None):
+    """Batched RANSAC plane fit on a masked cloud.
 
     Returns (normal f32[3], d f32, inlier_mask bool[N]); fewer than 3 valid
     points give normal (0, 0, 1), d = 0 and no inliers. ``position_rows``
-    maps sample position p to the row holding the p-th valid point (default:
-    the stable compaction order). ``threshold`` is taken as float32."""
-    if score_subsample is None or iterations <= rescore_top:
-        raise NotImplementedError(
-            "ransac_plane_masked: full scoring needs the ransac_score_counts "
-            "kernel and _ransac_sequential_scan, the next slice "
-            "(ROADMAP.md, queue 2 item 5); pass score_subsample")
+    maps sample position p to the row holding the p-th valid point;
+    ``assume_compact`` asserts the valid rows are the leading ones (default:
+    the stable compaction order). ``score_subsample=m`` selects the
+    tournament; ``adaptive=True`` the reference's dispatch between full
+    scoring and the sequential scan (ignored under the tournament).
+    ``threshold`` is taken as float32."""
     threshold = float(np.float32(threshold))
     dev = xyz.device
     cnt = valid.sum()
     samples = _sample_three_distinct(seed, iterations, cnt)
-    order = (compaction_order(valid) if position_rows is None
-             else position_rows.long())
-    idx = order[samples.reshape(-1)]
+    if position_rows is not None:
+        order = position_rows.long()
+    elif assume_compact:
+        order = None  # position p is row p
+    else:
+        order = compaction_order(valid)
+    flat = samples.reshape(-1)
+    idx = flat if order is None else order[flat]
     p = xyz[idx].reshape(iterations, 3, 3)
 
     v1 = p[:, 1] - p[:, 0]
@@ -80,26 +182,46 @@ def ransac_plane_masked(xyz, valid, threshold, seed, iterations: int, *,
     d = -(q[:, 0] + q[:, 1] + q[:, 2])
 
     use_pt = valid & torch.isfinite(xyz).all(dim=-1)
-    m = score_subsample
-    ar = torch.arange(m, dtype=torch.int64, device=dev)
-    pos = ar * (cnt // m) + (ar * (cnt % m)) // m
-    distinct = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                          pos[1:] != pos[:-1]])
-    sub_rows = order[pos]
-    sub_use = use_pt[sub_rows] & distinct
-    sub_counts = _inlier_counts(xyz[sub_rows], sub_use, normal, d, threshold)
-    sub_counts = torch.where(degenerate, -1, sub_counts)
-    # Leaders, ties toward the EARLIER hypothesis (first-max reduce).
-    ii = torch.arange(iterations, dtype=torch.int64, device=dev)
-    top_idx = torch.topk(sub_counts * iterations + (iterations - 1 - ii),
-                         rescore_top).indices
-    full_counts = _inlier_counts(xyz, use_pt, normal[top_idx], d[top_idx],
-                                 threshold)
-    full_counts = torch.where(degenerate[top_idx], -1, full_counts)
-    mx = full_counts.max()
-    best = torch.where(full_counts == mx, top_idx, iterations).min()
+    if score_subsample is not None and iterations > rescore_top:
+        m = score_subsample
+        ar = torch.arange(m, dtype=torch.int64, device=dev)
+        pos = ar * (cnt // m) + (ar * (cnt % m)) // m
+        distinct = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                              pos[1:] != pos[:-1]])
+        sub_rows = pos if order is None else order[pos]
+        sub_use = use_pt[sub_rows] & distinct
+        sub_counts = _inlier_counts(xyz[sub_rows], sub_use, normal, d,
+                                    threshold)
+        sub_counts = torch.where(degenerate, -1, sub_counts)
+        # Leaders, ties toward the EARLIER hypothesis (first-max reduce).
+        ii = torch.arange(iterations, dtype=torch.int64, device=dev)
+        top_idx = torch.topk(sub_counts * iterations + (iterations - 1 - ii),
+                             rescore_top).indices
+        full_counts = _inlier_counts(xyz, use_pt, normal[top_idx], d[top_idx],
+                                     threshold)
+        full_counts = torch.where(degenerate[top_idx], -1, full_counts)
+        best_count = full_counts.max()
+        best = torch.where(full_counts == best_count, top_idx,
+                           iterations).min()
+    else:
+        # The reference's dispatch: a host read of the valid count.
+        sequential = adaptive and iterations >= 2 and (
+            iterations < _PARALLEL_MIN_ITERS
+            or int(cnt) < _PARALLEL_MIN_POINTS)
+        if sequential:
+            bi, bcount, _ = _ransac_sequential_scan(
+                xyz, use_pt, normal, d, degenerate, threshold, cnt,
+                iterations)
+            best = torch.tensor(bi, device=dev)
+            best_count = torch.tensor(bcount, device=dev)
+        else:
+            counts = _score_all(xyz, use_pt, normal, d, threshold,
+                                iterations)
+            counts = torch.where(degenerate, -1, counts)
+            best = torch.argmax(counts)  # first maximum
+            best_count = counts[best]
 
-    ok_model = (mx > 0) & (cnt >= 3)
+    ok_model = (best_count > 0) & (cnt >= 3)
     best_c = torch.clamp(best, max=iterations - 1)
     best_normal = torch.where(ok_model, normal[best_c],
                               torch.tensor([0.0, 0.0, 1.0], device=dev))

@@ -128,6 +128,9 @@ def kitti_obstacle_pipeline(
     normal, d, inlier_mask = ransac_plane_masked(
         centroids, cleaned_valid, ransac_thresh, int(seed), ransac_iters,
         score_subsample=ransac_subsample, position_rows=position_rows,
+        # The reference's dispatch (sequential adaptive scan below 10K
+        # valid points) wherever every hypothesis is scored.
+        adaptive=(ransac_subsample is None),
     )
 
     # ── Step 4: ground removal + canonical-order obstacle compaction ───────

@@ -7,7 +7,6 @@ from __future__ import annotations
 import numpy as np
 
 
-
 def kitti_scene(seed: int = 42, scale: float = 1.0) -> np.ndarray:
     """KITTI-like LiDAR frame: ~68K points at scale=1.0 (ground 60k,
     2 cars 3k each, pedestrian 500, noise 1.5k)."""
@@ -78,3 +77,56 @@ def velodyne_scene(seed: int = 0, n_points: int = 122_000) -> np.ndarray:
         pts = np.vstack([pts, extra])
     return pts
 
+
+def aerial_scene(seed: int = 7, scale: float = 1.0) -> np.ndarray:
+    """Aerial LiDAR over a 500x500 m tile: undulating terrain + 5 buildings
+    + 8 trees. ~241K points at scale=1.0."""
+    rng = np.random.default_rng(seed)
+    parts = []
+
+    # Terrain: 200K ground points on gentle hills
+    n_terrain = int(200_000 * scale)
+    tx = rng.uniform(0, 500, n_terrain)
+    ty = rng.uniform(0, 500, n_terrain)
+    tz = (
+        2.0 * np.sin(tx * 0.02) * np.cos(ty * 0.015)
+        + rng.normal(0, 0.05, n_terrain)
+    )
+    parts.append(np.column_stack([tx, ty, tz]).astype(np.float32))
+
+    # Buildings: boxes with roofs
+    for _ in range(5):
+        bx, by = rng.uniform(50, 450, 2)
+        w, l = rng.uniform(15, 40, 2)
+        h = rng.uniform(8, 30)
+        n_b = int(6_000 * scale)
+        base = 2.0 * np.sin(bx * 0.02) * np.cos(by * 0.015)
+        # roof
+        rx = rng.uniform(bx, bx + w, n_b // 2)
+        ry = rng.uniform(by, by + l, n_b // 2)
+        rz = np.full(n_b // 2, base + h) + rng.normal(0, 0.05, n_b // 2)
+        parts.append(np.column_stack([rx, ry, rz]).astype(np.float32))
+        # walls
+        wx = rng.uniform(bx, bx + w, n_b // 2)
+        wy = np.where(rng.random(n_b // 2) < 0.5, by, by + l) + rng.normal(
+            0, 0.02, n_b // 2
+        )
+        wz = base + rng.uniform(0, h, n_b // 2)
+        parts.append(np.column_stack([wx, wy, wz]).astype(np.float32))
+
+    # Trees: vertical gaussian blobs
+    for _ in range(8):
+        cx, cy = rng.uniform(20, 480, 2)
+        base = 2.0 * np.sin(cx * 0.02) * np.cos(cy * 0.015)
+        n_t = int(1_400 * scale)
+        parts.append(
+            np.column_stack(
+                [
+                    rng.normal(cx, 2.0, n_t),
+                    rng.normal(cy, 2.0, n_t),
+                    base + rng.uniform(2, 12, n_t),
+                ]
+            ).astype(np.float32)
+        )
+
+    return np.vstack(parts).astype(np.float32)

@@ -4,8 +4,9 @@ All ``csrc/*.cu`` files compile with ``nvcc`` into ONE shared library with a
 plain C interface (no PyTorch headers: seconds, not minutes), written to
 ``build/kernels/`` at the repository root under a name keyed by a hash of
 the sources, so an edited source rebuilds and an unchanged one loads the
-cached library. Pointers and the stream cross as ``c_void_p``. A failed
-build raises with nvcc's stderr; nothing falls back to another path.
+cached library. Each source compiles in its own nvcc process, all started
+together, then one link. Pointers and the stream cross as ``c_void_p``. A
+failed build raises with nvcc's stderr; nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "--fmad=false", "-Xptxas", "-v",
 ]
 
@@ -38,6 +39,13 @@ _SIGNATURES = {
                          _I),
     "pc_cluster_round": ([_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P],
                          _I),
+    "pc_ransac_score_counts": ([_P, _P, _P, _P, _I, _I, _P], _I),
+    "pc_sweep_moments": ([_P, _P, _P, _I, _I, ctypes.c_float,
+                          ctypes.c_float, _P], _I),
+    "pc_rescue_knn_idx": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                          _I),
+    "pc_cluster_round_windows": ([_P, _P, _P, _P, _P, _I, ctypes.c_float,
+                                  _P], _I),
 }
 
 
@@ -76,6 +84,39 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise with the first failure's stderr.
+    Returns their combined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (o, e) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError("nvcc failed (exit %d):\n%s\n%s"
+                               % (p.returncode, " ".join(cmd), e))
+    return "".join(o + e for o, e in outs)
+
+
+def _compile(out: Path) -> str:
+    """One nvcc per source, all at once, then one link into ``out``."""
+    nvcc = _nvcc()
+    tag = f"{out.name}.{os.getpid()}"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f".{tag}.{p.stem}.o" for p in srcs]
+    tmp = BUILD_DIR / f".{tag}.tmp"
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                        for p, o in zip(srcs, objs)])
+        log += _run_all([[nvcc, "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return log
+
+
 @functools.cache
 def library() -> KernelLibrary:
     """Build (once per source hash) and load the kernel library; loaded
@@ -91,17 +132,7 @@ def library() -> KernelLibrary:
     log_path = BUILD_DIR / f"libpc_kernels_{key}.log"
     t0 = time.perf_counter()
     if not out.exists():
-        tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed (exit %d):\n%s\n%s"
-                % (res.returncode, " ".join(cmd), res.stderr)
-            )
-        log_path.write_text(res.stdout + res.stderr)
-        os.replace(tmp, out)
+        log_path.write_text(_compile(out))
     build_seconds = time.perf_counter() - t0
     log = log_path.read_text() if log_path.exists() else ""
     return KernelLibrary(out, build_seconds, log)

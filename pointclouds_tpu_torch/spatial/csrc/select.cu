@@ -24,72 +24,23 @@
 // to every group of the cloud, so its group list is split over `nsplit`
 // blocks per query block, each keeping a partial top-k, and a second
 // kernel merges the partial lists (the k smallest of their union).
-#include "common.cuh"
+#include "topk.cuh"
 
 namespace {
 
-constexpr int kMaxK = 32;
-
-struct TopK {
-  float r[kMaxK];
-  float thr;  // r[k - 1]: candidates at or above it cannot enter
-
-  __device__ void init() {
+__device__ void store_topk(const TopK& tk, float* out, long long stride,
+                           long long q, int k) {
+  float total = 0.0f;
 #pragma unroll
-    for (int i = 0; i < kMaxK; ++i) r[i] = __int_as_float(0x7f800000);
-    thr = __int_as_float(0x7f800000);
-  }
-
-  __device__ void push(float d2, int k) {
-    if (!(d2 < thr)) return;
-    float cur = d2;
-#pragma unroll
-    for (int i = 0; i < kMaxK; ++i) {
-      float lo = fminf(r[i], cur);
-      cur = fmaxf(r[i], cur);
-      r[i] = lo;
-    }
-#pragma unroll
-    for (int i = 0; i < kMaxK; ++i)
-      if (i == k - 1) thr = r[i];
-  }
-
-  __device__ void store(float* out, long long stride, long long q, int k) {
-    float total = 0.0f, count = 0.0f, kth = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kMaxK; ++i) {
-      if (i < k && r[i] < __int_as_float(0x7f800000)) {
-        total = __fadd_rn(total, sqrtf(fmaxf(r[i], 0.0f)));
-        count = __fadd_rn(count, 1.0f);
-        kth = r[i];
-      }
-    }
-    out[q] = total;
-    out[stride + q] = count;
-    out[2 * stride + q] = kth;
-    out[3 * stride + q] = 1.0f;
-  }
-};
-
-// Stage planar row `row` of `pts` into shared memory, then fold its 128
-// candidates into this thread's top-k.
-__device__ __forceinline__ void visit_row(const float* __restrict__ pts,
-                                          long long row, float* sh, float qx,
-                                          float qy, float qz, bool qv,
-                                          TopK& tk, int k) {
-  const int l = threadIdx.x;
-  __syncthreads();  // previous row fully consumed
-  const float* src = pts + row * kRowFloats;
-  sh[l] = src[l];
-  sh[kLanes + l] = src[kLanes + l];
-  sh[2 * kLanes + l] = src[2 * kLanes + l];
-  sh[3 * kLanes + l] = src[3 * kLanes + l];
-  __syncthreads();
-  if (!qv) return;
-  for (int j = 0; j < kLanes; ++j) {
-    if (sh[3 * kLanes + j] > 0.5f)
-      tk.push(d2_rn(qx, qy, qz, sh[j], sh[kLanes + j], sh[2 * kLanes + j]), k);
-  }
+  for (int i = 0; i < kMaxK; ++i)
+    if (i < k && tk.r[i] < kInf)
+      total = __fadd_rn(total, sqrtf(fmaxf(tk.r[i], 0.0f)));
+  float count, kth;
+  tk.count_kth(k, count, kth);
+  out[q] = total;
+  out[stride + q] = count;
+  out[2 * stride + q] = kth;
+  out[3 * stride + q] = 1.0f;
 }
 
 // pts: [nr + 1, 4, 128] (pad row nr all-masked); rowlist: [nb, cap + 2]
@@ -112,7 +63,7 @@ __global__ void sweep_select_rows_kernel(const float* __restrict__ pts,
     for (int t = 0; t < nrows; ++t)
       visit_row(pts, rl[t], sh, qx, qy, qz, qv, tk, k);
   }
-  tk.store(out, (long long)nb * kLanes, (long long)b * kLanes + l, k);
+  store_topk(tk, out, (long long)nb * kLanes, (long long)b * kLanes + l, k);
 }
 
 // cand: [nr, 4, 128]; q: [qb, 4, 128]; active: [qb, 1 + ng] (count, then
@@ -167,7 +118,7 @@ __global__ void rescue_merge_kernel(const float* __restrict__ part,
   for (int s = 0; s < nsplit; ++s)
     for (int i = 0; i < k; ++i)
       tk.push(part[((long long)s * k + i) * nq + qi], k);
-  tk.store(out, nq, qi, k);
+  store_topk(tk, out, nq, qi, k);
 }
 
 }  // namespace

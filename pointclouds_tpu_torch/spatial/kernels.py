@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels, each beside its plain torch version.
 
-Counterparts of the four Pallas kernels on the KITTI pipeline's path
-(`pointclouds_tpu/spatial/pallas_kernels.py`). Each wrapper checks its
+Counterparts of the eight Pallas kernels on the KITTI and aerial pipelines'
+paths (`pointclouds_tpu/spatial/pallas_kernels.py`). Each wrapper checks its
 inputs, runs the plain version for CPU tensors, and for CUDA tensors
 launches the kernel (built from ``csrc/`` at first use) or raises; it
 never falls back. ``LAUNCHES`` counts kernel launches per wrapper, so a
@@ -17,6 +17,7 @@ its rows.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 LAUNCHES = {
@@ -24,10 +25,18 @@ LAUNCHES = {
     "sweep_select_rows": 0,
     "rescue_select": 0,
     "cluster_multisweep": 0,
+    "ransac_score_counts": 0,
+    "sweep_moments": 0,
+    "rescue_knn_idx": 0,
+    "cluster_multisweep_windows": 0,
 }
 
-# Blocks that share one rescue query block's group list (csrc/select.cu).
+# Blocks that share one rescue query block's group list (csrc/select.cu,
+# csrc/knn.cu).
 _RESCUE_SPLIT = 16
+# Relative inclusion band of the moments' second walk
+# (`pallas_kernels.D2_BAND`): ~7 ulp.
+D2_BAND = 8e-7
 # Plain versions work on at most this many d2 elements at a time.
 _CHUNK_ELEMS = 1 << 24
 
@@ -147,6 +156,13 @@ def segmented_scan_sums(first, x, y, z, c):
 # ── 2./3. Exact k-smallest selection (SOR passes 1 and 2) ──────────────────
 
 
+def _sqrt_f32(x):
+    """Correctly rounded float32 square root (as CUDA's sqrtf and XLA's):
+    taken in float64, whose rounding to float32 is then exact. torch's
+    vectorised CPU sqrt is not correctly rounded."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def _topk_stats(w, k: int):
     """(total, count, kth) of the k smallest finite values along the last
     axis of ``w`` (inf = masked), summed sequentially in ascending order."""
@@ -159,7 +175,7 @@ def _topk_stats(w, k: int):
     total = torch.zeros(w.shape[:-1], dtype=torch.float32, device=w.device)
     for j in range(kk):
         total = total + torch.where(
-            fin[..., j], torch.sqrt(torch.clamp(vals[..., j], min=0.0)), 0.0
+            fin[..., j], _sqrt_f32(torch.clamp(vals[..., j], min=0.0)), 0.0
         )
     count = fin.sum(-1)
     last = torch.clamp(count - 1, min=0).unsqueeze(-1)
@@ -198,24 +214,44 @@ def _d2(qx, qy, qz, cx, cy, cz):
     return fma_f32(dz, dz, fma_f32(dx, dx, dy * dy))
 
 
-def _block_pairs(q, pts, rows):
+def _block_cands(q, pts, rows):
     """Chunks of query blocks against their candidate rows: yields (rows
-    [B, R], d2 [B, 128, R*128], both-valid mask) for q [NB, 4, 128]
-    and rows [NB, R] ids into ``pts`` (w channel = validity)."""
+    [B, R], query rows [B, 4, 128], candidates [B, 4, R*128]) for q
+    [NB, 4, 128] and rows [NB, R] ids into ``pts``, at most
+    ``_CHUNK_ELEMS`` query-candidate pairs per chunk."""
     nb, r = rows.shape
     step = max(1, _CHUNK_ELEMS // (128 * 128 * max(r, 1)))
     for s in range(0, nb, step):
         rs = rows[s:s + step]
-        cand = pts[rs]  # [B, R, 4, 128]
-        b = cand.shape[0]
+        b = rs.shape[0]
+        cand = pts[rs].permute(0, 2, 1, 3).reshape(b, 4, r * 128)
+        yield rs, q[s:s + b], cand
 
-        def ch(i):
-            return cand[:, :, i, :].reshape(b, r * 128)
 
-        qs = q[s:s + b]
-        d2 = _d2(qs[:, 0], qs[:, 1], qs[:, 2], ch(0), ch(1), ch(2))
-        pair = (qs[:, 3, :, None] > 0.5) & (ch(3)[:, None, :] > 0.5)
+def _block_pairs(q, pts, rows):
+    """`_block_cands` with the pinned d2 [B, 128, R*128] and the both-valid
+    mask (w channel = validity) in place of the candidates."""
+    for rs, qs, cand in _block_cands(q, pts, rows):
+        d2 = _d2(qs[:, 0], qs[:, 1], qs[:, 2], cand[:, 0], cand[:, 1],
+                 cand[:, 2])
+        pair = (qs[:, 3, :, None] > 0.5) & (cand[:, 3, None, :] > 0.5)
         yield rs, d2, pair
+
+
+def _within_r2(qs, cand, r2: float):
+    """[B, 128, C] exact ``d2 <= r2`` for the pinned d2, without the fma
+    emulation on every pair: a plain f32 sum of the three squares is within
+    a few ulp of the pinned form (no cancellation), so only pairs within a
+    1e-5 relative band of r2 need the exact form."""
+    d = [qs[:, i, :, None] - cand[:, i, None, :] for i in range(3)]
+    approx = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    within = approx <= r2
+    near = (approx - r2).abs() <= r2 * 1e-5 + 1e-30
+    if bool(near.any()):  # host read: plain versions only
+        idx = near.nonzero(as_tuple=True)
+        dx, dy, dz = (x[idx] for x in d)
+        within[idx] = fma_f32(dz, dz, fma_f32(dx, dx, dy * dy)) <= r2
+    return within
 
 
 def _select_rows_plain(q, pts, rows, k: int):
@@ -283,12 +319,7 @@ def rescue_select_plain(cand_planar, q_planar, active, *, k: int, gr: int):
     # Slots past a block's group count read an all-masked pad row at nr.
     pts = torch.cat([cand_planar, torch.zeros((1, 4, 128),
                                               device=cand_planar.device)])
-    cnt = torch.where(q_planar[:, 3, :].amax(dim=1) > 0.5, active[:, 0], 0)
-    g = int(cnt.max()) if active.shape[0] else 0
-    slot = torch.arange(g * gr, device=active.device)
-    groups = active[:, 1:1 + g].long().repeat_interleave(gr, dim=1)
-    rows = torch.where(slot[None, :] < cnt[:, None] * gr,
-                       groups * gr + slot % gr, nr)
+    rows = _group_rows(q_planar, active, gr, nr)
     return _select_rows_plain(q_planar, pts, rows, k)
 
 
@@ -348,9 +379,10 @@ def _cluster_round_plain(pts, rows, lab, r2):
     big = torch.iinfo(torch.int32).max
     lab2 = lab.reshape(-1, 128)
     hops = []
-    for rs, d2, pair in _block_pairs(pts, pts, rows):
+    for rs, qs, cand in _block_cands(pts, pts, rows):
+        pair = (qs[:, 3, :, None] > 0.5) & (cand[:, 3, None, :] > 0.5)
         clab = lab2[rs].reshape(rs.shape[0], 1, r * 128)
-        hops.append(torch.where(pair & (d2 <= r2), clab, big)
+        hops.append(torch.where(pair & _within_r2(qs, cand, r2), clab, big)
                     .amin(-1).reshape(-1))
     m = torch.minimum(torch.cat(hops), lab[:nq])
     new = lab.clone()
@@ -361,16 +393,22 @@ def _cluster_round_plain(pts, rows, lab, r2):
     return new, (new[:nq] != lab[:nq]).to(torch.int32)
 
 
-def cluster_multisweep_plain(pts_planar, rowlist, r2, *, cap: int,
-                             max_rounds: int):
+def _initial_labels(nr: int, nb: int, labels0, device):
+    """Labels over all (nr + 1) * 128 padded rows: own positions, or
+    ``labels0`` (i32[nb * 128]) for the query rows to resume from."""
+    lab = torch.arange((nr + 1) * 128, dtype=torch.int32, device=device)
+    if labels0 is not None:
+        lab[: nb * 128] = labels0
+    return lab
+
+
+def _cluster_rounds_plain(pts_planar, rows, r2, nb: int, max_rounds: int,
+                          labels0=None):
     nr = pts_planar.shape[0]
-    nb = rowlist.shape[0]
     pts = _cluster_pad(pts_planar)
-    lab = torch.arange((nr + 1) * 128, dtype=torch.int32,
-                       device=pts_planar.device)
+    lab = _initial_labels(nr, nb, labels0, pts_planar.device)
     changed = torch.zeros(nb * 128, dtype=torch.int32,
                           device=pts_planar.device)
-    rows = _list_rows(rowlist, cap, nr)
     rounds = 0
     while rounds < max_rounds:
         lab, changed = _cluster_round_plain(pts, rows, lab, r2)
@@ -378,6 +416,13 @@ def cluster_multisweep_plain(pts_planar, rowlist, r2, *, cap: int,
         if not bool(changed.any()):  # host sync: convergence test
             break
     return lab[: nb * 128], changed, rounds
+
+
+def cluster_multisweep_plain(pts_planar, rowlist, r2, *, cap: int,
+                             max_rounds: int):
+    rows = _list_rows(rowlist, cap, pts_planar.shape[0])
+    return _cluster_rounds_plain(pts_planar, rows, r2, rowlist.shape[0],
+                                 max_rounds)
 
 
 def cluster_multisweep(pts_planar, rowlist, r2, *, cap: int,
@@ -404,18 +449,308 @@ def cluster_multisweep(pts_planar, rowlist, r2, *, cap: int,
     if not _on_cuda(pts_planar):
         return cluster_multisweep_plain(pts_planar, rowlist, r2, cap=cap,
                                         max_rounds=max_rounds)
+    return _cluster_rounds_cuda("cluster_multisweep", "pc_cluster_round",
+                                pts_planar, rowlist, (cap,), r2, nb,
+                                max_rounds)
+
+
+def _cluster_rounds_cuda(name: str, entry: str, pts_planar, cands, extra,
+                         r2: float, nb: int, max_rounds: int, labels0=None):
+    """Launch rounds of ``entry`` until one changes nothing (a host read of
+    the change counter after each round), at most ``max_rounds``."""
+    dev = pts_planar.device
     pts = _cluster_pad(pts_planar)
-    lab = torch.arange((nr + 1) * 128, dtype=torch.int32, device=dev)
+    lab = _initial_labels(pts_planar.shape[0], nb, labels0, dev)
     changed = torch.zeros(nb * 128, dtype=torch.int32, device=dev)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _lib()
     rounds = 0
     while rounds < max_rounds:
-        lib.call("pc_cluster_round", pts.data_ptr(), rowlist.data_ptr(),
-                 lab.data_ptr(), changed.data_ptr(), counter.data_ptr(), nb,
-                 cap, r2, _stream())
-        LAUNCHES["cluster_multisweep"] += 1
+        lib.call(entry, pts.data_ptr(), cands.data_ptr(), lab.data_ptr(),
+                 changed.data_ptr(), counter.data_ptr(), nb, *extra, r2,
+                 _stream())
+        LAUNCHES[name] += 1
         rounds += 1
         if int(counter.item()) == 0:  # host sync: convergence test
             break
     return lab[: nb * 128], changed, rounds
+
+
+# ── 5. RANSAC inlier counts ─────────────────────────────────────────────────
+
+
+def ransac_score_counts_plain(hyp, pts_planar):
+    """Counts with the kernel's pinned distance form
+    |fma(z, nz, fma(x, nx, y*ny)) + d|, over chunks of points."""
+    nh = hyp.shape[1]
+    x, y, z, w = (pts_planar[:, i, :].reshape(-1) for i in range(4))
+    nx, ny, nz, dd, th = (hyp[i][None, :] for i in range(5))
+    counts = torch.zeros(nh, dtype=torch.int64, device=hyp.device)
+    step = max(1, _CHUNK_ELEMS // max(nh, 1))
+    for s in range(0, x.shape[0], step):
+        px, py, pz = (a[s:s + step, None] for a in (x, y, z))
+        dist = (fma_f32(pz, nz, fma_f32(px, nx, py * ny)) + dd).abs()
+        hit = (w[s:s + step, None] > 0.5) & (dist <= th)
+        counts += hit.sum(dim=0)
+    return counts.to(torch.float32)
+
+
+def ransac_score_counts(hyp, pts_planar):
+    """Inlier counts per plane hypothesis over the whole masked cloud.
+
+    hyp f32[5, NH] (rows nx, ny, nz, d, threshold; NH a multiple of 128,
+    pad slots carry threshold -1), pts_planar f32[NR, 4, 128] (w =
+    validity). Returns f32[NH] counts, exact.
+
+    Replaces `pallas_kernels.ransac_score_counts` (csrc/ransac.cu)."""
+    nh = hyp.shape[1]
+    nr = pts_planar.shape[0]
+    dev = hyp.device
+    if nh % 128:
+        raise ValueError(f"ransac_score_counts: NH={nh} not a multiple of 128")
+    _check("ransac_score_counts.hyp", hyp, torch.float32, (5, nh))
+    _check("ransac_score_counts.pts", pts_planar, torch.float32, (nr, 4, 128),
+           dev)
+    if not _on_cuda(hyp):
+        return ransac_score_counts_plain(hyp, pts_planar)
+    counts = torch.empty(nh, dtype=torch.int32, device=dev)
+    out = torch.empty(nh, dtype=torch.float32, device=dev)
+    _lib().call("pc_ransac_score_counts", hyp.data_ptr(),
+                pts_planar.data_ptr(), counts.data_ptr(), out.data_ptr(), nh,
+                nr, _stream())
+    LAUNCHES["ransac_score_counts"] += 1
+    return out
+
+
+# ── Window row lists (plain versions of the window kernels) ────────────────
+
+
+def _window_rows(starts, pad_row: int):
+    """[NB, R] candidate rows of each block's windows [start + skip, start +
+    length), in window order, pad slots (``pad_row``) after the real rows;
+    blocks with no valid query get none. R is the longest list, at least 1
+    (a host read: plain versions only)."""
+    nb = starts.shape[0]
+    st = starts[:, :9, None].long()
+    sk = starts[:, 9:18, None].long()
+    ln = starts[:, 18:27, None].long()
+    wr = int(ln.max()) if nb else 0
+    r = torch.arange(wr, device=starts.device)
+    keep = (r >= sk) & (r < ln) & (starts[:, 27, None, None] != 0)
+    keep = keep.reshape(nb, 9 * wr)
+    rows = (st + r).reshape(nb, 9 * wr)
+    order = torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices
+    n_keep = keep.sum(dim=1)
+    width = max(int(n_keep.max()) if nb else 0, 1)
+    rows = torch.gather(rows, 1, order[:, :width])
+    slot = torch.arange(width, device=starts.device)
+    return torch.where(slot[None, :] < n_keep[:, None], rows, pad_row)
+
+
+# ── 6. kNN moments over the windows ────────────────────────────────────────
+
+
+def sweep_moments_plain(pts_planar, starts, *, k: int):
+    nr = pts_planar.shape[0]
+    nb = starts.shape[0]
+    dev = pts_planar.device
+    out = torch.zeros((16, nb * 128), dtype=torch.float32, device=dev)
+    out[12] = 1.0
+    rows = _window_rows(starts, nr)
+    pts = torch.cat([pts_planar, torch.zeros((1, 4, 128), device=dev)])
+    band1 = torch.tensor(np.float32(1.0 + D2_BAND), device=dev)
+    band3 = torch.tensor(np.float32(1.0 + 3.0 * D2_BAND), device=dev)
+    at = 0
+    for rs, qs, cand in _block_cands(pts, pts, rows):
+        b, ncand = rs.shape[0], cand.shape[2]
+        d2 = _d2(qs[:, 0], qs[:, 1], qs[:, 2], cand[:, 0], cand[:, 1],
+                 cand[:, 2])
+        pair = (qs[:, 3, :, None] > 0.5) & (cand[:, 3, None, :] > 0.5)
+        _, count, kth = _topk_stats(torch.where(pair, d2, torch.inf), k)
+        le = pair & (d2 <= (kth * band1)[..., None])
+        cle = (pair & (d2 <= (kth * band3)[..., None])).sum(-1)
+        # Included candidates in ascending candidate order, summed one at
+        # a time from 0.0, as the kernel adds them.
+        m = int(le.sum(-1).max())
+        key = torch.where(le, torch.arange(ncand, device=dev), ncand)
+        idx = torch.topk(key, m, dim=-1, largest=False, sorted=True).values
+        slot_ok = idx < ncand
+        idx = torch.clamp(idx, max=ncand - 1)
+        rel = [torch.gather(cand[:, i, None, :].expand(b, 128, ncand), 2, idx)
+               - qs[:, i, :, None] for i in range(3)]
+        rx, ry, rz = rel
+        terms = (rx, ry, rz, rx * rx, ry * ry, rz * rz, rx * ry, rx * rz,
+                 ry * rz)
+        acc = [torch.zeros((b, 128), dtype=torch.float32, device=dev)
+               for _ in terms]
+        for j in range(m):
+            ok = slot_ok[..., j]
+            acc = [torch.where(ok, a + t[..., j], a) for a, t in zip(acc, terms)]
+        cols = slice(at * 128, (at + b) * 128)
+        for i, a in enumerate(acc):
+            out[i, cols] = a.reshape(-1)
+        out[9, cols] = cle.to(torch.float32).reshape(-1)
+        out[10, cols] = count.reshape(-1)
+        out[11, cols] = kth.reshape(-1)
+        at += b
+    return out
+
+
+def sweep_moments(pts_planar, starts, *, k: int):
+    """Exact kNN selection + banded query-centred neighbour moments over
+    each 128-query block's nine sorted windows.
+
+    pts_planar f32[NR, 4, 128] (query block b = row b); starts i32[NB, 28]
+    (the `_window_starts` pack). Returns f32[16, NB*128]: rows 0-2 sum of
+    (c - q), 3-8 sums of products (xx, yy, zz, xy, xz, yz) over the
+    candidates with d2 <= kth*(1 + D2_BAND), 9 cle (candidates with d2 <=
+    kth*(1 + 3 D2_BAND)), 10 count, 11 kth d2, 12 cert (1), 13-15 zero.
+
+    Replaces `pallas_kernels.sweep_moments` (csrc/moments.cu)."""
+    _check_k(k)
+    nr = pts_planar.shape[0]
+    nb = starts.shape[0]
+    dev = pts_planar.device
+    _check("sweep_moments.pts", pts_planar, torch.float32, (nr, 4, 128))
+    _check("sweep_moments.starts", starts, torch.int32, (nb, 28), dev)
+    if nb > nr:
+        raise ValueError("sweep_moments: more blocks than planar rows")
+    if not _on_cuda(pts_planar):
+        return sweep_moments_plain(pts_planar, starts, k=k)
+    out = torch.empty((16, nb * 128), dtype=torch.float32, device=dev)
+    _lib().call("pc_sweep_moments", pts_planar.data_ptr(), starts.data_ptr(),
+                out.data_ptr(), nb, k, float(np.float32(1.0 + D2_BAND)),
+                float(np.float32(1.0 + 3.0 * D2_BAND)), _stream())
+    LAUNCHES["sweep_moments"] += 1
+    return out
+
+
+# ── 7. Group-pruned exact kNN with positions ───────────────────────────────
+
+
+def _group_rows(q_planar, active, gr: int, pad_row: int):
+    """[QB, G*gr] candidate rows of each query block's active groups, in
+    ascending group order (pad slots ``pad_row``; at least one group's
+    width); blocks with no valid query get none."""
+    cnt = torch.where(q_planar[:, 3, :].amax(dim=1) > 0.5, active[:, 0], 0)
+    g = max(int(cnt.max()) if active.shape[0] else 0, 1)
+    slot = torch.arange(g * gr, device=active.device)
+    groups = active[:, 1:1 + g].long().repeat_interleave(gr, dim=1)
+    return torch.where(slot[None, :] < cnt[:, None] * gr,
+                       groups * gr + slot % gr, pad_row)
+
+
+def rescue_knn_idx_plain(cand_planar, q_planar, active, *, k: int, gr: int):
+    nr = cand_planar.shape[0]
+    qb = q_planar.shape[0]
+    dev = cand_planar.device
+    pts = torch.cat([cand_planar, torch.zeros((1, 4, 128), device=dev)])
+    rows = _group_rows(q_planar, active, gr, nr)
+    parts = []
+    for rs, d2, pair in _block_pairs(q_planar, pts, rows):
+        b = rs.shape[0]
+        w = torch.where(pair, d2, torch.inf)
+        # Ties at equal d2 to the smaller position: candidates are in
+        # ascending position order (at least one group's width, >= k), and
+        # the key (d2 bits, column) is unique (d2 >= 0, so its bits order
+        # like its values).
+        col = torch.arange(w.shape[2], device=dev)
+        key = (w.view(torch.int32).to(torch.int64) << 32) | col
+        top = torch.topk(key, k, dim=-1, largest=False, sorted=True).values
+        vals = (top >> 32).to(torch.int32).view(torch.float32)
+        c = top & 0xFFFFFFFF
+        row = torch.gather(rs, 1, (c // 128).reshape(b, -1)).reshape(c.shape)
+        pos = (row * 128 + c % 128).to(torch.float32)
+        found = torch.isfinite(vals)
+        count = found.sum(-1)
+        last = torch.clamp(count - 1, min=0).unsqueeze(-1)
+        kth = torch.where(count > 0, torch.gather(vals, -1, last)[..., 0], 0.0)
+        parts.append(torch.cat([
+            torch.where(found, _sqrt_f32(torch.clamp(vals, min=0.0)),
+                        torch.inf),
+            torch.where(found, pos, -1.0),
+            count[..., None].to(torch.float32), kth[..., None],
+            torch.ones((b, 128, 1), device=dev)], dim=2))
+    return torch.cat(parts).reshape(qb * 128, 2 * k + 3).T.contiguous()
+
+
+def rescue_knn_idx(cand_planar, q_planar, active, *, k: int, gr: int = 8):
+    """Exact k nearest candidates, with their positions, of each compacted
+    query against the candidate row-groups in its block's active list.
+
+    cand_planar f32[NR, 4, 128] (NR % gr == 0), q_planar f32[QB, 4, 128],
+    active i32[QB, 1 + NR/gr] (count, then ascending group ids). Returns
+    f32[2k + 3, QB*128]: rows [0, k) sqrt d2 ascending (+inf pad), [k, 2k)
+    positions row*128 + lane in the candidate frame (-1 pad; ties at equal
+    d2 to the smaller position), then count, kth d2, cert (1).
+
+    Replaces `pallas_kernels.rescue_knn_idx` (csrc/knn.cu)."""
+    _check_k(k)
+    nr = cand_planar.shape[0]
+    qb = q_planar.shape[0]
+    dev = cand_planar.device
+    if nr % gr:
+        raise ValueError(f"rescue_knn_idx: {nr} rows not a multiple of {gr}")
+    if nr * 128 >= 1 << 24:
+        raise ValueError("rescue_knn_idx: positions must stay exact in f32")
+    _check("rescue_knn_idx.cand", cand_planar, torch.float32, (nr, 4, 128))
+    _check("rescue_knn_idx.q", q_planar, torch.float32, (qb, 4, 128), dev)
+    _check("rescue_knn_idx.active", active, torch.int32, (qb, 1 + nr // gr),
+           dev)
+    if not _on_cuda(cand_planar):
+        return rescue_knn_idx_plain(cand_planar, q_planar, active, k=k, gr=gr)
+    out = torch.empty((2 * k + 3, qb * 128), dtype=torch.float32, device=dev)
+    part_v = torch.empty((_RESCUE_SPLIT, k, qb * 128), dtype=torch.float32,
+                         device=dev)
+    part_p = torch.empty((_RESCUE_SPLIT, k, qb * 128), dtype=torch.int32,
+                         device=dev)
+    _lib().call("pc_rescue_knn_idx", cand_planar.data_ptr(),
+                q_planar.data_ptr(), active.data_ptr(), part_v.data_ptr(),
+                part_p.data_ptr(), out.data_ptr(), qb, 1 + nr // gr, gr, k,
+                _RESCUE_SPLIT, _stream())
+    LAUNCHES["rescue_knn_idx"] += 1
+    return out
+
+
+# ── 8. Cluster labels over the windows ─────────────────────────────────────
+
+
+def cluster_multisweep_windows_plain(pts_planar, starts, r2, *,
+                                     max_rounds: int, labels0=None):
+    rows = _window_rows(starts, pts_planar.shape[0])
+    return _cluster_rounds_plain(pts_planar, rows, r2, starts.shape[0],
+                                 max_rounds, labels0)
+
+
+def cluster_multisweep_windows(pts_planar, starts, r2, *,
+                               max_rounds: int = 12, labels0=None):
+    """Connected-component labels over each block's nine sorted windows
+    (no row cap: the dense backend).
+
+    pts_planar f32[NR, 4, 128]; starts i32[NB, 28]; r2 the squared radius
+    (inclusive); ``labels0`` i32[NB*128] labels to resume from (default:
+    own positions). Runs rounds until one changes nothing, at most
+    ``max_rounds``. Returns (labels i32[NB*128] in sorted order, changed
+    i32[NB*128] -- the last round's flags, all zero iff converged; rounds
+    run).
+
+    Replaces `pallas_kernels.cluster_multisweep_windows` (csrc/cluster.cu)."""
+    nr = pts_planar.shape[0]
+    nb = starts.shape[0]
+    dev = pts_planar.device
+    _check("cluster_multisweep_windows.pts", pts_planar, torch.float32,
+           (nr, 4, 128))
+    _check("cluster_multisweep_windows.starts", starts, torch.int32,
+           (nb, 28), dev)
+    if labels0 is not None:
+        _check("cluster_multisweep_windows.labels0", labels0, torch.int32,
+               (nb * 128,), dev)
+    if nb > nr:
+        raise ValueError("cluster_multisweep_windows: more blocks than rows")
+    r2 = float(r2)
+    if not _on_cuda(pts_planar):
+        return cluster_multisweep_windows_plain(
+            pts_planar, starts, r2, max_rounds=max_rounds, labels0=labels0)
+    return _cluster_rounds_cuda("cluster_multisweep_windows",
+                                "pc_cluster_round_windows", pts_planar,
+                                starts, (), r2, nb, max_rounds, labels0)

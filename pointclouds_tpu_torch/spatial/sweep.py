@@ -1,11 +1,14 @@
-"""Sorted-window sweep: SOR neighbour means and cluster labels over
-cell-sorted planar rows.
+"""Sorted-window sweep: SOR neighbour means, kNN moments and cluster labels
+over cell-sorted planar rows.
 
-Counterpart of `pointclouds_tpu/spatial/sweep.py`, ported for the KITTI
-pipeline's path: the structure built on rows already sorted by sor cell
-(`structure_from_sorted`), SOR pass 1 over flat per-block row lists, the
-AABB-pruned exact rescue with lower bounds (`sweep_sor_two_pass`,
-``with_lb``), and the row-list cluster labels (`sweep_cluster_labels`).
+Counterpart of `pointclouds_tpu/spatial/sweep.py`, ported for the KITTI and
+aerial pipelines' paths: the structure built on rows already sorted by sor
+cell (`structure_from_sorted`) or sorted here (`_sorted_structure`), SOR
+pass 1 over flat per-block row lists, the AABB-pruned exact rescue with
+lower bounds (`sweep_sor_two_pass`, ``with_lb``), kNN moments with and
+without the exact rescue (`sweep_knn_moments_rows`,
+`sweep_moments_two_pass_rows`), and the cluster labels over row lists or
+the nine windows (`sweep_cluster_labels`).
 
 Points sorted by linearized cell id (z fastest) pack 128 to a planar row
 ``[x*128 | y*128 | z*128 | w*128]``; for a block of 128 consecutive sorted
@@ -19,9 +22,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.cloud import stable_argsort
+from ..core.cloud import compaction_order, stable_argsort
 from .grid import scalar_like
-from .kernels import cluster_multisweep, rescue_select, sweep_select_rows
+from .kernels import (
+    cluster_multisweep,
+    cluster_multisweep_windows,
+    rescue_knn_idx,
+    rescue_select,
+    sweep_moments,
+    sweep_select_rows,
+)
 
 SWEEP_TABLE_SIZE = 1 << 21
 NSHIFT = 9
@@ -182,8 +192,10 @@ def structure_from_sorted(xyz_sorted, valid_sorted, slin, extent, hi_cells,
     planar = _pack_planar(sx, sy, sz, suse_p, nrows)
     starts_skip, block_ok = _window_starts(slin_p, suse_p, extent, nrows, nb,
                                            wr, table_size)
-    return dict(planar=planar, starts_skip=starts_skip, block_ok=block_ok,
-                extent=extent, hi_cells=hi_cells,
+    # order/inv None: the identity permutation (row i IS sorted position i).
+    return dict(planar=planar, order=None, inv=None, use=valid_sorted,
+                starts_skip=starts_skip, block_ok=block_ok, mn=None,
+                extent=extent, hi_cells=hi_cells, nrows=nrows, nb=nb,
                 table_overflow=table_overflow, slin_p=slin_p,
                 grid_origin=grid_origin)
 
@@ -251,12 +263,14 @@ def _sweep_pass1(cell_size, *, k: int, prebuilt, row_cap: int):
                 machine_ok_s=machine_ok_s, kth_s=kth)
 
 
-def _rescue_structure(planar, flagged, fix_cap: int, n: int, radius,
-                      priority):
+def _rescue_structure(planar, order, flagged, fix_cap: int, n: int, radius,
+                      priority=None):
     """Pass-2 front end: compact flagged queries (priority rows first, then
     sorted order), pad the planar rows to rescue groups, and build each
-    query block's AABB-pruned active-group list. Returns (planar_g,
-    q_planar [QB, 4, 128], active i32[QB, 1 + NG], qvalid, qsel)."""
+    query block's AABB-pruned active-group list. ``order`` maps sorted
+    position -> original row of ``flagged``/``priority`` (None: identity).
+    Returns (planar_g, q_planar [QB, 4, 128], active i32[QB, 1 + NG],
+    qvalid, qsel -- sorted-frame positions)."""
     dev = planar.device
     nrows = planar.shape[0]
     gr = RESCUE_GROUP_ROWS
@@ -267,8 +281,14 @@ def _rescue_structure(planar, flagged, fix_cap: int, n: int, radius,
                                                   device=dev)]).contiguous()
     ng = planar_g.shape[0] // gr
 
-    key = torch.where(flagged, torch.where(priority, 0, 1), 2).to(torch.int32)
-    fq = stable_argsort(key)
+    if order is not None:
+        flagged = flagged[order]
+        priority = None if priority is None else priority[order]
+    if priority is None:
+        fq = compaction_order(flagged)
+    else:
+        fq = stable_argsort(torch.where(flagged, torch.where(priority, 0, 1),
+                                        2).to(torch.int32))
     fix_cap = ((fix_cap + 127) // 128) * 128
     qcap = min(fix_cap, ((n + 127) // 128) * 128)
     qsel = fq[: min(qcap, n)]
@@ -337,7 +357,7 @@ def sweep_sor_two_pass(xyz, valid, cell_size, *, k: int, prebuilt,
     # flagged rows exceed fix_cap.
     hard_s = flagged_s & (p["count_s"] >= wantf) & (p["mean_s"] > 2.0 * cell_size)
     planar_g, q_planar, active, qvalid, qsel = _rescue_structure(
-        p["planar"], flagged_s, fix_cap, nall, radius, priority=hard_s)
+        p["planar"], None, flagged_s, fix_cap, nall, radius, priority=hard_s)
     rtotal, rcount, rkth, rseg_ok = rescue_select(
         planar_g, q_planar, active, k=kp1, gr=RESCUE_GROUP_ROWS)
 
@@ -402,8 +422,8 @@ def cluster_cell_size(radius, hi_abs):
 
 
 def _sorted_structure(xyz, valid, cell_size, wr: int, table_size: int):
-    """Sort, pack and window-compute: the front half of the cluster sweep.
-    ``cell_size`` is a float32 0-d tensor."""
+    """Sort, pack and window-compute: the front half of the cluster and
+    moments sweeps. ``cell_size`` is a float32 0-d tensor."""
     n = xyz.shape[0]
     dev = xyz.device
     use = valid & torch.isfinite(xyz).all(dim=-1)
@@ -439,15 +459,24 @@ def _sorted_structure(xyz, valid, cell_size, wr: int, table_size: int):
     inv = torch.empty_like(order)
     inv[order] = torch.arange(n, dtype=order.dtype, device=dev)
     return dict(planar=planar, order=order, inv=inv, use=use,
-                starts_skip=starts_skip, block_ok=block_ok, nrows=nrows,
-                nb=nb, table_overflow=table_overflow, suse_p=suse_p)
+                starts_skip=starts_skip, block_ok=block_ok, mn=mn,
+                extent=extent, nrows=nrows, nb=nb,
+                table_overflow=table_overflow, slin_p=slin_p, suse_p=suse_p)
 
 
-def _cluster_epilogue(lab, s, n: int, nall: int, exact):
+def _cluster_epilogue(lab, s, n: int, nall: int, exact,
+                      rep_labels: bool = True):
     """Sorted-position labels -> original-order labels: each valid point
     gets the smallest ORIGINAL row of its component, invalid points their
-    own row."""
+    own row. ``rep_labels=False`` returns canonical component ids instead
+    (the smallest sorted position in the component, in original order;
+    invalid points get unique ids past every sorted position): the same
+    components, without the scatter-min."""
     dev = lab.device
+    if not rep_labels:
+        plab = lab[:n].long()[s["inv"]]
+        own = torch.arange(nall, nall + n, dtype=torch.int64, device=dev)
+        return torch.where(s["use"], plab, own).to(torch.int32), exact
     order_rows = torch.cat([s["order"],
                             torch.full((nall - n,), n, dtype=torch.int64,
                                        device=dev)])
@@ -461,38 +490,175 @@ def _cluster_epilogue(lab, s, n: int, nall: int, exact):
     return labels.to(torch.int32), exact
 
 
+# Further bursts of `cluster_multisweep_windows` after a first one that did
+# not converge (the reference's completion loop).
+_RESUME_BURSTS = 8
+
+
 def sweep_cluster_labels(xyz, valid, radius, *, wr: int = 7,
-                         max_iters: int = 64,
+                         max_iters: int = 64, sweeps: int = 12,
                          table_size: int = SWEEP_TABLE_SIZE,
-                         row_cap: int = 16):
+                         rep_labels: bool = True,
+                         row_cap: int | None = 16):
     """Euclidean-cluster labels (inclusive distance ``radius``, taken as
-    float32) by min-label propagation over the cell-sorted row lists.
+    float32) by min-label propagation over the cell-sorted windows.
+
+    ``row_cap=int`` walks each block's flat row list (at most ``max_iters``
+    rounds); ``row_cap=None`` walks the nine windows with no cap (the dense
+    backend), in bursts of at most ``sweeps`` rounds: a first burst, then up
+    to 8 more resumed from the current labels while the last round still
+    changed any.
 
     Returns (labels i32[N], exact bool): label = smallest original row in
-    the component (invalid/non-finite points keep their own row). ``exact``
-    is False when a block's windows or row list overflowed, or when the
-    propagation did not converge within ``max_iters`` rounds."""
-    if row_cap is None:
-        raise NotImplementedError(
-            "sweep_cluster_labels: only the row_cap path is ported "
-            "(ROADMAP.md, queue 2: cluster_multisweep_windows)")
+    the component, or with ``rep_labels=False`` a canonical component id
+    (`_cluster_epilogue`); invalid/non-finite points keep their own id.
+    ``exact`` is False when a block's windows or row list overflowed, or
+    when the propagation did not converge within its rounds."""
     n = xyz.shape[0]
     r32 = np.float32(radius)
+    r2 = float(r32 * r32)
     use_pre = valid & torch.isfinite(xyz).all(dim=-1)
     hi_abs = torch.where(use_pre[:, None], xyz.abs(), 0.0).amax()
     cell_size = cluster_cell_size(scalar_like(r32, xyz), hi_abs)
 
     s = _sorted_structure(xyz, valid, cell_size, wr, table_size)
     planar, nrows, nb = s["planar"], s["nrows"], s["nb"]
+    starts_skip = s["starts_skip"]
     nall = nrows * 128
     exact = s["block_ok"][:nb].all() & ~s["table_overflow"]
-    rowlist, fits = _window_row_lists(s["starts_skip"], row_cap, nrows)
-    labels, changed, _ = cluster_multisweep(
-        planar, rowlist, float(r32 * r32), cap=row_cap,
-        max_rounds=max_iters)
-    exact = exact & fits[:nb].all() & ~changed.any()
+    if row_cap is not None:
+        rowlist, fits = _window_row_lists(starts_skip, row_cap, nrows)
+        labels, changed, _ = cluster_multisweep(
+            planar, rowlist, r2, cap=row_cap, max_rounds=max_iters)
+        exact = exact & fits[:nb].all()
+    else:
+        labels, changed, _ = cluster_multisweep_windows(
+            planar, starts_skip, r2, max_rounds=sweeps)
+        bursts = 0
+        # Host read: the completion loop's test of the last round's flags.
+        while bursts < _RESUME_BURSTS and bool(changed.any()):
+            labels, changed, _ = cluster_multisweep_windows(
+                planar, starts_skip, r2, max_rounds=sweeps, labels0=labels)
+            bursts += 1
+    exact = exact & ~changed.any()
     if nall > nb * 128:
         labels = torch.cat([labels, torch.arange(nb * 128, nall,
                                                  dtype=labels.dtype,
                                                  device=labels.device)])
-    return _cluster_epilogue(labels, s, n, nall, exact)
+    return _cluster_epilogue(labels, s, n, nall, exact, rep_labels)
+
+
+# ── kNN moments (normal estimation) ─────────────────────────────────────────
+
+
+def sweep_knn_moments_rows(xyz, valid, cell_size, *, k: int, wr: int = 4,
+                           table_size: int = SWEEP_TABLE_SIZE,
+                           prebuilt=None):
+    """Query-centred moments of each point's k nearest neighbours (self
+    included), in row layout: (m1 f32[3, N], m2 f32[6, N] (xx, yy, zz, xy,
+    xz, yz), count f32[N], point_ok bool[N]). ``point_ok`` certifies the
+    neighbour set is the true k nearest and tie-free at the kth distance.
+
+    ``prebuilt``: a `structure_from_sorted` dict (results in its row
+    order); otherwise the points are sorted here and results come back in
+    the input order. ``cell_size`` is taken as float32."""
+    cell_size = scalar_like(cell_size, xyz)
+    s = prebuilt if prebuilt is not None else _sorted_structure(
+        xyz, valid, cell_size, wr, table_size)
+    return _moments_pass1(s, cell_size, k=k)
+
+
+def _moments_pass1(s, cell_size, *, k: int):
+    out = sweep_moments(s["planar"], s["starts_skip"], k=k)
+    ok_sorted = (out[12] > 0.5) & s["block_ok"].repeat_interleave(128)
+    ok_sorted = ok_sorted & (out[9] == out[10])  # tie-free at kth
+    packed = torch.cat([out[0:9], out[10:12],
+                        ok_sorted[None].to(torch.float32)])
+    n = s["use"].shape[0]
+    res = packed[:, :n] if s["inv"] is None else packed[:, s["inv"]]
+    count, kth, point_ok = res[9], res[10], res[11] > 0.5
+
+    # kth-within-cell certificate (the SOR sweep's margin).
+    hi_cells = s.get("hi_cells")
+    if hi_cells is None:
+        hi_cells = torch.maximum(s["mn"].abs(),
+                                 (s["mn"] + s["extent"]).abs()).amax().to(
+                                     torch.float32)
+    margin = (hi_cells * 4.0 * 1.2e-7 + 1e-6) * cell_size
+    safe = torch.clamp(cell_size - margin, min=0.0)
+    point_ok = (point_ok & (kth <= safe * safe) & s["use"]
+                & ~s["table_overflow"])
+    return res[0:3], res[3:9], count, point_ok
+
+
+def _rescue_rows_orig(order, qsel, n: int):
+    """Original row ids of the compacted rescue queries (n = drop slot)."""
+    qsel = torch.clamp(qsel.long(), max=n)
+    if order is None:
+        return qsel
+    return torch.cat([order, torch.full((1,), n, dtype=order.dtype,
+                                        device=order.device)])[qsel]
+
+
+def _positions_to_rows(pos, order, n: int):
+    """Sorted-frame positions (f32, -1 pad) -> original row ids (-1 pad)."""
+    pos_i = torch.clamp(pos.to(torch.int64), -1, n - 1)
+    rows = order[torch.clamp(pos_i, 0, n - 1)]
+    return torch.where(pos_i >= 0, rows, -1)
+
+
+def sweep_moments_two_pass_rows(xyz, valid, cell_size, *, k: int,
+                                fix_cap: int = 4096,
+                                rescue_cells: float = 4.0, wr: int = 4,
+                                table_size: int = SWEEP_TABLE_SIZE):
+    """`sweep_knn_moments_rows` plus the AABB-group-pruned exact rescue of
+    the flagged rows (up to ``fix_cap``): their neighbours come from
+    `rescue_knn_idx` and their moments are recomputed from the neighbour
+    rows. Rescued rows are certified up to the choice among kth-distance
+    ties, so the tie-free test of pass 1 is not imposed on them. Same
+    outputs as `sweep_knn_moments_rows`, in the input order."""
+    n = xyz.shape[0]
+    cell_size = scalar_like(cell_size, xyz)
+    s = _sorted_structure(xyz, valid, cell_size, wr, table_size)
+    m1r, m2r, count, point_ok = _moments_pass1(s, cell_size, k=k)
+
+    order, use = s["order"], s["use"]
+    flagged = use & ~point_ok
+    radius = rescue_cells * cell_size
+    planar_g, q_planar, active, qvalid, qsel = _rescue_structure(
+        s["planar"], order, flagged, fix_cap, n, radius)
+    rout = rescue_knn_idx(planar_g, q_planar, active, k=k,
+                          gr=RESCUE_GROUP_ROWS)
+    rd, rpos = rout[:k].T, rout[k:2 * k].T  # [qcap, k]
+    rcount, rkth, rseg_ok = rout[2 * k], rout[2 * k + 1], rout[2 * k + 2] > 0.5
+
+    want_f = torch.clamp(use.sum(), max=k).to(torch.float32)
+    rc = radius * 0.99999
+    rok = ((rcount >= want_f) & (rkth <= rc * rc) & rseg_ok & qvalid
+           & ~s["table_overflow"])
+
+    # Query-centred moments from the rescued neighbour rows.
+    ridx = _positions_to_rows(rpos, order, n)
+    found = torch.isfinite(rd)
+    idxc = torch.clamp(ridx, 0, n - 1)
+    rows_orig = _rescue_rows_orig(order, qsel, n)
+    rowc = torch.clamp(rows_orig, 0, n - 1)
+    rel = [torch.where(found, xyz[idxc, i] - xyz[rowc, i][:, None], 0.0)
+           for i in range(3)]
+    relx, rely, relz = rel
+    rm1 = torch.stack([r.sum(dim=1) for r in rel])
+    rm2 = torch.stack([(a * b).sum(dim=1) for a, b in (
+        (relx, relx), (rely, rely), (relz, relz), (relx, rely),
+        (relx, relz), (rely, relz))])
+    rcnt = found.sum(dim=1).to(torch.float32)
+
+    # Scatter back only the certified rescues (column n swallows the rest).
+    drop = torch.where(rok, rows_orig, n)
+
+    def scatter(dst, vals):
+        ext = torch.cat([dst, dst[..., :1]], dim=-1)
+        ext[..., drop] = vals
+        return ext[..., :n]
+
+    return (scatter(m1r, rm1), scatter(m2r, rm2), scatter(count, rcnt),
+            scatter(point_ok, rok))

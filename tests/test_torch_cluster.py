@@ -1,7 +1,9 @@
 """Euclidean clustering of the PyTorch port against the JAX package: the
-plain version of the `cluster_multisweep` kernel against the Pallas kernel
-in interpret mode, and `sweep_cluster_labels` (row-list path) against the
-JAX one, on the blob scenes of tests/test_sweep_cluster.py."""
+plain versions of the `cluster_multisweep` and `cluster_multisweep_windows`
+kernels against the Pallas kernels in interpret mode, and
+`sweep_cluster_labels` (row-list and window paths) against the JAX one, on
+the scenes of tests/test_sweep_cluster.py. Converged labels are the
+component minima, so they are equal wherever both sides converged."""
 
 import collections
 
@@ -123,3 +125,91 @@ def test_cluster_round_cap_reports_not_exact():
         torch.from_numpy(xyz), torch.from_numpy(valid), np.float32(r), wr=12,
         row_cap=32, max_iters=1)
     assert not bool(exact)
+
+
+def _slab():
+    """The dense slab of tests/test_sweep_cluster.py: per-block candidate
+    rows overflow any practical flat row list."""
+    rng = np.random.default_rng(11)
+    xyz = np.vstack([
+        (rng.random((3500, 3)) * [2.0, 2.0, 0.05]).astype(np.float32),
+        (rng.random((596, 3)) * 12.0 + 8.0).astype(np.float32),
+    ]).astype(np.float32)
+    return xyz, np.ones(len(xyz), bool), 0.5
+
+
+def _window_inputs(xyz, valid, r, wr):
+    r32 = np.float32(r)
+    hi = np.abs(np.where((valid & np.isfinite(xyz).all(1))[:, None], xyz,
+                         0)).max()
+    cell = jsweep.cluster_cell_size(jnp.float32(r32), jnp.float32(hi))
+    s = jsweep._sorted_structure(jnp.asarray(xyz), jnp.asarray(valid), cell,
+                                 wr, jsweep.SWEEP_TABLE_SIZE)
+    return s, float(r32 * r32)
+
+
+def test_cluster_windows_plain_vs_pallas():
+    xyz, valid, r = _slab()
+    s, r2 = _window_inputs(xyz, valid, r, 32)
+    lab, ch = jpk.cluster_multisweep_windows(s["planar"], s["starts_skip"],
+                                             r2, sweeps=12, interpret=True)
+    assert float(np.asarray(ch).sum()) == 0.0  # the Pallas run converged
+    kernels.reset_launch_counts()
+    got, changed, rounds = kernels.cluster_multisweep_windows(
+        to_torch(s["planar"]), to_torch(s["starts_skip"]), r2, max_rounds=64)
+    assert kernels.LAUNCHES["cluster_multisweep_windows"] == 0  # CPU: plain
+    assert not changed.any() and rounds <= 64
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(lab).astype(np.int32))
+    # Resuming from the fixpoint: one round, no change, the same labels.
+    again, changed, rounds = kernels.cluster_multisweep_windows(
+        to_torch(s["planar"]), to_torch(s["starts_skip"]), r2, max_rounds=64,
+        labels0=got)
+    assert rounds == 1 and not changed.any()
+    assert torch.equal(again, got)
+
+
+def test_cluster_windows_resume_reaches_fixpoint():
+    """A run cut after one round, resumed from its labels, ends where an
+    uncut run ends."""
+    xyz, valid, r = _chain()
+    s, r2 = _window_inputs(xyz, valid, r, 12)
+    planar, starts = to_torch(s["planar"]), to_torch(s["starts_skip"])
+    full, _, full_rounds = kernels.cluster_multisweep_windows(
+        planar, starts, r2, max_rounds=64)
+    cut, changed, _ = kernels.cluster_multisweep_windows(planar, starts, r2,
+                                                         max_rounds=1)
+    assert full_rounds > 1 and changed.any()
+    resumed, changed, _ = kernels.cluster_multisweep_windows(
+        planar, starts, r2, max_rounds=64, labels0=cut)
+    assert not changed.any()
+    assert torch.equal(resumed, full)
+
+
+@pytest.mark.parametrize("rep_labels", [True, False])
+def test_sweep_cluster_labels_windows_matches_jax(rep_labels):
+    xyz, valid, r = _slab()
+    want, exact = jsweep.sweep_cluster_labels(
+        jnp.asarray(xyz), jnp.asarray(valid), np.float32(r), wr=32,
+        row_cap=None, use_kernel=True, interpret=True, rep_labels=rep_labels)
+    assert bool(exact)
+    got, t_exact = sweep.sweep_cluster_labels(
+        torch.from_numpy(xyz), torch.from_numpy(valid), np.float32(r), wr=32,
+        row_cap=None, rep_labels=rep_labels)
+    assert bool(t_exact)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_sweep_cluster_labels_windows_burst_cap_not_exact(monkeypatch):
+    """A chain that needs several rounds: one round and no resume cannot
+    converge, and says so; the resume bursts finish it."""
+    xyz, valid, r = _chain()
+    args = (torch.from_numpy(xyz), torch.from_numpy(valid), np.float32(r))
+    with monkeypatch.context() as m:
+        m.setattr(sweep, "_RESUME_BURSTS", 0)
+        _, exact = sweep.sweep_cluster_labels(*args, wr=12, row_cap=None,
+                                              sweeps=1)
+    assert not bool(exact)
+    labels, exact = sweep.sweep_cluster_labels(*args, wr=12, row_cap=None,
+                                               sweeps=1)
+    assert bool(exact) and (labels[:400] == 0).all()

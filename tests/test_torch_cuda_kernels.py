@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from pointclouds_tpu_torch.pipelines.scenes import kitti_scene
+import pointclouds_tpu_torch as port
+from pointclouds_tpu_torch.pipelines.aerial import extract_clusters
+from pointclouds_tpu_torch.pipelines.scenes import aerial_scene, kitti_scene
 from pointclouds_tpu_torch.spatial import kernels, sweep
 
 pytestmark = pytest.mark.cuda
@@ -101,3 +103,109 @@ def test_sweep_cluster_labels_gpu_equals_cpu(dev):
         np.float32(0.8), **args)
     assert bool(ex_c) and bool(ex_g)
     assert torch.equal(lab_g.cpu(), lab_c)
+
+
+def _count_launch(name, fn):
+    before = kernels.LAUNCHES[name]
+    out = fn()
+    assert kernels.LAUNCHES[name] > before
+    return out
+
+
+def test_ransac_score_counts(dev):
+    rng = np.random.default_rng(5)
+    pts = _planar(rng, 40, scale=20.0).to(dev)
+    nh = 256
+    hyp = np.zeros((5, nh), np.float32)
+    nrm = rng.normal(size=(3, 200))
+    hyp[:3, :200] = nrm / np.linalg.norm(nrm, axis=0)
+    hyp[3, :200] = rng.normal(size=200) * 5
+    hyp[4, :200] = 0.3
+    hyp[4, 200:] = -1.0
+    hyp = torch.from_numpy(hyp).to(dev)
+    # A point exactly on hypothesis 0's threshold (in the pinned distance
+    # form) must count.
+    x, y, z = pts[0, 0, 0], pts[0, 1, 0], pts[0, 2, 0]
+    pts[0, 3, 0] = 1.0
+    hyp[4, 0] = (kernels.fma_f32(z, hyp[2, 0], kernels.fma_f32(
+        x, hyp[0, 0], y * hyp[1, 0])) + hyp[3, 0]).abs()
+    got = _count_launch("ransac_score_counts",
+                        lambda: kernels.ransac_score_counts(hyp, pts))
+    want = kernels.ransac_score_counts_plain(hyp, pts)
+    assert torch.equal(got, want)
+    assert (got[200:] == 0).all() and got[:200].sum() > 0
+
+
+def _structure(dev, seed=0, n=4096, wr=4, cell=1.3):
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(0, 10, (n, 3)).astype(np.float32)
+    valid = rng.random(n) > 0.1
+    xyz[~valid & (rng.random(n) > 0.5)] = np.nan
+    return sweep._sorted_structure(
+        torch.from_numpy(xyz).to(dev), torch.from_numpy(valid).to(dev),
+        torch.tensor(np.float32(cell), device=dev), wr,
+        sweep.SWEEP_TABLE_SIZE)
+
+
+@pytest.mark.parametrize("k", [5, 15, 32])
+def test_sweep_moments(dev, k):
+    s = _structure(dev)
+    got = _count_launch("sweep_moments", lambda: kernels.sweep_moments(
+        s["planar"], s["starts_skip"], k=k))
+    want = kernels.sweep_moments_plain(s["planar"], s["starts_skip"], k=k)
+    assert torch.equal(got, want)  # the same adds in the same order
+    assert (got[10] == k).float().mean() > 0.5
+
+
+def test_rescue_knn_idx(dev):
+    rng = np.random.default_rng(1)
+    nr, qb, gr, k = 64, 5, 8, 15
+    cand = _planar(rng, nr).to(dev)
+    cand[3, :3, :64] = cand[3, :3, 64:]  # duplicates: ties at equal d2
+    q = _planar(rng, qb).to(dev)
+    q[qb - 1, 3] = 0.0  # an all-invalid block
+    ng = nr // gr
+    act = np.full((qb, 1 + ng), 12345, np.int32)  # garbage past the count
+    for b in range(qb):
+        g = np.sort(rng.choice(ng, rng.integers(0, ng + 1), replace=False))
+        act[b, 0] = len(g)
+        act[b, 1:1 + len(g)] = g
+    act = torch.from_numpy(act).to(dev)
+    got = _count_launch("rescue_knn_idx", lambda: kernels.rescue_knn_idx(
+        cand, q, act, k=k, gr=gr))
+    want = kernels.rescue_knn_idx_plain(cand, q, act, k=k, gr=gr)
+    assert torch.equal(got, want)
+
+
+def test_cluster_multisweep_windows(dev):
+    s = _structure(dev, seed=2, n=4096, wr=12, cell=0.4)
+    r2 = float(np.float32(0.4) * np.float32(0.4))
+    got = _count_launch("cluster_multisweep_windows",
+                        lambda: kernels.cluster_multisweep_windows(
+                            s["planar"], s["starts_skip"], r2,
+                            max_rounds=64))
+    want = kernels.cluster_multisweep_windows_plain(
+        s["planar"], s["starts_skip"], r2, max_rounds=64)
+    assert not got[1].any() and not want[1].any()
+    assert torch.equal(got[0], want[0])
+    cut = kernels.cluster_multisweep_windows(s["planar"], s["starts_skip"],
+                                             r2, max_rounds=1)
+    resumed = kernels.cluster_multisweep_windows(
+        s["planar"], s["starts_skip"], r2, max_rounds=64, labels0=cut[0])
+    assert torch.equal(resumed[0], want[0])
+
+
+def test_aerial_pipeline_gpu_equals_cpu(dev):
+    data = aerial_scene(seed=3, scale=0.05)
+    args = (np.float32(0.5), np.float32(12.0), np.float32(0.3), 0,
+            np.float32(2.0), [0.0, 0.0, 10000.0])
+    outs = []
+    for d in ("cpu", dev):
+        c = port.make_cloud_arrays(data, device=d)
+        outs.append(port.aerial_pipeline(c.xyz, c.valid, *args))
+    cpu, gpu = outs
+    assert torch.equal(gpu.centroids.cpu(), cpu.centroids)
+    assert torch.equal(gpu.normals_ok.cpu(), cpu.normals_ok)
+    assert bool(gpu.cluster_exact) and bool(cpu.cluster_exact)
+    assert extract_clusters(gpu, 20, 100_000) == extract_clusters(cpu, 20,
+                                                                  100_000)

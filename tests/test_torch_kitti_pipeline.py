@@ -10,6 +10,7 @@ geometric cluster equality on bitwise-equal centroids.
 
 import numpy as np
 import pytest
+import torch
 
 import pointclouds_tpu  # noqa: F401  (x64, as the package runs)
 from pointclouds_tpu.core.cloud import make_cloud_arrays as jax_make_cloud
@@ -82,6 +83,37 @@ def test_port_matches_jax_pipeline(scale, seed, ransac_seed):
         np.testing.assert_array_equal(tp, jp)
     if scale == 0.25:
         assert len(tclusters) == 3  # 2 cars + 1 pedestrian
+
+
+def test_port_matches_jax_default_ransac():
+    """``ransac_subsample=None`` on a small crop: fewer than 10K cleaned
+    centroids, so both packages take the sequential adaptive scan."""
+    data = _crop(42, 0.03)
+    kw = {**KW, "ransac_subsample": None}
+    a = jax_make_cloud(data)
+    jout = jax_pipeline(a.xyz, a.valid, *ARGS, 7, np.float32(0.8),
+                        sor_backend="sweep_xla", **kw)
+    c = port.make_cloud_arrays(data)
+    t = _as_np(port.kitti_obstacle_pipeline(c.xyz, c.valid, *ARGS, 7,
+                                            np.float32(0.8), **kw))
+    assert 3_000 < int(t.cleaned_valid.sum()) < 10_000
+    np.testing.assert_array_equal(
+        t.centroids.view(np.uint32), np.asarray(jout.centroids).view(np.uint32))
+    dot = abs(float(np.dot(np.asarray(jout.plane_normal, np.float64),
+                           t.plane_normal.astype(np.float64))))
+    assert dot > 0.999999
+    assert abs(float(t.plane_d) - float(jout.plane_d)) <= 1e-6
+    assert not t.grid_flags.any() and not bool(t.obstacle_overflow)
+    tclusters = port.extract_clusters(_wrap(t), 10, 20_000)
+    jclusters = jax_extract(jout, 10, 20_000)
+    assert [len(x) for x in tclusters] == [len(x) for x in jclusters]
+    for tp, jp in zip(_cluster_points(t, tclusters),
+                      _cluster_points(jout, jclusters)):
+        np.testing.assert_array_equal(tp, jp)
+
+
+def _wrap(out):
+    return type(out)(*(torch.from_numpy(np.asarray(x)) for x in out))
 
 
 def test_unported_backends_raise():

@@ -29,6 +29,14 @@ def test_velodyne_scene_equal(seed, n):
     assert a.shape == (n, 3) and a.dtype == np.float32
 
 
+@pytest.mark.parametrize("seed", [3, 7, 42])
+@pytest.mark.parametrize("scale", [0.05, 0.1])
+def test_aerial_scene_equal(seed, scale):
+    a = scenes.aerial_scene(seed, scale)
+    np.testing.assert_array_equal(a, jax_scenes.aerial_scene(seed, scale))
+    assert a.dtype == np.float32 and len(a) > 10_000
+
+
 @pytest.mark.parametrize("n", [0, 1, 8, 9, 1000, 122_000, 131_072])
 def test_make_cloud_arrays_pads_like_jax(n):
     assert bucket_size(n) == jax_bucket_size(n)
@@ -43,6 +51,7 @@ def test_make_cloud_arrays_pads_like_jax(n):
 def test_port_imports_no_jax():
     code = ("import sys, pointclouds_tpu_torch; "
             "import pointclouds_tpu_torch.pipelines.kitti; "
+            "import pointclouds_tpu_torch.pipelines.aerial; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'pointclouds_tpu' not in sys.modules")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -106,8 +106,8 @@ def test_rescue_select_plain_vs_pallas(jax_front):
     radius = jnp.float32(8.0) * jnp.float32(VOXEL * FACTOR)
     planar_g, q_planar, active, qvalid, qsel = jsweep._rescue_structure(
         planar, None, flagged, 512, use.shape[0], radius, priority=prio)
-    t = sweep._rescue_structure(to_torch(planar), to_torch(flagged), 512,
-                                use.shape[0], to_torch(radius),
+    t = sweep._rescue_structure(to_torch(planar), None, to_torch(flagged),
+                                512, use.shape[0], to_torch(radius),
                                 priority=to_torch(prio))
     for g, w in zip(t, (planar_g, q_planar, active, qvalid, qsel)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
