@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives `pointclouds_tpu_torch` on the card through its two pipelines, at
-the benchmark's configurations:
+the benchmark's configurations, and through its per-op API:
 
 - KITTI: `kitti_obstacle_pipeline` on a 122K-point Velodyne-style frame,
   voxel 0.15 m, ds_cap 98,304, k 20, 500 RANSAC iterations on a 4096-point
@@ -32,14 +32,28 @@ Phases:
 5. the pipelines' default kwargs: one KITTI frame with
    ransac_subsample=None (full scoring through `ransac_score_counts`) and
    one aerial frame with ransac_subsample=None and normals_rescue=True
-   (`rescue_knn_idx`), each against the port's CPU run.
+   (`rescue_knn_idx`), each against the port's CPU run;
+6. the per-op API (`pointclouds_tpu_torch.api`) at benches/bench_ops.py's
+   sizes: voxel and passthrough at 10K, 100K and 1M, SOR (k 10, std 2),
+   ROR (r 0.5, min 5) and normals (k 10) at 10K and 100K, on a noisy
+   cloud (100K + 1000 outliers in a 20 m box) whose isolated rows reach
+   the rescue kernels, SOR on an overflow cloud (outliers in a 40 m box:
+   more flagged rows than `fused_rescue_cap`, so the exact engine path
+   and `sweep_select` run), RANSAC (0.05, 500 iterations, seed 7) on the
+   slab cloud at 10K and 100K. Each op: its kernels launched, the valid
+   queries each rescue kernel received, p50 over 5 calls, a torch.profiler
+   breakdown; 10K outputs equal to the port's CPU run, 100K outputs held
+   against a scipy cKDTree oracle in float64 (exceptions within 1e-5 of
+   the SOR threshold or 1e-6 of the radius, tied kth neighbours, nearly
+   equal eigenvalues, counted and printed).
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; each of its kernels must have launched. Prints the kernels'
 JSON line (launches summed over the paths), the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. Any failure
 raises (exit != 0); without a CUDA device it exits non-zero before
-measuring anything. Long output (build log) goes to chiprun_out/.
+measuring anything. Long output (build log, phase 6's numbers) goes to
+chiprun_out/.
 """
 
 from __future__ import annotations
@@ -67,7 +81,17 @@ KERNELS = {
     "sweep_moments": ("spatial.sweep", "moments.cu", 2003),
     "rescue_knn_idx": ("spatial.sweep", "knn.cu", 2991),
     "cluster_multisweep_windows": ("spatial.sweep", "cluster.cu", 1574),
+    "sweep_select": ("spatial.sweep", "select.cu", 544),
+    "count_within": ("spatial.sweep", "radius.cu", 2152),
+    "rescue_radius_count_groups": ("spatial.sweep", "radius.cu", 3088),
+    "brute_knn_idx": ("ops.fusedops", "brute.cu", 2754),
+    "brute_radius_count": ("ops.fusedops", "brute.cu", 2829),
 }
+# Kernels whose outputs are held bitwise against their plain versions (the
+# same f32 operations in the same order; counts are exact integer sums).
+BITWISE = ("segmented_scan_sums", "ransac_score_counts", "sweep_moments",
+           "rescue_knn_idx", "count_within", "rescue_radius_count_groups",
+           "brute_radius_count", "brute_knn_idx")
 KITTI = dict(voxel=0.15, sor_std=2.0, ransac_thresh=0.15, cluster_r=0.8,
              sor_k=20, ransac_iters=500, ds_cap=98_304,
              ransac_subsample=4096, obstacle_cap=8192)
@@ -86,6 +110,16 @@ PATHS = {
     "aerial_default": ["segmented_scan_sums", "sweep_moments",
                        "rescue_knn_idx", "ransac_score_counts",
                        "cluster_multisweep_windows"],
+    # The per-op API (phase 6).
+    "voxel": ["segmented_scan_sums"],
+    "passthrough": [],
+    "sor": ["sweep_select_rows", "rescue_select", "brute_knn_idx"],
+    "sor_overflow": ["sweep_select_rows", "rescue_select", "brute_knn_idx",
+                     "sweep_select"],
+    "ror": ["count_within", "rescue_radius_count_groups",
+            "brute_radius_count"],
+    "normals": ["sweep_moments", "rescue_knn_idx", "brute_knn_idx"],
+    "ransac": ["ransac_score_counts"],
 }
 SEEDS = range(5)
 KITTI_FRAMES = 20
@@ -226,8 +260,7 @@ def check_kernel(name, args, kwargs, K):
     got = kern(*args, **kwargs)
     want = plain(*args, **kwargs)
     torch.cuda.synchronize()
-    if name in ("segmented_scan_sums", "ransac_score_counts", "sweep_moments",
-                "rescue_knn_idx"):
+    if name in BITWISE:
         # Bitwise: the same f32 operations in the same order (counts are
         # exact integer sums).
         got_t = got if isinstance(got, tuple) else (got,)
@@ -317,6 +350,380 @@ def timed_frames(run, frames, mod, stages, card_line, what):
         f"[{card_line}]")
 
 
+# ── Bounds: the least time the card could take for a kernel's work ─────────
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+F32_OPS_PER_S = 67e12  # H100 SXM f32, outside the tensor cores
+# Operations per query-candidate pair: d2 (3 subtractions, one multiply,
+# two fmas at 2 each) and the compare.
+PAIR_OPS = 9
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if torch.is_tensor(t))
+
+
+def _window_rows(starts) -> int:
+    """Candidate rows the live blocks walk over their nine windows."""
+    rows = (starts[:, 18:27] - starts[:, 9:18]).clamp(min=0).sum(1)
+    return int((rows * (starts[:, 27] != 0)).sum())
+
+
+def _group_rows(q, active, gr, live_w) -> int:
+    live = q[:, 3, :].amax(dim=1) >= live_w
+    return int((active[:, 0].long() * gr * live).sum())
+
+
+def work(name, args, kwargs, out):
+    """(bytes moved, operations) of one call on these inputs: every input
+    read once and every output written once; the pairs this run's data
+    makes the function evaluate (windows, row lists and active groups as
+    they are), PAIR_OPS each."""
+    outs = out if isinstance(out, tuple) else (out,)
+    nbytes = _nbytes(*args, *outs)
+    pair = 128 * 128
+    if name == "segmented_scan_sums":
+        return nbytes, 4 * args[0].numel()  # one add per element, 4 sums
+    if name == "sweep_select_rows":
+        rl, cap = args[1], kwargs["cap"]
+        rows = (rl[:, cap + 1].clamp(max=cap) * (rl[:, cap] != 0)).sum()
+        return nbytes, PAIR_OPS * pair * int(rows)
+    if name in ("rescue_select", "rescue_knn_idx"):
+        return nbytes, PAIR_OPS * pair * _group_rows(
+            args[1], args[2], kwargs.get("gr", 8), 0.5)
+    if name == "rescue_radius_count_groups":
+        return nbytes, PAIR_OPS * pair * _group_rows(
+            args[1], args[2], kwargs.get("gr", 8), 0.0)
+    if name == "cluster_multisweep":
+        rl, cap = args[1], kwargs["cap"]
+        rows = (rl[:, cap + 1].clamp(max=cap) * (rl[:, cap] != 0)).sum()
+        return nbytes, PAIR_OPS * pair * int(rows) * out[2]
+    if name == "cluster_multisweep_windows":
+        return nbytes, PAIR_OPS * pair * _window_rows(args[1]) * out[2]
+    if name in ("sweep_moments", "sweep_select", "count_within"):
+        return nbytes, PAIR_OPS * pair * _window_rows(args[1])
+    if name == "ransac_score_counts":
+        hyp, pts = args
+        real = int((hyp[4] >= 0).sum())
+        # |fma(z, nz, fma(x, nx, y*ny)) + d| <= t: 2 fmas, a multiply, an
+        # add and the compare.
+        return nbytes, 7 * real * int((pts[:, 3] > 0.5).sum())
+    if name in ("brute_knn_idx", "brute_radius_count"):
+        q, cand = args
+        live_w = 0.5 if name == "brute_knn_idx" else 0.0
+        live = int((q[:, 3, :].amax(dim=1) >= live_w).sum())
+        return nbytes, PAIR_OPS * pair * live * cand.shape[0]
+    raise KeyError(name)
+
+
+def bound_ms(nbytes, ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+# ── The per-op API (phase 6) ────────────────────────────────────────────────
+
+
+def bench_cloud(n, seed=0, box=10.0):
+    """benches/bench_ops.py's uniform cloud."""
+    rng = np.random.default_rng(seed)
+    return (rng.random((n, 3)) * box).astype(np.float32)
+
+
+def noisy_cloud(box, n_out=1000):
+    """The 100K bench cloud plus ``n_out`` outliers in a ``box`` m cube
+    centred on it."""
+    rng = np.random.default_rng(1)
+    out = (rng.random((n_out, 3)) * box + (5.0 - box / 2)).astype(np.float32)
+    return np.vstack([bench_cloud(100_000), out])
+
+
+def slab_cloud(n=100_000, seed=3):
+    """bench_ops' RANSAC cloud: 80% in a 20 x 20 x 0.05 m slab, 20% in a
+    20 m box."""
+    rng = np.random.default_rng(seed)
+    ns = n * 4 // 5
+    return np.vstack([
+        (rng.random((ns, 3)) * [20, 20, 0.05]).astype(np.float32),
+        (rng.random((n - ns, 3)) * 20).astype(np.float32)])
+
+
+CARD = "cuda"  # where `PointCloud.from_numpy` must put a cloud by default
+NOISY_BOX = 20.0  # outliers here stay within SOR's rescue reach
+OVERFLOW_BOX = 40.0  # here they widen the cell estimate 4x: overflow
+OPS6 = [
+    # (name, path, cloud, call)
+    ("voxel_downsample 0.5 10K", "voxel", "u10k",
+     lambda api, c: api.voxel_downsample(c, 0.5)),
+    ("passthrough x[2,8] 10K", "passthrough", "u10k",
+     lambda api, c: api.passthrough_filter(c, "x", 2.0, 8.0)),
+    ("voxel_downsample 0.5 100K", "voxel", "u100k",
+     lambda api, c: api.voxel_downsample(c, 0.5)),
+    ("voxel_downsample 0.5 1M", "voxel", "u1m",
+     lambda api, c: api.voxel_downsample(c, 0.5)),
+    ("passthrough x[2,8] 100K", "passthrough", "u100k",
+     lambda api, c: api.passthrough_filter(c, "x", 2.0, 8.0)),
+    ("passthrough x[2,8] 1M", "passthrough", "u1m",
+     lambda api, c: api.passthrough_filter(c, "x", 2.0, 8.0)),
+    ("sor k10 std2 10K", "sor", "u10k",
+     lambda api, c: api.statistical_outlier_removal(c, 10, 2.0)),
+    ("sor k10 std2 100K", "sor", "u100k",
+     lambda api, c: api.statistical_outlier_removal(c, 10, 2.0)),
+    ("sor k10 std2 noisy", "sor", "noisy",
+     lambda api, c: api.statistical_outlier_removal(c, 10, 2.0)),
+    ("sor k10 std2 overflow", "sor_overflow", "overflow",
+     lambda api, c: api.statistical_outlier_removal(c, 10, 2.0)),
+    ("ror r0.5 min5 10K", "ror", "u10k",
+     lambda api, c: api.radius_outlier_removal(c, 0.5, 5)),
+    ("ror r0.5 min5 100K", "ror", "u100k",
+     lambda api, c: api.radius_outlier_removal(c, 0.5, 5)),
+    ("ror r0.5 min5 noisy", "ror", "noisy",
+     lambda api, c: api.radius_outlier_removal(c, 0.5, 5)),
+    ("normals k10 10K", "normals", "u10k",
+     lambda api, c: api.estimate_normals(c, 10)),
+    ("normals k10 100K", "normals", "u100k",
+     lambda api, c: api.estimate_normals(c, 10)),
+    ("normals k10 noisy", "normals", "noisy",
+     lambda api, c: api.estimate_normals(c, 10)),
+    ("ransac_plane_seeded 0.05 x500 slab 10K", "ransac", "slab10k",
+     lambda api, c: api.ransac_plane_seeded(c, 0.05, 500, 7)),
+    ("ransac_plane_seeded 0.05 x500 slab 100K", "ransac", "slab100k",
+     lambda api, c: api.ransac_plane_seeded(c, 0.05, 500, 7)),
+]
+# Rescue kernels: the query channel's w that marks a valid query.
+RESCUE_LIVE = {"rescue_select": 0.5, "rescue_knn_idx": 0.5,
+               "brute_knn_idx": 0.5, "rescue_radius_count_groups": 0.0,
+               "brute_radius_count": 0.0}
+
+
+def phase6_clouds():
+    return {
+        "u10k": bench_cloud(10_000), "u100k": bench_cloud(100_000),
+        "u1m": bench_cloud(1_000_000), "noisy": noisy_cloud(NOISY_BOX),
+        "overflow": noisy_cloud(OVERFLOW_BOX), "slab10k": slab_cloud(10_000),
+        "slab100k": slab_cloud(),
+    }
+
+
+def output_arrays(out):
+    """An op's result as numpy arrays: points (and normals), or the plane
+    and its inliers."""
+    if hasattr(out, "inliers"):
+        return [np.asarray(out.normal + [out.d]), np.asarray(out.inliers)]
+    got = [out.to_numpy()]
+    if out._has_normals:
+        got.append(out._normals_numpy())
+    return got
+
+
+def rescue_queries(names):
+    """Spy on the rescue kernels where their callers call them; count the
+    valid queries each receives."""
+    seen = {n: 0 for n in names}
+
+    def hook(name, orig, a, k):
+        q = a[0] if name.startswith("brute") else a[1]
+        seen[name] += int((q[:, 3, :] >= RESCUE_LIVE[name]).sum())
+        return orig(*a, **k)
+
+    targets = [(importlib.import_module(
+        f"pointclouds_tpu_torch.{KERNELS[n][0]}"), n) for n in names]
+    return Spy(targets, hook), seen
+
+
+def p50_ms(fn, reps=5):
+    """Host clock around each call, ending in a synchronize; p50."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(times, 50)), times
+
+
+def profile_op(fn, reps=5):
+    """torch.profiler over ``reps`` calls: (device busy share of the wall
+    window, device kernels per call, top kernels by device time), or None
+    when the profiler saw no device kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        return None
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return (busy / wall_us, len(kern) / reps,
+            [(n[:60], round(t / reps / 1e3, 4)) for n, t in top])
+
+
+def row_index(pts, out_pts):
+    """Rows of ``pts`` that ``out_pts`` holds (the kept rows, in order)."""
+    at = {r.tobytes(): i for i, r in enumerate(pts)}
+    return np.array([at[r.tobytes()] for r in out_pts], np.int64)
+
+
+def oracle_sor(pts, kept, k=10, std=2.0):
+    from scipy.spatial import cKDTree
+
+    d, _ = cKDTree(pts.astype(np.float64)).query(pts.astype(np.float64),
+                                                  k + 1)
+    mean = d[:, 1:].mean(axis=1)
+    thr = mean.mean() + std * mean.std()
+    want = mean <= thr
+    got = np.zeros(len(pts), bool)
+    got[kept] = True
+    near = np.abs(mean - thr) <= 1e-5 * thr
+    return int((got != want)[~near].sum()), int(near.sum())
+
+
+def oracle_ror(pts, kept, r=0.5, min_n=5):
+    from scipy.spatial import cKDTree
+
+    tree = cKDTree(pts.astype(np.float64))
+    p64 = pts.astype(np.float64)
+    cnt = tree.query_ball_point(p64, r, return_length=True)
+    lo = tree.query_ball_point(p64, r * (1 - 1e-6), return_length=True)
+    hi = tree.query_ball_point(p64, r * (1 + 1e-6), return_length=True)
+    want = cnt >= min_n
+    got = np.zeros(len(pts), bool)
+    got[kept] = True
+    near = (lo < min_n) & (hi >= min_n)
+    return int((got != want)[~near].sum()), int(near.sum())
+
+
+def oracle_normals(pts, nrm, k=10):
+    """Rows whose normal is off the f64 PCA of the oracle's k nearest by
+    more than |cos| 0.9999, and the exceptions: rows whose kth neighbour
+    is tied within 1e-6, or whose two smallest eigenvalues are within 5%
+    of the largest (there the reference's f32 Cardano solve, whose arccos
+    near +-1 loses half the digits, moves the normal by up to ~sqrt(eps)
+    over that gap: ~0.03 rad at a 2% gap)."""
+    from scipy.spatial import cKDTree
+
+    p64 = pts.astype(np.float64)
+    d, idx = cKDTree(p64).query(p64, k + 1)
+    nb = p64[idx[:, :k]]
+    cen = nb - nb.mean(axis=1, keepdims=True)
+    cov = np.einsum("nki,nkj->nij", cen, cen)
+    w, v = np.linalg.eigh(cov)
+    cos = np.abs(np.einsum("ni,ni->n", v[:, :, 0], nrm.astype(np.float64)))
+    near = ((d[:, k] - d[:, k - 1]) <= 1e-6 * d[:, k]) | (
+        (w[:, 1] - w[:, 0]) <= 0.05 * w[:, 2])
+    return int(((cos < 0.9999) & ~near).sum()), int(near.sum()), float(
+        np.min(cos[~near]))
+
+
+def phase6(card_line, K, add):
+    """The per-op API on the card: each op's kernels launched, p50 over 5
+    calls, profiler breakdown; 10K outputs equal to the CPU run, 100K
+    outputs held against a cKDTree oracle."""
+    from pointclouds_tpu_torch import api
+    from pointclouds_tpu_torch.ops import fusedops
+
+    clouds = phase6_clouds()
+    gpu = {n: api.PointCloud.from_numpy(a) for n, a in clouds.items()}
+    if gpu["u10k"].device.type != CARD:
+        raise AssertionError("PointCloud.from_numpy did not default to the "
+                             "card")
+    log(f"phase 6: fused_rescue_cap {fusedops.fused_rescue_cap(131_072)} at "
+        f"131,072 rows; noisy = 100K + 1000 outliers in a {NOISY_BOX:g} m "
+        f"box, overflow = 100K + 1000 in a {OVERFLOW_BOX:g} m box")
+    record = {}
+    outs = {}
+    for name, path, cname, call in OPS6:
+        c = gpu[cname]
+        spy, seen = rescue_queries(list(RESCUE_LIVE))
+        info = {}
+
+        def spy_fused(fname, orig, a, k, info=info):
+            out = orig(*a, **k)
+            info[fname] = out[1].tolist()
+            return out
+
+        with spy, Spy([(fusedops, f) for f in ("sor_fused", "ror_fused")],
+                      spy_fused):
+            out, launches = path_launches(K, path, lambda: call(api, c))
+        add(launches)
+        outs[name] = out
+        if path == "sor_overflow" and info["sor_fused"][1] != 0:
+            raise AssertionError("the overflow cloud did not overflow")
+        if path == "sor" and info["sor_fused"][1] != 1:
+            raise AssertionError(f"{name}: unexpected rescue-cap overflow")
+        ms, times = p50_ms(lambda: call(api, c))
+        prof = profile_op(lambda: call(api, c))
+        queries = {n: v for n, v in seen.items() if launches[n]}
+        log(f"op {name}: p50 {ms:.3f} ms over 5 calls ({', '.join(f'{t:.3f}' for t in times)}) "
+            f"launches {sum(launches.values())} "
+            f"{ {n: v for n, v in launches.items() if v} } "
+            f"rescue valid queries {queries} fused info {info} "
+            f"[{card_line}]")
+        if prof is None:
+            log(f"  profiler: no device events ({name})")
+        else:
+            log(f"  profiler: device busy {prof[0]:.3f} of the window, "
+                f"{prof[1]:.0f} device kernels per call, top {prof[2]}")
+        record[name] = dict(p50_ms=ms, times_ms=times,
+                            launches=launches, rescue_queries=queries,
+                            info=info, profile=prof)
+
+    # 10K: bitwise equal to the port's CPU run.
+    for name, path, cname, call in OPS6:
+        if not cname.endswith("10k"):
+            continue
+        cpu = call(api, api.PointCloud.from_numpy(clouds[cname],
+                                                  device="cpu"))
+        for g, w in zip(output_arrays(outs[name]), output_arrays(cpu)):
+            if g.shape != w.shape or not np.array_equal(g, w):
+                raise AssertionError(f"{name}: card and CPU runs differ")
+        log(f"10K {name}: equal to the CPU run "
+            f"({', '.join(str(a.shape) for a in output_arrays(cpu))})")
+
+    # 100K: against the cKDTree oracle in float64.
+    checks = {}
+    for name, cname, fn in (
+            ("sor k10 std2 100K", "u100k", oracle_sor),
+            ("sor k10 std2 overflow", "overflow", oracle_sor),
+            ("ror r0.5 min5 100K", "u100k", oracle_ror),
+            ("ror r0.5 min5 noisy", "noisy", oracle_ror)):
+        pts = clouds[cname]
+        bad, exc = fn(pts, row_index(pts, outs[name].to_numpy()))
+        checks[name] = dict(wrong=bad, exceptions=exc)
+        log(f"oracle {name}: {bad} rows differ, {exc} exceptions "
+            "(within 1e-5 of the threshold / 1e-6 of the radius)")
+        if bad:
+            raise AssertionError(f"{name}: differs from the oracle")
+    for name, cname in (("normals k10 100K", "u100k"),
+                        ("normals k10 noisy", "noisy")):
+        bad, exc, worst = oracle_normals(clouds[cname],
+                                         outs[name]._normals_numpy())
+        checks[name] = dict(wrong=bad, exceptions=exc, min_cos=worst)
+        log(f"oracle {name}: {bad} rows below |cos| 0.9999, {exc} "
+            f"exceptions (kth tie / eigenvalue gap), min |cos| {worst:.7f}")
+        if bad:
+            raise AssertionError(f"{name}: differs from the oracle")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "phase6.json").write_text(json.dumps(
+        dict(card=card_line, ops=record, oracle=checks), indent=1,
+        default=str))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -352,6 +759,12 @@ def main() -> int:
 
     kdata = velodyne_scene(seed=0, n_points=KITTI_POINTS)
     adata = aerial_scene(seed=42, scale=1.0)
+    from pointclouds_tpu_torch import api
+    from pointclouds_tpu_torch.ops import fusedops
+
+    noisy = api.PointCloud.from_numpy(noisy_cloud(NOISY_BOX))
+    overflow = api.PointCloud.from_numpy(noisy_cloud(OVERFLOW_BOX))
+    r32 = torch.tensor(np.float32(0.5), device="cuda")
 
     # ── Phase 2: each kernel against its plain version, pipeline shapes ──
     captured = {}
@@ -362,20 +775,39 @@ def main() -> int:
             (lambda: run_kitti(pc, kdata, 0, "cuda", ransac_subsample=None),
              ["ransac_score_counts"]),
             (lambda: run_aerial(pc, adata, 0, "cuda", ransac_subsample=None,
-                                normals_rescue=True), ["rescue_knn_idx"])):
+                                normals_rescue=True), ["rescue_knn_idx"]),
+            # The per-op API, on the noisy cloud (phase 6's shapes).
+            (lambda: api.statistical_outlier_removal(overflow, 10, 2.0),
+             ["sweep_select"]),
+            (lambda: api.statistical_outlier_removal(noisy, 10, 2.0),
+             ["brute_knn_idx"]),
+            (lambda: api.radius_outlier_removal(noisy, 0.5, 5),
+             ["count_within"]),
+            # ROR's rescues see real queries only where windows overflow:
+            # its fused op with a one-row window budget fills both.
+            (lambda: fusedops.ror_fused(noisy._arrs, r32, 5, wr=1,
+                                        cap=4096),
+             ["rescue_radius_count_groups", "brute_radius_count"])):
         captured.update(capture_inputs(run, names))
     rows = []
     for name, (_, src, line) in KERNELS.items():
         args, kwargs = captured[name]
         err, tol, ms, plain_ms = check_kernel(name, args, kwargs, K)
+        nbytes, ops = work(name, args, kwargs,
+                           getattr(K, name)(*args, **kwargs))
+        bms, by = bound_ms(nbytes, ops)
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-        log(f"kernel {name}: shapes={shapes} agrees ({tol}, max_abs_err="
-            f"{err}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-            f"[{card_line}]")
+        live = {n: int((args[0 if n.startswith("brute") else 1][:, 3, :]
+                        >= RESCUE_LIVE[n]).sum())
+                for n in (name,) if n in RESCUE_LIVE}
+        log(f"kernel {name}: shapes={shapes} {live} agrees ({tol}, "
+            f"max_abs_err={err}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bms:.5f} ms ({by}: {nbytes} B, {ops} ops) [{card_line}]")
         rows.append(dict(name=name, route="cuda",
                          source=f"pointclouds_tpu_torch/spatial/csrc/{src}",
                          replaces=f"{PALLAS}:{line}", max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms))
+                         ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by, library_ms=None))
     launches_total = {name: 0 for name in KERNELS}
 
     def add(launches):
@@ -506,6 +938,9 @@ def main() -> int:
         raise AssertionError("aerial default: plane differs from CPU")
     if not bool(ad.cluster_exact) or not same_clusters(ad_sets, ad_cpu_sets):
         raise AssertionError("aerial default: clusters differ from CPU")
+
+    # ── Phase 6: the per-op API ──
+    phase6(card_line, K, add)
 
     for r in rows:
         r["launches"] = launches_total[r["name"]]

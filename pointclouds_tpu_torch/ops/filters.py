@@ -1,7 +1,9 @@
-"""Voxel downsample (plain, and fused with the sweep SOR ordering) and the
-SOR keep mask: the counterparts of `pointclouds_tpu/ops/filters.py`'s
-`_segment_sums`, `voxel_downsample_masked`, `voxel_scan_sor_epilogue`,
-`voxel_downsample_sweep_fused` and `sor_keep_mask_thr`.
+"""Voxel downsample (plain, and fused with the sweep SOR ordering), the
+passthrough mask and the SOR keep mask: the counterparts of
+`pointclouds_tpu/ops/filters.py`'s `_segment_sums`,
+`voxel_downsample_masked`, `voxel_scan_sor_epilogue`,
+`voxel_downsample_sweep_fused`, `passthrough_mask`, `sor_keep_mask(_thr)`
+and `sor_mean_dists_from_knn`.
 
 Centroid values are bitwise equal to the JAX package's: the canonical-key
 stable sort groups each voxel's points in the same order, and the
@@ -152,6 +154,15 @@ def voxel_downsample_sweep_fused(xyz, valid, voxel_size, *, factor: int,
                 table_overflow=table_overflow, mn_v=mn_v)
 
 
+def passthrough_mask(xyz, valid, axis_index: int, lo, hi):
+    """Keep-mask for finite lo <= v <= hi on one axis (bounds taken as
+    float32)."""
+    v = xyz[:, axis_index]
+    lo = scalar_like(np.float32(lo), v)
+    hi = scalar_like(np.float32(hi), v)
+    return valid & torch.isfinite(v) & (v >= lo) & (v <= hi)
+
+
 def sor_keep_mask_thr(mean_dists, valid, std_mul):
     """SOR keep mask (mean_dist <= mean + std_mul * population std over the
     finite means) and the float64 threshold itself."""
@@ -163,3 +174,26 @@ def sor_keep_mask_thr(mean_dists, valid, std_mul):
     threshold = mean + float(std_mul) * torch.sqrt(var)
     keep = valid & (md64 <= threshold)
     return keep, threshold
+
+
+def sor_keep_mask(mean_dists, valid, std_mul):
+    return sor_keep_mask_thr(mean_dists, valid, std_mul)[0]
+
+
+def sor_mean_dists_from_knn(neighbor_dists, neighbor_valid, query_finite):
+    """Mean distance to the up-to-k nearest non-self neighbours, from
+    [N, k+1] kNN results whose first column is the query itself (distance
+    0): that column is skipped unless it is the only result; no result or
+    a non-finite query gives +inf. The distances are summed one column at
+    a time from 0.0 (the reduction order of the JAX package on the CPU,
+    and the sweep's ascending order), so the mean does not depend on the
+    device."""
+    counts = neighbor_valid.sum(dim=1)
+    use = neighbor_valid.clone()
+    use[:, 0] &= counts <= 1
+    denom = torch.clamp(use.sum(dim=1).to(torch.float32), min=1.0)
+    total = torch.zeros(neighbor_dists.shape[0], dtype=torch.float32,
+                        device=neighbor_dists.device)
+    for j in range(neighbor_dists.shape[1]):
+        total = total + torch.where(use[:, j], neighbor_dists[:, j], 0.0)
+    return torch.where(query_finite & (counts > 0), total / denom, torch.inf)

@@ -1,12 +1,12 @@
-"""PCA normals from kNN moments with the analytic Cardano 3x3 eigensolver:
-the counterpart of `pointclouds_tpu/ops/normals.py`'s
-`cardano_smallest_eigvec_comps` and `normals_from_moment_rows`.
+"""PCA normals from kNN moments or kNN lists with the analytic Cardano 3x3
+eigensolver: the counterpart of `pointclouds_tpu/ops/normals.py`.
 
 The covariance is normalised by its largest absolute entry before the f32
 eigensolve, with the reference's relative thresholds; the eigenvalue of
 smallest *magnitude* is taken (the reference's quirk) and the eigenvector
 comes from the first of three row-pair cross products that is long enough.
-Every step is elementwise on 1-D component tensors.
+Every step is elementwise on 1-D component tensors; square roots, arccos
+and cos go through float64, so the card and the CPU give the same bits.
 """
 
 from __future__ import annotations
@@ -16,12 +16,23 @@ import math
 import numpy as np
 import torch
 
+from ..spatial.kernels import _sqrt_f32, fma_f32
+from .segmentation import _dot3
+
 _PP_EPS = 1e-12  # relative analogue of the reference's 1e-30 absolute cutoff
 _LEN_EPS = 1e-16
 # XLA folds a division by a constant into a multiply by its float32
 # reciprocal; the JAX reference's `/ 3.0` and `/ 6.0` run so.
 _THIRD = float(np.float32(1.0 / 3.0))
 _SIXTH = float(np.float32(1.0 / 6.0))
+
+
+def _via_f64(fn, x):
+    """``fn`` taken in float64 and rounded to float32: the CPU's and the
+    card's f32 transcendentals differ in the last ulp, their float64
+    results rounded to f32 (all but never) do not, so a cloud's normals
+    are the same on both devices."""
+    return fn(x.to(torch.float64)).to(torch.float32)
 
 
 def cardano_smallest_eigvec_comps(c00, c01, c02, c11, c12, c22):
@@ -45,13 +56,13 @@ def cardano_smallest_eigvec_comps(c00, c01, c02, c11, c12, c22):
     pp = torch.clamp(p, min=0.0)
     near_identity = pp < _PP_EPS
 
-    sqrt_p = torch.sqrt(torch.where(near_identity, 1.0, pp))
+    sqrt_p = _sqrt_f32(torch.where(near_identity, 1.0, pp))
     det_ratio = torch.clamp(q / (sqrt_p * (sqrt_p * sqrt_p)), -1.0, 1.0)
-    phi = torch.arccos(det_ratio) * _THIRD
+    phi = _via_f64(torch.arccos, det_ratio) * _THIRD
 
     two_pi_3 = 2.0 * math.pi / 3.0
-    eig0 = m + 2.0 * sqrt_p * torch.cos(phi + two_pi_3)  # smallest
-    eig2 = m + 2.0 * sqrt_p * torch.cos(phi)  # largest
+    eig0 = m + 2.0 * sqrt_p * _via_f64(torch.cos, phi + two_pi_3)  # smallest
+    eig2 = m + 2.0 * sqrt_p * _via_f64(torch.cos, phi)  # largest
     eig1 = 3.0 * m - eig0 - eig2
 
     # The eigenvalue of smallest |lambda|, as the reference picks it.
@@ -80,6 +91,51 @@ def cardano_smallest_eigvec_comps(c00, c01, c02, c11, c12, c22):
     return tuple(out)
 
 
+def cardano_smallest_eigvec(cov):
+    """`cardano_smallest_eigvec_comps` on symmetric [N, 3, 3] matrices;
+    returns f32[N, 3] (unnormalised)."""
+    return torch.stack(cardano_smallest_eigvec_comps(
+        cov[:, 0, 0], cov[:, 0, 1], cov[:, 0, 2],
+        cov[:, 1, 1], cov[:, 1, 2], cov[:, 2, 2]), dim=1)
+
+
+def normals_from_knn(xyz, nbr_idx, nbr_valid, viewpoint, query_xyz=None):
+    """Oriented unit PCA normals f32[Q, 3] from kNN lists (nbr_idx i32[Q, k]
+    rows of ``xyz``, nbr_valid bool[Q, k]): neighbour centroid, 3x3
+    covariance, smallest eigenvector, unit length, flipped to face
+    ``viewpoint`` from ``query_xyz`` (default ``xyz``: one list per row);
+    rows with no neighbour get (0, 0, 1). Sums run over the k neighbours
+    one at a time, so the result does not depend on the device."""
+    if query_xyz is None:
+        query_xyz = xyz
+    vp = torch.as_tensor(viewpoint, dtype=torch.float32, device=xyz.device)
+    pts = xyz[nbr_idx.long()]  # [Q, k, 3]
+    use = nbr_valid[:, :, None]
+    cnt = nbr_valid.to(torch.float32).sum(dim=1)
+    denom = torch.clamp(cnt, min=1.0)
+    nk = pts.shape[1]
+    acc = torch.zeros_like(query_xyz)
+    for j in range(nk):
+        acc = acc + torch.where(use[:, j], pts[:, j], 0.0)
+    centroid = acc / denom[:, None]
+    d = torch.where(use, pts - centroid[:, None, :], 0.0)
+    # The covariance as XLA's CPU backend runs the JAX package's einsum: a
+    # sequential fma over the neighbours (measured bitwise).
+    # All six (xx, xy, xz, yy, yz, zz) products at once.
+    da, db = d[:, :, [0, 0, 0, 1, 1, 2]], d[:, :, [0, 1, 2, 1, 2, 2]]
+    cov = torch.zeros((d.shape[0], 6), dtype=d.dtype, device=d.device)
+    for j in range(nk):
+        cov = fma_f32(da[:, j], db[:, j], cov)
+    vec = torch.stack(cardano_smallest_eigvec_comps(*cov.unbind(1)), dim=1)
+    length = _sqrt_f32(_dot3(vec, vec))
+    unit = torch.where((length > 1e-10)[:, None],
+                       vec / torch.clamp(length, min=1e-30)[:, None], vec)
+    dot = _dot3(unit, vp[None, :] - query_xyz)
+    oriented = torch.where((dot < 0.0)[:, None], -unit, unit)
+    up = torch.tensor([0.0, 0.0, 1.0], device=xyz.device)
+    return torch.where((cnt < 1.0)[:, None], up[None, :], oriented)
+
+
 def normals_from_moment_rows(m1r, m2r, cnt, xyz, viewpoint):
     """Oriented unit PCA normals f32[N, 3] from query-centred kNN moment
     rows (m1r f32[3, N], m2r f32[6, N] in xx, yy, zz, xy, xz, yz order,
@@ -97,7 +153,7 @@ def normals_from_moment_rows(m1r, m2r, cnt, xyz, viewpoint):
         m2r[5] - cnt * my * mz,
         m2r[2] - cnt * mz * mz,
     )
-    length = torch.sqrt(vx * vx + vy * vy + vz * vz)
+    length = _sqrt_f32(vx * vx + vy * vy + vz * vz)
     ok_len = length > 1e-10
     inv_len = 1.0 / torch.clamp(length, min=1e-30)
     ux = torch.where(ok_len, vx * inv_len, vx)

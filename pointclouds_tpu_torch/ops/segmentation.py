@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..core.cloud import compaction_order
-from ..spatial.kernels import ransac_score_counts
+from ..spatial.kernels import _sqrt_f32, fma_f32, ransac_score_counts
 from ..utils.threefry import mod_u64, random_bits64
 from .registration import _to_planar
 
@@ -35,6 +35,16 @@ _PARALLEL_MIN_ITERS = 16
 _KERNEL_MAX_ITERS = 4096
 # Matmul scoring works on at most this many point-hypothesis pairs at once.
 _SCORE_CHUNK_ELEMS = 1 << 26
+
+
+def _dot3(a, b):
+    """Row dot products of [..., 3] f32 tensors in the form XLA's CPU
+    backend gives the JAX package's ``jnp.sum(a * b, axis=1)``:
+    fma(a2, b2, fma(a1, b1, a0 * b0)). Its ``jnp.cross`` is likewise
+    fma(a_j, b_k, -(a_k * b_j)) per component (both measured bitwise), so
+    the hypotheses' normals and offsets are the JAX package's bits."""
+    return fma_f32(a[..., 2], b[..., 2],
+                   fma_f32(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
 
 
 def _sample_three_distinct(seed: int, iterations: int, cnt):
@@ -168,18 +178,13 @@ def ransac_plane_masked(xyz, valid, threshold, seed, iterations: int, *,
 
     v1 = p[:, 1] - p[:, 0]
     v2 = p[:, 2] - p[:, 0]
-    nrm = torch.stack([
-        v1[:, 1] * v2[:, 2] - v1[:, 2] * v2[:, 1],
-        v1[:, 2] * v2[:, 0] - v1[:, 0] * v2[:, 2],
-        v1[:, 0] * v2[:, 1] - v1[:, 1] * v2[:, 0],
-    ], dim=1)
-    length = torch.sqrt(nrm[:, 0] * nrm[:, 0] + nrm[:, 1] * nrm[:, 1]
-                        + nrm[:, 2] * nrm[:, 2])
+    nrm = torch.stack([fma_f32(v1[:, j], v2[:, k], -(v1[:, k] * v2[:, j]))
+                       for j, k in ((1, 2), (2, 0), (0, 1))], dim=1)
+    length = _sqrt_f32(_dot3(nrm, nrm))
     degenerate = length < 1e-10
     safe_len = torch.where(degenerate, 1.0, length)
     normal = nrm / safe_len[:, None]
-    q = normal * p[:, 0]
-    d = -(q[:, 0] + q[:, 1] + q[:, 2])
+    d = -_dot3(normal, p[:, 0])
 
     use_pt = valid & torch.isfinite(xyz).all(dim=-1)
     if score_subsample is not None and iterations > rescore_top:
@@ -233,3 +238,27 @@ def ransac_plane_masked(xyz, valid, threshold, seed, iterations: int, *,
                      + x64[:, 2] * n64[2] + best_d.to(torch.float64))
     inlier_mask = valid & (dist <= threshold) & (cnt >= 3)
     return best_normal, best_d, inlier_mask
+
+
+def ransac_plane_bytes(xyz, valid, threshold, seed, iterations: int, *,
+                       assume_compact: bool = False,
+                       score_subsample: int | None = None,
+                       adaptive: bool = False):
+    """`ransac_plane_masked` packed into one uint8[16 + N/8] tensor, for a
+    single device-to-host copy: bytes [0:16] the little-endian f32 [nx, ny,
+    nz, d], then the inlier mask bit-packed in little bit order
+    (``np.unpackbits(..., bitorder="little")`` on the host)."""
+    n = xyz.shape[0]
+    if n % 8:
+        raise ValueError(f"ransac_plane_bytes: capacity {n} not a multiple "
+                         "of 8")
+    normal, d, inlier_mask = ransac_plane_masked(
+        xyz, valid, threshold, seed, iterations,
+        assume_compact=assume_compact, score_subsample=score_subsample,
+        adaptive=adaptive)
+    scal = torch.cat([normal, d[None]]).to(torch.float32).view(torch.uint8)
+    bits = inlier_mask.to(torch.uint8).reshape(-1, 8)
+    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8,
+                           device=xyz.device)
+    packed = (bits * weights).sum(dim=1, dtype=torch.uint8)
+    return torch.cat([scal, packed])

@@ -112,6 +112,7 @@ def kitti_obstacle_pipeline(
     mean_dists, point_ok, _, mean_lb = sweep_sor_two_pass(
         centroids, ds_valid, sor_cell, k=sor_k, fix_cap=sor_fix_cap,
         rescue_cells=8.0, prebuilt=prebuilt, row_cap=sor_row_cap,
+        with_lb=True,
     )
     cleaned_valid, sor_thr = sor_keep_mask_thr(mean_dists, ds_valid,
                                                np.float32(sor_std))

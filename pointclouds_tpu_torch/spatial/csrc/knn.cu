@@ -41,38 +41,19 @@ __global__ void knn_partial_kernel(const float* __restrict__ cand,
   const float* q = qpl + (long long)b * kRowFloats;
   const float qx = q[l], qy = q[kLanes + l], qz = q[2 * kLanes + l];
   const bool qv = q[3 * kLanes + l] > 0.5f;
-  if (l == 0) any_valid = 0;
-  __syncthreads();
-  if (qv) any_valid = 1;
-  __syncthreads();
   TopKIdx tk;
   tk.init();
-  if (any_valid) {
+  if (block_any(qv, &any_valid)) {
     const int* act = active + (long long)b * ng1;
     const int ngroups = act[0];
     for (int t = split; t < ngroups; t += nsplit) {
       const long long base = (long long)act[1 + t] * gr;
-      for (int r = 0; r < gr; ++r) {
-        stage_row(cand, base + r, sh);
-        if (!qv) continue;
-        const int pos0 = (int)((base + r) * kLanes);
-        for (int j = 0; j < kLanes; ++j) {
-          if (sh[3 * kLanes + j] > 0.5f)
-            tk.push(d2_rn(qx, qy, qz, sh[j], sh[kLanes + j],
-                          sh[2 * kLanes + j]),
-                    pos0 + j, k);
-        }
-      }
+      for (int r = 0; r < gr; ++r)
+        visit_row_idx(cand, base + r, sh, qx, qy, qz, qv, tk, k);
     }
   }
-  const long long nq = (long long)qb * kLanes;
-  const long long qi = (long long)b * kLanes + l;
-#pragma unroll
-  for (int i = 0; i < kMaxK; ++i)
-    if (i < k) {
-      part_v[((long long)split * k + i) * nq + qi] = tk.r[i];
-      part_p[((long long)split * k + i) * nq + qi] = tk.p[i];
-    }
+  store_partial_idx(tk, part_v, part_p, split, k, (long long)qb * kLanes,
+                    (long long)b * kLanes + l);
 }
 
 // One thread per query: the k smallest (d2, position) pairs of the union of
@@ -85,13 +66,7 @@ __global__ void knn_merge_kernel(const float* __restrict__ part_v,
   const long long qi = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (qi >= nq) return;
   TopKIdx tk;
-  tk.init();
-  for (int s = 0; s < nsplit; ++s)
-    for (int i = 0; i < k; ++i) {
-      const long long at = ((long long)s * k + i) * nq + qi;
-      const float v = part_v[at];
-      if (v < kInf) tk.push(v, part_p[at], k);
-    }
+  merge_partials_idx(part_v, part_p, nq, nsplit, k, qi, tk);
   float count = 0.0f, kth = 0.0f;
 #pragma unroll
   for (int i = 0; i < kMaxK; ++i) {

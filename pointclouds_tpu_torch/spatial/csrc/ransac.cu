@@ -60,12 +60,6 @@ __global__ void ransac_score_kernel(const float* __restrict__ hyp,
   if (cnt) atomicAdd(counts + h, cnt);
 }
 
-__global__ void counts_to_f32(const int* __restrict__ counts,
-                              float* __restrict__ out, int nh) {
-  int h = blockIdx.x * blockDim.x + threadIdx.x;
-  if (h < nh) out[h] = (float)counts[h];
-}
-
 }  // namespace
 
 // nh a multiple of 128. counts: int scratch of nh; out: f32 [nh].

@@ -4,6 +4,9 @@
 //   * sweep_select_rows (kernel body _sweep_select_rows_kernel): per 128-query
 //     block, the k smallest masked squared distances over the block's flat
 //     list of candidate rows (SOR pass 1);
+//   * sweep_select (kernel body _sweep_select_kernel): the same over the
+//     block's nine deduplicated windows [start + skip, start + length), with
+//     no row cap (SOR pass 1 of the multi-dispatch fallback, engine.sor_means);
 //   * rescue_select (bodies _rescue_select_kernel / _rescue_walk_store): the
 //     same selection for compacted flagged query blocks, walking only the
 //     8-row candidate groups in each block's AABB-pruned active list (pass 2).
@@ -20,7 +23,9 @@
 // scans it. Bound on Hopper: the per-pair d2 + compare work, not memory:
 // each staged row is reused by all 128 queries, and insertions are rare
 // after the first k candidates. Pass 1 has ~768 query blocks, enough to
-// fill the card. Pass 2 has only fix_cap/128 (32) blocks, each walking up
+// fill the card; the windows walk (sweep_select) has one block per 128
+// sorted points too (1,024 at 131,072 rows), each walking at most 9 * wr
+// rows (wr <= 16). Pass 2 has only fix_cap/128 (32) blocks, each walking up
 // to every group of the cloud, so its group list is split over `nsplit`
 // blocks per query block, each keeping a partial top-k, and a second
 // kernel merges the partial lists (the k smallest of their union).
@@ -62,6 +67,30 @@ __global__ void sweep_select_rows_kernel(const float* __restrict__ pts,
     int nrows = min(rl[cap + 1], cap);
     for (int t = 0; t < nrows; ++t)
       visit_row(pts, rl[t], sh, qx, qy, qz, qv, tk, k);
+  }
+  store_topk(tk, out, (long long)nb * kLanes, (long long)b * kLanes + l, k);
+}
+
+// pts: [nr, 4, 128]; starts: [nb, 28] (the window pack). Query block b =
+// row b; it walks its nine windows [start + skip, start + length).
+__global__ void sweep_select_kernel(const float* __restrict__ pts,
+                                    const int* __restrict__ starts,
+                                    float* __restrict__ out, int nb, int k) {
+  __shared__ float sh[kRowFloats];
+  const int b = blockIdx.x;
+  const int l = threadIdx.x;
+  const int* ss = starts + (long long)b * kStartsCols;
+  const float* q = pts + (long long)b * kRowFloats;
+  const float qx = q[l], qy = q[kLanes + l], qz = q[2 * kLanes + l];
+  const bool qv = q[3 * kLanes + l] > 0.5f;
+  TopK tk;
+  tk.init();
+  if (ss[3 * kShifts] != 0) {
+    for (int j = 0; j < kShifts; ++j) {
+      const int st = ss[j], ln = ss[2 * kShifts + j];
+      for (int r = ss[kShifts + j]; r < ln; ++r)
+        visit_row(pts, st + r, sh, qx, qy, qz, qv, tk, k);
+    }
   }
   store_topk(tk, out, (long long)nb * kLanes, (long long)b * kLanes + l, k);
 }
@@ -132,6 +161,14 @@ extern "C" int pc_sweep_select_rows(const float* pts, const int* rowlist,
     sweep_select_rows_kernel<<<nb, kLanes, 0,
                                static_cast<cudaStream_t>(stream)>>>(
         pts, rowlist, out, nb, cap, k);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pc_sweep_select(const float* pts, const int* starts,
+                               float* out, int nb, int k, void* stream) {
+  if (nb > 0)
+    sweep_select_kernel<<<nb, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+        pts, starts, out, nb, k);
   return (int)cudaGetLastError();
 }
 

@@ -115,6 +115,61 @@ __device__ __forceinline__ void visit_row(const float* __restrict__ pts,
   }
 }
 
+// Stage a row, then fold its valid candidates' (d2, position) pairs into
+// this thread's top-k; a candidate's position is row * 128 + lane.
+__device__ __forceinline__ void visit_row_idx(const float* __restrict__ pts,
+                                              long long row, float* sh,
+                                              float qx, float qy, float qz,
+                                              bool qv, TopKIdx& tk, int k) {
+  stage_row(pts, row, sh);
+  if (!qv) return;
+  const int pos0 = (int)(row * kLanes);
+  for (int j = 0; j < kLanes; ++j) {
+    if (sh[3 * kLanes + j] > 0.5f)
+      tk.push(d2_rn(qx, qy, qz, sh[j], sh[kLanes + j], sh[2 * kLanes + j]),
+              pos0 + j, k);
+  }
+}
+
+// Partial (d2, position) lists of a split walk: part_v / part_p are
+// [nsplit][k][nq]; split s of query qi writes its k slots (+inf pad).
+__device__ __forceinline__ void store_partial_idx(const TopKIdx& tk,
+                                                  float* part_v, int* part_p,
+                                                  int split, int k,
+                                                  long long nq,
+                                                  long long qi) {
+#pragma unroll
+  for (int i = 0; i < kMaxK; ++i)
+    if (i < k) {
+      part_v[((long long)split * k + i) * nq + qi] = tk.r[i];
+      part_p[((long long)split * k + i) * nq + qi] = tk.p[i];
+    }
+}
+
+// The k smallest (d2, position) pairs of the union of the nsplit partial
+// lists of query qi (ties to the smaller position whatever the split).
+__device__ __forceinline__ void merge_partials_idx(
+    const float* __restrict__ part_v, const int* __restrict__ part_p,
+    long long nq, int nsplit, int k, long long qi, TopKIdx& tk) {
+  tk.init();
+  for (int s = 0; s < nsplit; ++s)
+    for (int i = 0; i < k; ++i) {
+      const long long at = ((long long)s * k + i) * nq + qi;
+      const float v = part_v[at];
+      if (v < kInf) tk.push(v, part_p[at], k);
+    }
+}
+
+// Every thread of a 128-thread block learns whether any thread's `mine`
+// is true (a block-uniform test before a walk with barriers in it).
+__device__ __forceinline__ bool block_any(bool mine, int* flag) {
+  if (threadIdx.x == 0) *flag = 0;
+  __syncthreads();
+  if (mine) *flag = 1;
+  __syncthreads();
+  return *flag != 0;
+}
+
 // The starts pack of the window sweeps: per block, nshift window start
 // rows, nshift dedup skips, nshift lengths and the block-has-valid flag; a
 // window covers rows [start + skip, start + length).

@@ -1,8 +1,9 @@
 """The port's hand-written CUDA kernels, each beside its plain torch version.
 
-Counterparts of the eight Pallas kernels on the KITTI and aerial pipelines'
-paths (`pointclouds_tpu/spatial/pallas_kernels.py`). Each wrapper checks its
-inputs, runs the plain version for CPU tensors, and for CUDA tensors
+Counterparts of the Pallas kernels (`pointclouds_tpu/spatial/
+pallas_kernels.py`) on the paths of the KITTI and aerial pipelines and of
+the per-op filter and normals API. Each wrapper checks its inputs, runs
+the plain version for CPU tensors, and for CUDA tensors
 launches the kernel (built from ``csrc/`` at first use) or raises; it
 never falls back. ``LAUNCHES`` counts kernel launches per wrapper, so a
 run can show that its path really went through the kernels. The kernel
@@ -29,11 +30,19 @@ LAUNCHES = {
     "sweep_moments": 0,
     "rescue_knn_idx": 0,
     "cluster_multisweep_windows": 0,
+    "sweep_select": 0,
+    "count_within": 0,
+    "rescue_radius_count_groups": 0,
+    "brute_knn_idx": 0,
+    "brute_radius_count": 0,
 }
 
 # Blocks that share one rescue query block's group list (csrc/select.cu,
-# csrc/knn.cu).
+# csrc/knn.cu, csrc/radius.cu).
 _RESCUE_SPLIT = 16
+# Blocks that share one query block's walk over the whole cloud
+# (csrc/brute.cu): the whole-cloud rescues have at most 32 query blocks.
+_BRUTE_SPLIT = 64
 # Relative inclusion band of the moments' second walk
 # (`pallas_kernels.D2_BAND`): ~7 ulp.
 D2_BAND = 8e-7
@@ -163,6 +172,25 @@ def _sqrt_f32(x):
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
+def _ordered_bits(v):
+    """f32 -> int32 with the same order (negatives' magnitude bits
+    flipped); its own inverse."""
+    b = v.view(torch.int32)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)
+
+
+def _topk_lex(vals, k: int):
+    """The k smallest of f32 ``vals`` (no NaN) along the last axis, ties to
+    the smaller position (as `lax.top_k` and the kernels order them): one
+    int64 key (value, position) per element, since ``torch.topk`` does not
+    promise an order among equal values. Returns (values, positions)."""
+    pos = torch.arange(vals.shape[-1], device=vals.device)
+    key = (_ordered_bits(vals).to(torch.int64) << 32) | pos
+    top = torch.topk(key, k, dim=-1, largest=False, sorted=True).values
+    top_v = _ordered_bits((top >> 32).to(torch.int32).view(torch.float32))
+    return top_v.view(torch.float32), top & 0xFFFFFFFF
+
+
 def _topk_stats(w, k: int):
     """(total, count, kth) of the k smallest finite values along the last
     axis of ``w`` (inf = masked), summed sequentially in ascending order."""
@@ -193,15 +221,19 @@ def fma_f32(a, b, c):
     p = a.to(torch.float64) * b.to(torch.float64)
     s = p + c
     half = (s.view(torch.int64) & ((1 << 29) - 1)) == (1 << 28)
-    out = s.to(torch.float32)
-    if bool(half.any()):  # rare: fix up only those elements
-        idx = half.nonzero(as_tuple=True)
-        ps, cs, ss = p[idx], c[idx], s[idx]
+
+    def fix(ps, cs, ss):
         bb = ss - ps
         err = (ps - (ss - bb)) + (cs - bb)
         toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
-        fixed = torch.where(err != 0, torch.nextafter(ss, toward), ss)
-        out[idx] = fixed.to(torch.float32)
+        return torch.where(err != 0, torch.nextafter(ss, toward), ss)
+
+    if s.is_cuda:  # no host read: fix every element where it is needed
+        return torch.where(half, fix(p, c, s), s).to(torch.float32)
+    out = s.to(torch.float32)
+    if bool(half.any()):  # rare: fix up only those elements
+        idx = half.nonzero(as_tuple=True)
+        out[idx] = fix(p[idx], c[idx], s[idx]).to(torch.float32)
     return out
 
 
@@ -238,19 +270,22 @@ def _block_pairs(q, pts, rows):
         yield rs, d2, pair
 
 
-def _within_r2(qs, cand, r2: float):
+def _within_r2(qs, cand, r2):
     """[B, 128, C] exact ``d2 <= r2`` for the pinned d2, without the fma
     emulation on every pair: a plain f32 sum of the three squares is within
     a few ulp of the pinned form (no cancellation), so only pairs within a
-    1e-5 relative band of r2 need the exact form."""
+    1e-5 relative band of r2 need the exact form. ``r2``: a float, or an
+    f32 tensor broadcasting to [B, 128, C] (per query or per candidate)."""
     d = [qs[:, i, :, None] - cand[:, i, None, :] for i in range(3)]
     approx = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    r2 = torch.as_tensor(r2, dtype=torch.float32, device=approx.device)
     within = approx <= r2
-    near = (approx - r2).abs() <= r2 * 1e-5 + 1e-30
+    near = (approx - r2).abs() <= r2.abs() * 1e-5 + 1e-30
     if bool(near.any()):  # host read: plain versions only
         idx = near.nonzero(as_tuple=True)
         dx, dy, dz = (x[idx] for x in d)
-        within[idx] = fma_f32(dz, dz, fma_f32(dx, dx, dy * dy)) <= r2
+        within[idx] = (fma_f32(dz, dz, fma_f32(dx, dx, dy * dy))
+                       <= r2.expand_as(approx)[idx])
     return within
 
 
@@ -315,12 +350,9 @@ def sweep_select_rows(pts_padded, rowlist, *, k: int, cap: int):
 
 
 def rescue_select_plain(cand_planar, q_planar, active, *, k: int, gr: int):
-    nr = cand_planar.shape[0]
     # Slots past a block's group count read an all-masked pad row at nr.
-    pts = torch.cat([cand_planar, torch.zeros((1, 4, 128),
-                                              device=cand_planar.device)])
-    rows = _group_rows(q_planar, active, gr, nr)
-    return _select_rows_plain(q_planar, pts, rows, k)
+    rows = _group_rows(q_planar, active, gr, cand_planar.shape[0])
+    return _select_rows_plain(q_planar, _with_pad_row(cand_planar), rows, k)
 
 
 def rescue_select(cand_planar, q_planar, active, *, k: int, gr: int = 8):
@@ -557,7 +589,7 @@ def sweep_moments_plain(pts_planar, starts, *, k: int):
     out = torch.zeros((16, nb * 128), dtype=torch.float32, device=dev)
     out[12] = 1.0
     rows = _window_rows(starts, nr)
-    pts = torch.cat([pts_planar, torch.zeros((1, 4, 128), device=dev)])
+    pts = _with_pad_row(pts_planar)
     band1 = torch.tensor(np.float32(1.0 + D2_BAND), device=dev)
     band3 = torch.tensor(np.float32(1.0 + 3.0 * D2_BAND), device=dev)
     at = 0
@@ -628,11 +660,14 @@ def sweep_moments(pts_planar, starts, *, k: int):
 # ── 7. Group-pruned exact kNN with positions ───────────────────────────────
 
 
-def _group_rows(q_planar, active, gr: int, pad_row: int):
+def _group_rows(q_planar, active, gr: int, pad_row: int, live=None):
     """[QB, G*gr] candidate rows of each query block's active groups, in
     ascending group order (pad slots ``pad_row``; at least one group's
-    width); blocks with no valid query get none."""
-    cnt = torch.where(q_planar[:, 3, :].amax(dim=1) > 0.5, active[:, 0], 0)
+    width); blocks with no valid query (``live`` False; default: no w >
+    0.5) get none."""
+    if live is None:
+        live = q_planar[:, 3, :].amax(dim=1) > 0.5
+    cnt = torch.where(live, active[:, 0], 0)
     g = max(int(cnt.max()) if active.shape[0] else 0, 1)
     slot = torch.arange(g * gr, device=active.device)
     groups = active[:, 1:1 + g].long().repeat_interleave(gr, dim=1)
@@ -644,21 +679,14 @@ def rescue_knn_idx_plain(cand_planar, q_planar, active, *, k: int, gr: int):
     nr = cand_planar.shape[0]
     qb = q_planar.shape[0]
     dev = cand_planar.device
-    pts = torch.cat([cand_planar, torch.zeros((1, 4, 128), device=dev)])
     rows = _group_rows(q_planar, active, gr, nr)
     parts = []
-    for rs, d2, pair in _block_pairs(q_planar, pts, rows):
+    for rs, d2, pair in _block_pairs(q_planar, _with_pad_row(cand_planar),
+                                     rows):
         b = rs.shape[0]
-        w = torch.where(pair, d2, torch.inf)
         # Ties at equal d2 to the smaller position: candidates are in
-        # ascending position order (at least one group's width, >= k), and
-        # the key (d2 bits, column) is unique (d2 >= 0, so its bits order
-        # like its values).
-        col = torch.arange(w.shape[2], device=dev)
-        key = (w.view(torch.int32).to(torch.int64) << 32) | col
-        top = torch.topk(key, k, dim=-1, largest=False, sorted=True).values
-        vals = (top >> 32).to(torch.int32).view(torch.float32)
-        c = top & 0xFFFFFFFF
+        # ascending position order (at least one group's width, >= k).
+        vals, c = _topk_lex(torch.where(pair, d2, torch.inf), k)
         row = torch.gather(rs, 1, (c // 128).reshape(b, -1)).reshape(c.shape)
         pos = (row * 128 + c % 128).to(torch.float32)
         found = torch.isfinite(vals)
@@ -754,3 +782,267 @@ def cluster_multisweep_windows(pts_planar, starts, r2, *,
     return _cluster_rounds_cuda("cluster_multisweep_windows",
                                 "pc_cluster_round_windows", pts_planar,
                                 starts, (), r2, nb, max_rounds, labels0)
+
+
+# ── 9. Exact k-smallest selection over the windows (SOR, no row cap) ───────
+
+
+def _with_pad_row(pts_planar):
+    """Planar rows with an all-zero (masked) row appended at index NR,
+    where the plain versions' pad slots point."""
+    return torch.cat([pts_planar, torch.zeros((1, 4, 128),
+                                              device=pts_planar.device)])
+
+
+def sweep_select_plain(pts_planar, starts, *, k: int):
+    nr, nb = pts_planar.shape[0], starts.shape[0]
+    return _select_rows_plain(pts_planar[:nb], _with_pad_row(pts_planar),
+                              _window_rows(starts, nr), k)
+
+
+def sweep_select(pts_planar, starts, *, k: int):
+    """Per 128-query block b (planar row b), the k smallest masked squared
+    distances over the block's nine deduplicated windows [start + skip,
+    start + length) (`sweep_select_rows` without a row cap).
+
+    pts_planar f32[NR, 4, 128] (w = validity); starts i32[NB, 28] (the
+    `_window_starts` pack). Returns (total, count, kth f32[NB*128], ok
+    bool[NB*128]; ok always True: the selection is exact).
+
+    Replaces `pallas_kernels.sweep_select` (csrc/select.cu)."""
+    _check_k(k)
+    nr, nb = pts_planar.shape[0], starts.shape[0]
+    dev = pts_planar.device
+    _check("sweep_select.pts", pts_planar, torch.float32, (nr, 4, 128))
+    _check("sweep_select.starts", starts, torch.int32, (nb, 28), dev)
+    if nb > nr:
+        raise ValueError("sweep_select: more blocks than planar rows")
+    if not _on_cuda(pts_planar):
+        return sweep_select_plain(pts_planar, starts, k=k)
+    out = torch.empty((4, nb * 128), dtype=torch.float32, device=dev)
+    _lib().call("pc_sweep_select", pts_planar.data_ptr(), starts.data_ptr(),
+                out.data_ptr(), nb, k, _stream())
+    LAUNCHES["sweep_select"] += 1
+    return out[0], out[1], out[2], out[3] > 0.5
+
+
+# ── 11./12./14. Inclusive radius counts ─────────────────────────────────────
+
+
+def _count_hits(q, pts, rows, r2_of):
+    """Per query of each block, the candidates with pinned d2 <= r2, where
+    ``r2_of(qs, cand)`` gives r2 broadcasting to [B, 128, C] (or -1 / 0
+    where no hit may count). Returns f32[NB*128]."""
+    parts = [_within_r2(qs, cand, r2_of(qs, cand)).sum(-1)
+             for _, qs, cand in _block_cands(q, pts, rows)]
+    return torch.cat(parts).reshape(-1).to(torch.float32)
+
+
+def count_within_plain(pts_planar, starts):
+    nr, nb = pts_planar.shape[0], starts.shape[0]
+
+    def r2_of(qs, cand):  # the candidate's r2 where both are valid
+        cw = cand[:, 3, None, :]
+        return torch.where((qs[:, 3, :, None] > 0.0) & (cw > 0.0), cw, -1.0)
+
+    return _count_hits(pts_planar[:nb], _with_pad_row(pts_planar),
+                       _window_rows(starts, nr), r2_of)
+
+
+def count_within(pts_planar, starts):
+    """Per query, the candidates within its radius over the block's nine
+    deduplicated windows (inclusive, self included).
+
+    pts_planar f32[NR, 4, 128] with w = r2 (valid) or 0 (masked): a
+    query counts candidate c iff both are valid and d2 <= w_c; starts
+    i32[NB, 28]. Returns f32[NB*128] counts.
+
+    Replaces `pallas_kernels.count_within` (csrc/radius.cu)."""
+    nr, nb = pts_planar.shape[0], starts.shape[0]
+    dev = pts_planar.device
+    _check("count_within.pts", pts_planar, torch.float32, (nr, 4, 128))
+    _check("count_within.starts", starts, torch.int32, (nb, 28), dev)
+    if nb > nr:
+        raise ValueError("count_within: more blocks than planar rows")
+    if not _on_cuda(pts_planar):
+        return count_within_plain(pts_planar, starts)
+    out = torch.empty(nb * 128, dtype=torch.float32, device=dev)
+    _lib().call("pc_count_within", pts_planar.data_ptr(), starts.data_ptr(),
+                out.data_ptr(), nb, _stream())
+    LAUNCHES["count_within"] += 1
+    return out
+
+
+def _radius_r2(qs, cand):
+    """The query's r2 (w channel; -1 = invalid) where the candidate is
+    valid."""
+    return torch.where(cand[:, 3, None, :] > 0.5, qs[:, 3, :, None], -1.0)
+
+
+def _radius_live(q_planar):
+    """Query blocks holding a valid radius query (w = r2 >= 0)."""
+    return q_planar[:, 3, :].amax(dim=1) >= 0.0
+
+
+def rescue_radius_count_groups_plain(cand_planar, q_planar, active, *,
+                                     gr: int):
+    nr = cand_planar.shape[0]
+    rows = _group_rows(q_planar, active, gr, nr, _radius_live(q_planar))
+    return _count_hits(q_planar, _with_pad_row(cand_planar), rows,
+                       _radius_r2)
+
+
+def _counts_cuda(name, entry, qb, dev, *args):
+    """Launch a radius-count entry that adds integer hits into a zeroed
+    int32[QB*128] and writes them out as f32."""
+    counts = torch.zeros(qb * 128, dtype=torch.int32, device=dev)
+    out = torch.empty(qb * 128, dtype=torch.float32, device=dev)
+    _lib().call(entry, *args, counts.data_ptr(), out.data_ptr(), _stream())
+    LAUNCHES[name] += 1
+    return out
+
+
+def rescue_radius_count_groups(cand_planar, q_planar, active, *,
+                               gr: int = 8):
+    """Exact inclusive within-radius counts of compacted query blocks
+    against the candidate row-groups in each block's active list.
+
+    cand_planar f32[NR, 4, 128] (NR % gr == 0, w = validity), q_planar
+    f32[QB, 4, 128] with w = r2 (-1 marks an invalid query), active
+    i32[QB, 1 + NR/gr] (count, then ascending group ids). Returns
+    f32[QB*128].
+
+    Replaces `pallas_kernels.rescue_radius_count_groups`
+    (csrc/radius.cu)."""
+    nr, qb = cand_planar.shape[0], q_planar.shape[0]
+    dev = cand_planar.device
+    if nr % gr:
+        raise ValueError(f"rescue_radius_count_groups: {nr} rows not a "
+                         f"multiple of {gr}")
+    _check("rescue_radius_count_groups.cand", cand_planar, torch.float32,
+           (nr, 4, 128))
+    _check("rescue_radius_count_groups.q", q_planar, torch.float32,
+           (qb, 4, 128), dev)
+    _check("rescue_radius_count_groups.active", active, torch.int32,
+           (qb, 1 + nr // gr), dev)
+    if not _on_cuda(cand_planar):
+        return rescue_radius_count_groups_plain(cand_planar, q_planar, active,
+                                                gr=gr)
+    return _counts_cuda("rescue_radius_count_groups",
+                        "pc_rescue_radius_count", qb, dev,
+                        cand_planar.data_ptr(), q_planar.data_ptr(),
+                        active.data_ptr(), qb, 1 + nr // gr, gr,
+                        _RESCUE_SPLIT)
+
+
+def _live_only(q_planar, live, fill, fn):
+    """``fn(q_live)`` -> f32[R, L*128] on the live query blocks only, into
+    a [R, QB*128] output holding ``fill`` (f32[R]) on the others (a host
+    read: plain versions only)."""
+    blocks = live.nonzero(as_tuple=True)[0]
+    qb = q_planar.shape[0]
+    out = fill[:, None, None].expand(fill.shape[0], qb, 128).clone()
+    if blocks.numel():
+        got = fn(q_planar[blocks])
+        out[:, blocks] = got.reshape(fill.shape[0], -1, 128)
+    return out.reshape(fill.shape[0], qb * 128)
+
+
+def _every_row(qb: int, nr: int, device):
+    return torch.arange(nr, device=device).expand(qb, nr)
+
+
+def brute_radius_count_plain(q_planar, cand_planar):
+    nr = cand_planar.shape[0]
+    pts = _with_pad_row(cand_planar)
+    zero = torch.zeros(1, device=cand_planar.device)
+    return _live_only(
+        q_planar, _radius_live(q_planar), zero,
+        lambda q: _count_hits(q, pts, _every_row(q.shape[0], nr, q.device),
+                              _radius_r2)[None])[0]
+
+
+def _check_brute(name, q_planar, cand_planar):
+    nr, qb = cand_planar.shape[0], q_planar.shape[0]
+    _check(f"{name}.cand", cand_planar, torch.float32, (nr, 4, 128))
+    _check(f"{name}.q", q_planar, torch.float32, (qb, 4, 128),
+           cand_planar.device)
+    if nr * 128 >= 1 << 24:
+        raise ValueError(f"{name}: positions must stay exact in f32")
+    return nr, qb
+
+
+def brute_radius_count(q_planar, cand_planar):
+    """Exact inclusive within-radius counts of every query over the whole
+    candidate array.
+
+    q_planar f32[QB, 4, 128] with w = r2 (-1 marks an invalid query),
+    cand_planar f32[NR, 4, 128] (w = validity). Returns f32[QB*128].
+
+    Replaces `pallas_kernels.brute_radius_count` (csrc/brute.cu)."""
+    nr, qb = _check_brute("brute_radius_count", q_planar, cand_planar)
+    if not _on_cuda(cand_planar):
+        return brute_radius_count_plain(q_planar, cand_planar)
+    return _counts_cuda("brute_radius_count", "pc_brute_radius_count", qb,
+                        cand_planar.device, q_planar.data_ptr(),
+                        cand_planar.data_ptr(), qb, nr, _BRUTE_SPLIT)
+
+
+# ── 13. Exact kNN over the whole cloud, with positions ─────────────────────
+
+
+def _brute_knn_live(q_planar, cand_planar, k: int):
+    nr = cand_planar.shape[0]
+    dev = cand_planar.device
+    rows = _every_row(q_planar.shape[0], nr, dev)
+    parts = []
+    for _, d2, pair in _block_pairs(q_planar, _with_pad_row(cand_planar),
+                                    rows):
+        w = torch.where(pair, d2, torch.inf)
+        if w.shape[2] < k:
+            w = torch.nn.functional.pad(w, (0, k - w.shape[2]),
+                                        value=torch.inf)
+        # Candidates are in position order: ties to the smaller position.
+        vals, pos = _topk_lex(w, k)
+        found = torch.isfinite(vals)
+        pos = pos.to(torch.float32)
+        parts.append(torch.cat([
+            torch.where(found, _sqrt_f32(torch.clamp(vals, min=0.0)),
+                        torch.inf),
+            torch.where(found, pos, -1.0),
+            found.sum(-1, keepdim=True).to(torch.float32)], dim=2))
+    return torch.cat(parts).reshape(-1, 2 * k + 1).T
+
+
+def brute_knn_idx_plain(q_planar, cand_planar, *, k: int):
+    dev = cand_planar.device
+    fill = torch.tensor([torch.inf] * k + [-1.0] * k + [0.0], device=dev)
+    return _live_only(q_planar, q_planar[:, 3, :].amax(dim=1) > 0.5, fill,
+                      lambda q: _brute_knn_live(q, cand_planar, k))
+
+
+def brute_knn_idx(q_planar, cand_planar, *, k: int):
+    """Exact k nearest valid candidates of every query over the whole
+    candidate array.
+
+    q_planar f32[QB, 4, 128], cand_planar f32[NR, 4, 128] (w = validity).
+    Returns f32[2k + 1, QB*128]: rows [0, k) distances sqrt(d2) ascending
+    (+inf pad), [k, 2k) flat candidate positions row*128 + lane (-1 pad;
+    ties at equal d2 to the smaller position), row 2k the count found.
+
+    Replaces `pallas_kernels.brute_knn_idx` (csrc/brute.cu)."""
+    _check_k(k)
+    nr, qb = _check_brute("brute_knn_idx", q_planar, cand_planar)
+    if not _on_cuda(cand_planar):
+        return brute_knn_idx_plain(q_planar, cand_planar, k=k)
+    dev = cand_planar.device
+    out = torch.empty((2 * k + 1, qb * 128), dtype=torch.float32, device=dev)
+    part_v = torch.empty((_BRUTE_SPLIT, k, qb * 128), dtype=torch.float32,
+                         device=dev)
+    part_p = torch.empty((_BRUTE_SPLIT, k, qb * 128), dtype=torch.int32,
+                         device=dev)
+    _lib().call("pc_brute_knn_idx", q_planar.data_ptr(),
+                cand_planar.data_ptr(), part_v.data_ptr(), part_p.data_ptr(),
+                out.data_ptr(), qb, nr, k, _BRUTE_SPLIT, _stream())
+    LAUNCHES["brute_knn_idx"] += 1
+    return out

@@ -1,12 +1,14 @@
-"""Sorted-window sweep: SOR neighbour means, kNN moments and cluster labels
-over cell-sorted planar rows.
+"""Sorted-window sweep: SOR neighbour means, radius counts, kNN moments and
+cluster labels over cell-sorted planar rows.
 
-Counterpart of `pointclouds_tpu/spatial/sweep.py`, ported for the KITTI and
-aerial pipelines' paths: the structure built on rows already sorted by sor
-cell (`structure_from_sorted`) or sorted here (`_sorted_structure`), SOR
-pass 1 over flat per-block row lists, the AABB-pruned exact rescue with
-lower bounds (`sweep_sor_two_pass`, ``with_lb``), kNN moments with and
-without the exact rescue (`sweep_knn_moments_rows`,
+Counterpart of `pointclouds_tpu/spatial/sweep.py`, ported for the paths of
+the KITTI and aerial pipelines and of the per-op filter and normals API:
+the structure built on rows already sorted by sor cell
+(`structure_from_sorted`) or sorted here (`_sorted_structure`), SOR pass 1
+over flat per-block row lists or the nine windows, the AABB-pruned exact
+rescue with optional lower bounds (`sweep_sor_two_pass`), radius counts
+with and without their rescue (`sweep_radius_count(_two_pass)`), kNN
+moments with and without the exact rescue (`sweep_knn_moments(_rows)`,
 `sweep_moments_two_pass_rows`), and the cluster labels over row lists or
 the nine windows (`sweep_cluster_labels`).
 
@@ -27,9 +29,13 @@ from .grid import scalar_like
 from .kernels import (
     cluster_multisweep,
     cluster_multisweep_windows,
+    count_within,
+    fma_f32,
     rescue_knn_idx,
+    rescue_radius_count_groups,
     rescue_select,
     sweep_moments,
+    sweep_select,
     sweep_select_rows,
 )
 
@@ -200,19 +206,35 @@ def structure_from_sorted(xyz_sorted, valid_sorted, slin, extent, hi_cells,
                 grid_origin=grid_origin)
 
 
-def _sweep_pass1(cell_size, *, k: int, prebuilt, row_cap: int):
-    """Pass 1: exact k+1-smallest over each block's flat row list, mean
-    neighbour distance and certificates, in the sorted frame. ``cell_size``
-    is a float32 0-d tensor."""
+def _hi_cells(s):
+    """|coordinate| / cell bound of a structure's grid, for the f32
+    floor-rounding margin: carried by a prebuilt structure, else from the
+    grid's own cell extents."""
+    if s.get("hi_cells") is not None:
+        return s["hi_cells"]
+    return torch.maximum(s["mn"].abs(), (s["mn"] + s["extent"]).abs()).amax(
+    ).to(torch.float32)
+
+
+def _sweep_pass1(cell_size, *, k: int, prebuilt, row_cap: int | None):
+    """Pass 1: exact k+1-smallest over each block's candidates (its flat
+    row list of at most ``row_cap`` rows, or with ``row_cap=None`` its nine
+    windows), mean neighbour distance and certificates, in the sorted
+    frame. ``cell_size`` is a float32 0-d tensor."""
     kp1 = k + 1
     s = prebuilt
     planar = s["planar"]
     starts_skip = s["starts_skip"]
     table_overflow = s["table_overflow"]
-    rowlist, fits = _window_row_lists(starts_skip, row_cap, planar.shape[0])
-    total, count, kth, seg_ok = sweep_select_rows(
-        _planar_padded(planar), rowlist, k=kp1, cap=row_cap)
-    block_ok = s["block_ok"] & fits
+    block_ok = s["block_ok"]
+    if row_cap is None:
+        total, count, kth, seg_ok = sweep_select(planar, starts_skip, k=kp1)
+    else:
+        rowlist, fits = _window_row_lists(starts_skip, row_cap,
+                                          planar.shape[0])
+        total, count, kth, seg_ok = sweep_select_rows(
+            _planar_padded(planar), rowlist, k=kp1, cap=row_cap)
+        block_ok = block_ok & fits
     ok_sorted = seg_ok & block_ok.repeat_interleave(128)
 
     nb = starts_skip.shape[0]
@@ -227,7 +249,7 @@ def _sweep_pass1(cell_size, *, k: int, prebuilt, row_cap: int):
     mean_s = torch.where(count >= wantf, mean_s, torch.inf)
     mean_s = torch.where(use_s, mean_s, torch.inf)
 
-    margin = (s["hi_cells"] * 4.0 * 1.2e-7 + 1e-6) * cell_size
+    margin = (_hi_cells(s) * 4.0 * 1.2e-7 + 1e-6) * cell_size
     origin = s.get("grid_origin")
     if origin is not None:
         # Per-query coverage radius: distance from the query to the outer
@@ -327,25 +349,25 @@ def _rescue_structure(planar, order, flagged, fix_cap: int, n: int, radius,
     return planar_g, q_planar, active.contiguous(), qvalid, qsel
 
 
-def sweep_sor_two_pass(xyz, valid, cell_size, *, k: int, prebuilt,
+def sweep_sor_two_pass(xyz, valid, cell_size, *, k: int,
                        fix_cap: int = 4096, rescue_cells: float = 4.0,
-                       row_cap: int = 12):
-    """Pass-1 sweep + exact AABB-pruned rescue of the flagged queries, with
-    per-row lower bounds on the true mean (the keep-decision certificate's
-    input). Returns (mean f32[N], point_ok bool[N], certified bool, lb
-    f32[N]) in row order (``prebuilt`` has the identity permutation).
+                       wr: int = 4, table_size: int = SWEEP_TABLE_SIZE,
+                       prebuilt=None, row_cap: int | None = None,
+                       with_lb: bool = False):
+    """Pass-1 sweep + exact AABB-pruned rescue of the flagged queries.
 
-    Only the path the KITTI pipeline takes is ported: a
-    `structure_from_sorted` ``prebuilt``, the row-list pass 1
-    (``row_cap``) and the lower bounds (the reference's ``with_lb=True``).
-    """
-    if prebuilt is None or row_cap is None:
-        raise NotImplementedError(
-            "sweep_sor_two_pass: only prebuilt + row_cap is ported "
-            "(ROADMAP.md, queue 1)")
+    Returns (mean f32[N], point_ok bool[N], certified bool) in row order,
+    and with ``with_lb`` also lb f32[N], per-row lower bounds on the true
+    mean (the keep-decision certificate's input). ``prebuilt``: a
+    `structure_from_sorted` dict (identity permutation); otherwise the
+    points are sorted here (``wr``, ``table_size``). ``row_cap``: pass 1
+    walks each block's flat row list of at most this many rows (blocks
+    with more fail certification); None walks the nine windows."""
     n = xyz.shape[0]
     cell_size = scalar_like(cell_size, xyz)
-    p = _sweep_pass1(cell_size, k=k, prebuilt=prebuilt, row_cap=row_cap)
+    s = prebuilt if prebuilt is not None else _sorted_structure(
+        xyz, valid, cell_size, wr, table_size)
+    p = _sweep_pass1(cell_size, k=k, prebuilt=s, row_cap=row_cap)
     kp1 = k + 1
     use_s = p["use_s"]
     nall = use_s.shape[0]
@@ -353,9 +375,10 @@ def sweep_sor_two_pass(xyz, valid, cell_size, *, k: int, prebuilt,
 
     flagged_s = use_s & ~p["point_ok_s"]
     radius = rescue_cells * cell_size
-    # Rows with no decision certificate from pass 1 go first when the
-    # flagged rows exceed fix_cap.
-    hard_s = flagged_s & (p["count_s"] >= wantf) & (p["mean_s"] > 2.0 * cell_size)
+    # With lower bounds, rows with no decision certificate from pass 1 go
+    # first when the flagged rows exceed fix_cap.
+    hard_s = (flagged_s & (p["count_s"] >= wantf)
+              & (p["mean_s"] > 2.0 * cell_size)) if with_lb else None
     planar_g, q_planar, active, qvalid, qsel = _rescue_structure(
         p["planar"], None, flagged_s, fix_cap, nall, radius, priority=hard_s)
     rtotal, rcount, rkth, rseg_ok = rescue_select(
@@ -369,10 +392,36 @@ def sweep_sor_two_pass(xyz, valid, cell_size, *, k: int, prebuilt,
     rok = (rcount >= wantf) & (rkth <= rc * rc) & rseg_ok & qvalid
     rok = rok & ~p["table_overflow"]
 
-    # Lower bounds on the true mean: candidates are complete within R (the
-    # coverage radius in pass 1, the rescue radius in pass 2). Count-short
-    # rows: the missing neighbours are each > R. Others: each found
-    # distance beyond R over-estimates its true counterpart by <= kth - R.
+    # Scatter the rescued rows back (qsel are sorted positions; slot nall
+    # swallows the non-flagged padding slots).
+    pos = torch.where(qvalid, qsel, nall)
+    rows = [p["mean_s"], p["point_ok_s"].to(torch.float32)]
+    upd = [torch.where(qvalid, rmean, 0.0),
+           torch.where(qvalid, rok.to(torch.float32), 0.0)]
+    if with_lb:
+        lb1, rlb = _lower_bounds(p, rtotal, rcount, rkth, rseg_ok, rmean,
+                                 rok, radius, wantf)
+        rows.append(lb1)
+        upd.append(torch.where(qvalid, rlb, 0.0))
+    merged = torch.zeros((len(rows), nall + 1), dtype=torch.float32,
+                         device=xyz.device)
+    merged[:, :nall] = torch.stack(rows)
+    merged[:, pos] = torch.stack(upd)
+    merged = merged[:, :nall]
+    # Flagged rows beyond fix_cap stay point_ok=False.
+    certified = ~(use_s & ~(merged[1] > 0.5)).any()
+    res = merged[:, :n] if s["inv"] is None else merged[:, s["inv"]]
+    out = (res[0], res[1] > 0.5, certified)
+    return out + (res[2],) if with_lb else out
+
+
+def _lower_bounds(p, rtotal, rcount, rkth, rseg_ok, rmean, rok, radius,
+                  wantf):
+    """Lower bounds on the true mean, sorted frame (pass 1) and per rescue
+    slot: candidates are complete within R (the coverage radius in pass
+    1, the rescue radius in pass 2). Count-short rows: the missing
+    neighbours are each > R. Others: each found distance beyond R
+    over-estimates its true counterpart by <= kth - R."""
     ndiv = torch.clamp(wantf - 1.0, min=1.0)
     safe1 = torch.sqrt(p["safe2_s"])
     mok = p["machine_ok_s"]
@@ -393,32 +442,23 @@ def sweep_sor_two_pass(xyz, valid, cell_size, *, k: int, prebuilt,
     rlb_m = torch.where(rseg_ok & ~rshort,
                         rmean_f - torch.clamp(rkthd - radius, min=0.0), 0.0)
     rlb = torch.maximum(rlb_short, torch.clamp(rlb_m, min=0.0))
-    rlb = torch.where(rok, rmean_f, rlb)
-
-    # Scatter the rescued rows back (qsel are sorted positions; slot nall
-    # swallows the non-flagged padding slots).
-    pos = torch.where(qvalid, qsel, nall)
-    merged = torch.zeros((3, nall + 1), dtype=torch.float32, device=xyz.device)
-    merged[0, :nall] = p["mean_s"]
-    merged[1, :nall] = p["point_ok_s"].to(torch.float32)
-    merged[2, :nall] = lb1
-    merged[:, pos] = torch.stack([torch.where(qvalid, rmean, 0.0),
-                                  torch.where(qvalid, rok.float(), 0.0),
-                                  torch.where(qvalid, rlb, 0.0)])
-    mean_s, ok_s, lb_s = merged[0, :nall], merged[1, :nall] > 0.5, merged[2, :nall]
-    # Flagged rows beyond fix_cap stay point_ok=False.
-    certified = ~(use_s & ~ok_s).any()
-    return mean_s[:n], ok_s[:n], certified, lb_s[:n]
+    return lb1, torch.where(rok, rmean_f, rlb)
 
 
 # ── Clustering ──────────────────────────────────────────────────────────────
 
 
 def cluster_cell_size(radius, hi_abs):
-    """Sort-cell width for cluster sweeps: one radius plus the f32
-    floor-rounding margin, so the 27-cell neighbourhood holds every
-    within-radius candidate."""
-    return radius * 1.00002 + hi_abs * 6e-7 + 1e-7
+    """Sort-cell width for cluster and radius sweeps: one radius plus the
+    f32 floor-rounding margin, so the 27-cell neighbourhood holds every
+    within-radius candidate. ``radius``, ``hi_abs``: f32 0-d tensors. The
+    reference's ``radius * 1.00002 + hi_abs * 6e-7 + 1e-7`` is taken as
+    XLA's CPU backend contracts it, fma(radius, 1.00002, hi_abs * 6e-7) +
+    1e-7 (measured: 100% bitwise, 75% for the uncontracted form)."""
+    c = scalar_like(np.float32(1.00002), hi_abs)
+    one = (1,)
+    return fma_f32(radius.reshape(one), c.reshape(one),
+                   (hi_abs * 6e-7).reshape(one))[0] + 1e-7
 
 
 def _sorted_structure(xyz, valid, cell_size, wr: int, table_size: int):
@@ -579,16 +619,28 @@ def _moments_pass1(s, cell_size, *, k: int):
     count, kth, point_ok = res[9], res[10], res[11] > 0.5
 
     # kth-within-cell certificate (the SOR sweep's margin).
-    hi_cells = s.get("hi_cells")
-    if hi_cells is None:
-        hi_cells = torch.maximum(s["mn"].abs(),
-                                 (s["mn"] + s["extent"]).abs()).amax().to(
-                                     torch.float32)
-    margin = (hi_cells * 4.0 * 1.2e-7 + 1e-6) * cell_size
+    margin = (_hi_cells(s) * 4.0 * 1.2e-7 + 1e-6) * cell_size
     safe = torch.clamp(cell_size - margin, min=0.0)
     point_ok = (point_ok & (kth <= safe * safe) & s["use"]
                 & ~s["table_overflow"])
     return res[0:3], res[3:9], count, point_ok
+
+
+def _set_rows(dst, rows, vals):
+    """``dst`` with rows ``rows`` set to ``vals``; rows equal to len(dst)
+    (padding slots) are dropped."""
+    n = dst.shape[0]
+    ext = torch.cat([dst, dst[:1]])
+    ext[rows] = vals
+    return ext[:n]
+
+
+def _sum_columns(t):
+    """[Q, k] -> [Q], added column by column from 0.0."""
+    acc = torch.zeros(t.shape[0], dtype=t.dtype, device=t.device)
+    for j in range(t.shape[1]):
+        acc = acc + t[:, j]
+    return acc
 
 
 def _rescue_rows_orig(order, qsel, n: int):
@@ -646,8 +698,10 @@ def sweep_moments_two_pass_rows(xyz, valid, cell_size, *, k: int,
     rel = [torch.where(found, xyz[idxc, i] - xyz[rowc, i][:, None], 0.0)
            for i in range(3)]
     relx, rely, relz = rel
-    rm1 = torch.stack([r.sum(dim=1) for r in rel])
-    rm2 = torch.stack([(a * b).sum(dim=1) for a, b in (
+    # Summed one neighbour at a time: torch's reductions add in another
+    # order on the card than on the CPU.
+    rm1 = torch.stack([_sum_columns(r) for r in rel])
+    rm2 = torch.stack([_sum_columns(a * b) for a, b in (
         (relx, relx), (rely, rely), (relz, relz), (relx, rely),
         (relx, relz), (rely, relz))])
     rcnt = found.sum(dim=1).to(torch.float32)
@@ -662,3 +716,78 @@ def sweep_moments_two_pass_rows(xyz, valid, cell_size, *, k: int,
 
     return (scatter(m1r, rm1), scatter(m2r, rm2), scatter(count, rcnt),
             scatter(point_ok, rok))
+
+
+def sweep_knn_moments(xyz, valid, cell_size, *, k: int, wr: int = 4,
+                      table_size: int = SWEEP_TABLE_SIZE):
+    """`sweep_knn_moments_rows` in column layout: (m1 f32[N, 3], m2
+    f32[N, 6] (xx, yy, zz, xy, xz, yz), count f32[N], point_ok bool[N])."""
+    m1r, m2r, count, point_ok = sweep_knn_moments_rows(
+        xyz, valid, cell_size, k=k, wr=wr, table_size=table_size)
+    return m1r.T, m2r.T, count, point_ok
+
+
+# ── Radius counts (radius outlier removal) ─────────────────────────────────
+
+
+def _radius_structure(xyz, valid, radius, wr: int, table_size: int):
+    """The sorted structure with a sort cell of one radius (f32) plus the
+    floor-rounding margin, so every within-radius candidate lies in the
+    27-cell neighbourhood."""
+    use = valid & torch.isfinite(xyz).all(dim=-1)
+    hi_abs = torch.where(use[:, None], xyz.abs(), 0.0).amax()
+    cell = cluster_cell_size(scalar_like(radius, xyz), hi_abs)
+    return _sorted_structure(xyz, valid, cell, wr, table_size)
+
+
+def _radius_pass1(s, radius):
+    """Pass 1: per-point counts over the windows (``count_within``; r2
+    rides the w channel: 1 -> r2, 0 stays 0), in row order. Counts are
+    exact by construction wherever the block's windows were complete."""
+    planar = s["planar"]
+    r = scalar_like(radius, planar)
+    planar = planar.clone()
+    planar[:, 3, :] *= r * r
+    counts_f = count_within(planar, s["starts_skip"])
+    ok_sorted = s["block_ok"].repeat_interleave(128)
+    res = torch.stack([counts_f, ok_sorted.to(torch.float32)])[:, s["inv"]]
+    use = s["use"]
+    counts = torch.where(use, res[0].to(torch.int32), 0)
+    point_ok = (res[1] > 0.5) & use & ~s["table_overflow"]
+    return counts, point_ok
+
+
+def sweep_radius_count(xyz, valid, radius, *, wr: int = 4,
+                       table_size: int = SWEEP_TABLE_SIZE):
+    """Points within ``radius`` (f32, inclusive, self included) of each
+    point, over the sorted windows. Returns (counts i32[N], point_ok
+    bool[N]); rows flagged only where a block's windows overflowed or the
+    cell table did."""
+    s = _radius_structure(xyz, valid, radius, wr, table_size)
+    return _radius_pass1(s, radius)
+
+
+def sweep_radius_count_two_pass(xyz, valid, radius, *, fix_cap: int = 4096,
+                                wr: int = 4,
+                                table_size: int = SWEEP_TABLE_SIZE):
+    """`sweep_radius_count` plus the exact AABB-group-pruned rescue of up
+    to ``fix_cap`` flagged rows (the prune ball is the query radius, so a
+    rescued count is exact by construction). Only a fix_cap or cell-table
+    overflow leaves rows flagged."""
+    n = xyz.shape[0]
+    s = _radius_structure(xyz, valid, radius, wr, table_size)
+    counts, point_ok = _radius_pass1(s, radius)
+    r = scalar_like(radius, xyz)
+    flagged = s["use"] & ~point_ok
+    planar_g, q_planar, active, qvalid, qsel = _rescue_structure(
+        s["planar"], s["order"], flagged, fix_cap, n, r)
+    # r^2 rides the query w channel; -1 marks an invalid or padding slot.
+    q_planar = q_planar.clone()
+    q_planar[:, 3, :] = torch.where(q_planar[:, 3, :] > 0.5, r * r, -1.0)
+    rcounts = rescue_radius_count_groups(planar_g, q_planar, active,
+                                         gr=RESCUE_GROUP_ROWS)
+    rok = qvalid & ~s["table_overflow"]
+    rows = torch.where(rok, _rescue_rows_orig(s["order"], qsel, n), n)
+    return (_set_rows(counts, rows, torch.where(rok, rcounts.to(torch.int32),
+                                                0)),
+            _set_rows(point_ok, rows, rok))

@@ -54,7 +54,7 @@ def test_port_matches_jax_aerial(scene, config):
     jout = jax_pipeline(a.xyz, a.valid, *args,
                         jnp.asarray(VP, jnp.float32), backend="sweep_xla",
                         **kw)
-    c = port.make_cloud_arrays(scene)
+    c = port.make_cloud_arrays(scene, device="cpu")
     kernels.reset_launch_counts()
     tout = port.aerial_pipeline(c.xyz, c.valid, *args, VP, **kw)
     assert all(v == 0 for v in kernels.LAUNCHES.values())  # CPU: plain
@@ -87,7 +87,7 @@ def test_port_matches_jax_aerial(scene, config):
 
 
 def test_unported_backend_raises(scene):
-    c = port.make_cloud_arrays(scene[:500])
+    c = port.make_cloud_arrays(scene[:500], device="cpu")
     with pytest.raises(NotImplementedError):
         port.aerial_pipeline(c.xyz, c.valid, np.float32(0.5),
                              np.float32(3.0), np.float32(0.3), 0,

@@ -209,3 +209,115 @@ def test_aerial_pipeline_gpu_equals_cpu(dev):
     assert bool(gpu.cluster_exact) and bool(cpu.cluster_exact)
     assert extract_clusters(gpu, 20, 100_000) == extract_clusters(cpu, 20,
                                                                   100_000)
+
+
+@pytest.mark.parametrize("k", [11, 21])
+def test_sweep_select(dev, k):
+    s = _structure(dev, seed=3, wr=6, cell=0.9)
+    got = _count_launch("sweep_select", lambda: kernels.sweep_select(
+        s["planar"], s["starts_skip"], k=k))
+    want = kernels.sweep_select_plain(s["planar"], s["starts_skip"], k=k)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_count_within(dev):
+    s = _structure(dev, seed=4, wr=4, cell=0.5)
+    planar = s["planar"].clone()
+    # Per-candidate r2: 0.25, or the d2 to the next sorted point (a pair
+    # on its radius) on every third row.
+    pts = planar[:, :3, :].permute(0, 2, 1).reshape(-1, 3)
+    nxt = torch.roll(pts, -1, 0)
+    d = pts - nxt
+    d2 = kernels.fma_f32(d[:, 2], d[:, 2], kernels.fma_f32(
+        d[:, 0], d[:, 0], d[:, 1] * d[:, 1]))
+    w = planar[:, 3, :].reshape(-1)
+    r2 = torch.where((torch.arange(len(w), device=dev) % 3 == 0)
+                     & (d2 > 0) & (d2 < 0.25), d2, 0.25)
+    planar[:, 3, :] = (w * r2).reshape(-1, 128)
+    got = _count_launch("count_within", lambda: kernels.count_within(
+        planar, s["starts_skip"]))
+    assert torch.equal(got, kernels.count_within_plain(planar,
+                                                       s["starts_skip"]))
+    assert got.sum() > 0
+
+
+def _groups(rng, qb, ng, dev):
+    act = np.full((qb, 1 + ng), 12345, np.int32)  # garbage past the count
+    for b in range(qb):
+        g = np.sort(rng.choice(ng, rng.integers(0, ng + 1), replace=False))
+        act[b, 0] = len(g)
+        act[b, 1:1 + len(g)] = g
+    return torch.from_numpy(act).to(dev)
+
+
+def _radius_queries(rng, qb, dev, dead_block=True):
+    q = _planar(rng, qb).to(dev)
+    r2 = torch.from_numpy(rng.uniform(0.1, 4.0, (qb, 128)).astype(np.float32))
+    q[:, 3] = torch.where(q[:, 3] > 0.5, r2.to(dev), -1.0)
+    if dead_block:
+        q[qb - 1, 3] = -1.0  # an all-invalid block
+    return q
+
+
+def test_rescue_radius_count_groups(dev):
+    rng = np.random.default_rng(6)
+    nr, qb, gr = 64, 5, 8
+    cand = _planar(rng, nr).to(dev)
+    q = _radius_queries(rng, qb, dev)
+    act = _groups(rng, qb, nr // gr, dev)
+    got = _count_launch("rescue_radius_count_groups",
+                        lambda: kernels.rescue_radius_count_groups(
+                            cand, q, act, gr=gr))
+    want = kernels.rescue_radius_count_groups_plain(cand, q, act, gr=gr)
+    assert torch.equal(got, want) and got.sum() > 0
+
+
+def test_brute_radius_count(dev):
+    rng = np.random.default_rng(7)
+    cand = _planar(rng, 200).to(dev)
+    q = _radius_queries(rng, 6, dev)
+    got = _count_launch("brute_radius_count",
+                        lambda: kernels.brute_radius_count(q, cand))
+    assert torch.equal(got, kernels.brute_radius_count_plain(q, cand))
+    assert got.sum() > 0 and (got[5 * 128:] == 0).all()
+
+
+@pytest.mark.parametrize("k", [1, 11, 24])
+def test_brute_knn_idx(dev, k):
+    rng = np.random.default_rng(k)
+    cand = _planar(rng, 150).to(dev)
+    cand[7, :3, :64] = cand[7, :3, 64:]  # duplicates: ties at equal d2
+    q = _planar(rng, 6).to(dev)
+    q[5, 3] = 0.0  # an all-invalid block
+    got = _count_launch("brute_knn_idx",
+                        lambda: kernels.brute_knn_idx(q, cand, k=k))
+    want = kernels.brute_knn_idx_plain(q, cand, k=k)
+    assert torch.equal(got, want)
+    assert (got[2 * k, :5 * 128] > 0).any() and (got[2 * k, 5 * 128:] == 0).all()
+
+
+def test_api_gpu_equals_cpu(dev):
+    """The per-op API on the card against its CPU run: the same points in
+    the same order, the same normals, plane and inliers."""
+    from pointclouds_tpu_torch import api
+
+    rng = np.random.default_rng(8)
+    pts = rng.uniform(0, 10, (6000, 3)).astype(np.float32)
+    pts[:300] = rng.uniform(-5, 15, (300, 3))
+    out = {}
+    for d in ("cpu", dev):
+        c = api.PointCloud.from_numpy(pts, device=d)
+        out[str(d)] = [
+            api.voxel_downsample(c, 0.5).to_numpy(),
+            api.passthrough_filter(c, "x", 2.0, 8.0).to_numpy(),
+            api.statistical_outlier_removal(c, 10, 2.0).to_numpy(),
+            api.radius_outlier_removal(c, 0.5, 5).to_numpy(),
+            api.estimate_normals(c, 10)._normals_numpy(),
+        ]
+        plane = api.ransac_plane_seeded(c, 0.05, 200, 3)
+        out[str(d)].append(np.asarray(plane.normal + [plane.d] +
+                                      plane.inliers))
+        assert api.statistical_outlier_removal(c, 10, 2.0).device == c.device
+    for g, w in zip(out[str(dev)], out["cpu"]):
+        np.testing.assert_array_equal(g, w)

@@ -30,7 +30,7 @@ def _messy(seed, n):
 def test_voxel_downsample_masked_bitwise(case, voxel):
     data = (aerial_scene(seed=3, scale=0.05) if case == "aerial"
             else _messy(11, 3000))
-    c = make_cloud_arrays(data)
+    c = make_cloud_arrays(data, device="cpu")
     valid = c.valid.clone()
     valid[::17] = False
     jc, jv = jax_voxel_downsample_masked(jnp.asarray(c.xyz.numpy()),

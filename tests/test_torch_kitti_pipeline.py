@@ -54,7 +54,7 @@ def test_port_matches_jax_pipeline(scale, seed, ransac_seed):
                         sor_backend="sweep_xla", **KW)
     jclusters = jax_extract(jout, 10, 20_000)
 
-    c = port.make_cloud_arrays(data)
+    c = port.make_cloud_arrays(data, device="cpu")
     kernels.reset_launch_counts()
     tout = port.kitti_obstacle_pipeline(c.xyz, c.valid, *ARGS, ransac_seed,
                                         np.float32(0.8), **KW)
@@ -93,7 +93,7 @@ def test_port_matches_jax_default_ransac():
     a = jax_make_cloud(data)
     jout = jax_pipeline(a.xyz, a.valid, *ARGS, 7, np.float32(0.8),
                         sor_backend="sweep_xla", **kw)
-    c = port.make_cloud_arrays(data)
+    c = port.make_cloud_arrays(data, device="cpu")
     t = _as_np(port.kitti_obstacle_pipeline(c.xyz, c.valid, *ARGS, 7,
                                             np.float32(0.8), **kw))
     assert 3_000 < int(t.cleaned_valid.sum()) < 10_000
@@ -116,10 +116,28 @@ def _wrap(out):
     return type(out)(*(torch.from_numpy(np.asarray(x)) for x in out))
 
 
+def test_sor_windows_pass1_matches_jax():
+    """``sor_row_cap=None``: SOR pass 1 over the nine windows (the
+    `sweep_select` kernel's plain version) instead of the row lists."""
+    data = _crop(42, 0.08)
+    a = jax_make_cloud(data)
+    jout = jax_pipeline(a.xyz, a.valid, *ARGS, 5, np.float32(0.8),
+                        sor_backend="sweep_xla", **KW)
+    c = port.make_cloud_arrays(data, device="cpu")
+    t = _as_np(port.kitti_obstacle_pipeline(c.xyz, c.valid, *ARGS, 5,
+                                            np.float32(0.8), sor_row_cap=None,
+                                            **KW))
+    jk, tk = int(np.asarray(jout.cleaned_valid).sum()), int(t.cleaned_valid.sum())
+    assert abs(jk - tk) <= max(3, jk // 100)
+    assert bool(t.sor_certified)
+    tclusters = port.extract_clusters(_wrap(t), 10, 20_000)
+    jclusters = jax_extract(jout, 10, 20_000)
+    assert [len(x) for x in tclusters] == [len(x) for x in jclusters]
+
+
 def test_unported_backends_raise():
-    c = port.make_cloud_arrays(_crop(3, 0.02))
-    for bad in (dict(sor_backend="xla"), dict(sor_row_cap=None),
-                dict(ds_cap=1000)):
+    c = port.make_cloud_arrays(_crop(3, 0.02), device="cpu")
+    for bad in (dict(sor_backend="xla"), dict(ds_cap=1000)):
         with pytest.raises(NotImplementedError):
             port.kitti_obstacle_pipeline(c.xyz, c.valid, *ARGS, 0,
                                          np.float32(0.8),

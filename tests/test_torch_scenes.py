@@ -41,7 +41,7 @@ def test_aerial_scene_equal(seed, scale):
 def test_make_cloud_arrays_pads_like_jax(n):
     assert bucket_size(n) == jax_bucket_size(n)
     pts = np.random.default_rng(n).normal(size=(n, 3)).astype(np.float32)
-    got = make_cloud_arrays(pts)
+    got = make_cloud_arrays(pts, device="cpu")
     want = jax_make_cloud(pts)
     np.testing.assert_array_equal(got.xyz.numpy(), np.asarray(want.xyz))
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))

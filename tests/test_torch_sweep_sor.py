@@ -169,7 +169,8 @@ def test_sweep_sor_two_pass_matches_jax(jax_front, fix_cap):
     kernels.reset_launch_counts()
     tmean, tok, tcert, tlb = sweep.sweep_sor_two_pass(
         to_torch(fe["centroids"]), to_torch(fe["out_valid"]), cell, k=K,
-        fix_cap=fix_cap, rescue_cells=8.0, prebuilt=tpre, row_cap=12)
+        fix_cap=fix_cap, rescue_cells=8.0, prebuilt=tpre, row_cap=12,
+        with_lb=True)
     assert all(v == 0 for v in kernels.LAUNCHES.values())
     tmean, tok, tlb = tmean.numpy(), tok.numpy(), tlb.numpy()
     assert ok.sum() > 100
