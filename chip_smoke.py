@@ -45,7 +45,21 @@ Phases:
    breakdown; 10K outputs equal to the port's CPU run, 100K outputs held
    against a scipy cKDTree oracle in float64 (exceptions within 1e-5 of
    the SOR threshold or 1e-6 of the radius, tied kth neighbours, nearly
-   equal eigenvalues, counted and printed).
+   equal eigenvalues, counted and printed);
+7. the per-op API's kNN, clustering, ICP and I/O at bench_ops' sizes:
+   `sweep_knn_select` cross-cloud (100K queries against 100K points) and
+   `nn_argmin` on a half-shifted lattice against their plain versions;
+   `knn` k 10 over all 100K points and for 100K other queries, ICP
+   point-to-point and point-to-plane on 10K points shifted 0.05 m (50
+   iterations at most), `euclidean_cluster` (min 20, max 100K) on the 100K
+   slab at r 0.5 and on the aerial non-ground cloud (aerial_scene(7),
+   voxel 0.5, less a RANSAC plane) at r 2.0, 100K PCD/PLY round trips, and
+   the host index's per-query times. Gates: kNN against a cKDTree oracle
+   (distances, and index sets where the kth is untied), ICP equal to the
+   port's CPU run (iterations; rotation and translation within 1e-5),
+   clusters equal to the CPU run and to a query_pairs + connected
+   components oracle, files written on the card byte-equal to the CPU
+   run's (phase7.json in chiprun_out/).
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; each of its kernels must have launched. Prints the kernels'
@@ -86,12 +100,15 @@ KERNELS = {
     "rescue_radius_count_groups": ("spatial.sweep", "radius.cu", 3088),
     "brute_knn_idx": ("ops.fusedops", "brute.cu", 2754),
     "brute_radius_count": ("ops.fusedops", "brute.cu", 2829),
+    "sweep_knn_select": ("spatial.sweep", "sweepknn.cu", 2469),
+    "nn_argmin": ("ops.registration", "nn.cu", 2612),
 }
 # Kernels whose outputs are held bitwise against their plain versions (the
 # same f32 operations in the same order; counts are exact integer sums).
 BITWISE = ("segmented_scan_sums", "ransac_score_counts", "sweep_moments",
            "rescue_knn_idx", "count_within", "rescue_radius_count_groups",
-           "brute_radius_count", "brute_knn_idx")
+           "brute_radius_count", "brute_knn_idx", "sweep_knn_select",
+           "nn_argmin")
 KITTI = dict(voxel=0.15, sor_std=2.0, ransac_thresh=0.15, cluster_r=0.8,
              sor_k=20, ransac_iters=500, ds_cap=98_304,
              ransac_subsample=4096, obstacle_cap=8192)
@@ -120,6 +137,12 @@ PATHS = {
             "brute_radius_count"],
     "normals": ["sweep_moments", "rescue_knn_idx", "brute_knn_idx"],
     "ransac": ["ransac_score_counts"],
+    # The per-op API's kNN, clustering, ICP and I/O (phase 7).
+    "knn": ["sweep_knn_select", "rescue_knn_idx", "brute_knn_idx"],
+    "knn_cross": ["sweep_knn_select", "rescue_knn_idx"],
+    "cluster": ["cluster_multisweep"],
+    "icp": ["nn_argmin"],
+    "io": [],
 }
 SEEDS = range(5)
 KITTI_FRAMES = 20
@@ -408,9 +431,11 @@ def work(name, args, kwargs, out):
         # |fma(z, nz, fma(x, nx, y*ny)) + d| <= t: 2 fmas, a multiply, an
         # add and the compare.
         return nbytes, 7 * real * int((pts[:, 3] > 0.5).sum())
-    if name in ("brute_knn_idx", "brute_radius_count"):
+    if name == "sweep_knn_select":
+        return nbytes, PAIR_OPS * pair * _window_rows(args[1])
+    if name in ("brute_knn_idx", "brute_radius_count", "nn_argmin"):
         q, cand = args
-        live_w = 0.5 if name == "brute_knn_idx" else 0.0
+        live_w = 0.0 if name == "brute_radius_count" else 0.5
         live = int((q[:, 3, :].amax(dim=1) >= live_w).sum())
         return nbytes, PAIR_OPS * pair * live * cand.shape[0]
     raise KeyError(name)
@@ -724,6 +749,298 @@ def phase6(card_line, K, add):
         default=str))
 
 
+# ── kNN, clustering, ICP and I/O (phase 7) ──────────────────────────────────
+
+ICP_POINTS = 10_000
+ICP_SHIFT = np.float32(0.05)
+CLUSTER_SIZES = (20, 100_000)  # min and max cluster size
+IO_DIR = ROOT / "build" / "chip_smoke_io"
+
+
+def icp_clouds(api, device=None):
+    """bench_ops' ICP pair: 10K uniform points (seed 1) and the same points
+    shifted 0.05 m along every axis."""
+    src = bench_cloud(ICP_POINTS, seed=1)
+    return (api.PointCloud.from_numpy(src, device=device),
+            api.PointCloud.from_numpy(src + ICP_SHIFT, device=device))
+
+
+def aerial_non_ground(api):
+    """bench_ops' aerial clustering cloud, on the card: aerial_scene(7)
+    voxelised at 0.5 m, less the inliers of a RANSAC plane (0.3 m, 300
+    iterations, seed 11)."""
+    from pointclouds_tpu_torch.pipelines.scenes import aerial_scene
+
+    ds = api.voxel_downsample(api.PointCloud.from_numpy(aerial_scene(7)), 0.5)
+    return ds.select_inverse(api.ransac_plane_seeded(ds, 0.3, 300, 11).inliers)
+
+
+def round_trip(api, cloud, fmt):
+    """Write ``cloud`` in ``fmt`` ("pcd", "pcd_binary", "ply", "ply_binary")
+    and read it back."""
+    path = IO_DIR / f"round_trip.{fmt.split('_')[0]}"
+    getattr(api, f"write_{fmt}")(str(path), cloud)
+    return getattr(api, f"read_{fmt.split('_')[0]}")(str(path))
+
+
+def oracle_knn(pts, queries, idx, dist, k):
+    """Against the float64 cKDTree: (rows whose distances are off by more
+    than rtol 1e-6, rows whose index set differs where the kth neighbour is
+    untied, rows with a tie within 1e-6 at the kth)."""
+    from scipy.spatial import cKDTree
+
+    d, i = cKDTree(pts.astype(np.float64)).query(queries.astype(np.float64),
+                                                 k + 1)
+    tied = (d[:, k] - d[:, k - 1]) <= 1e-6 * d[:, k]
+    bad_d = ~np.isclose(dist, d[:, :k], rtol=1e-6, atol=0).all(axis=1)
+    bad_i = (np.sort(idx, axis=1) != np.sort(i[:, :k], axis=1)).any(axis=1)
+    return int(bad_d.sum()), int((bad_i & ~tied).sum()), int(tied.sum())
+
+
+def canonical_clusters(labels, lo, hi):
+    """Component lists of ``labels`` with size in [lo, hi], canonically
+    ordered (size descending, then first member; members ascending)."""
+    order = np.argsort(labels, kind="stable")
+    sl = labels[order]
+    starts = np.nonzero(np.r_[True, sl[1:] != sl[:-1]])[0]
+    ends = np.r_[starts[1:], len(sl)]
+    out = [order[a:b].tolist() for a, b in zip(starts, ends)
+           if lo <= b - a <= hi]
+    out.sort(key=lambda c: (-len(c), c))
+    return out
+
+
+def oracle_clusters(pts, r):
+    """(clusters of the float64 query_pairs graph's connected components,
+    pairs within 1e-6 of the radius)."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+    from scipy.spatial import cKDTree
+
+    p64 = pts.astype(np.float64)
+    pairs = cKDTree(p64).query_pairs(r * (1 + 1e-6), output_type="ndarray")
+    dist = np.linalg.norm(p64[pairs[:, 0]] - p64[pairs[:, 1]], axis=1)
+    near = int((dist > r * (1 - 1e-6)).sum())
+    pairs = pairs[dist <= r]
+    n = len(pts)
+    graph = coo_matrix((np.ones(len(pairs)), (pairs[:, 0], pairs[:, 1])),
+                       shape=(n, n))
+    _, labels = connected_components(graph, directed=False)
+    return canonical_clusters(labels, *CLUSTER_SIZES), near
+
+
+def icp_close(a, b, atol=1e-5) -> bool:
+    return (a.num_iterations == b.num_iterations
+            and a.converged == b.converged
+            and np.abs(np.subtract(a.rotation, b.rotation)).max() <= atol
+            and np.abs(np.subtract(a.translation, b.translation)).max()
+            <= atol)
+
+
+def phase7_kernels(card_line, K, api, knn_cloud, queries):
+    """Kernel 10 cross-cloud (100K queries against 100K points) and kernel
+    15 on a half-shifted lattice (every query has tied nearest candidates),
+    each against its plain version, with its times and bound."""
+    from pointclouds_tpu_torch.ops.registration import _to_planar
+
+    cross = capture_inputs(lambda: api.knn(knn_cloud, queries, 10),
+                           ["sweep_knn_select"])["sweep_knn_select"]
+    g = np.arange(22, dtype=np.float32)
+    lat = torch.from_numpy(np.stack(np.meshgrid(g, g, g, indexing="ij"),
+                                    -1).reshape(-1, 3)).cuda()
+    ones = torch.ones(lat.shape[0], dtype=torch.bool, device="cuda")
+    lattice = ((_to_planar(lat + 0.5, ones), _to_planar(lat, ones)), {})
+    out = {}
+    for label, name, (args, kwargs) in (
+            ("cross-cloud 100K x 100K", "sweep_knn_select", cross),
+            ("half-shift lattice 22^3", "nn_argmin", lattice)):
+        err, tol, ms, plain_ms = check_kernel(name, args, kwargs, K)
+        nbytes, ops = work(name, args, kwargs,
+                           getattr(K, name)(*args, **kwargs))
+        bms, by = bound_ms(nbytes, ops)
+        log(f"kernel {name} ({label}): shapes="
+            f"{[tuple(a.shape) for a in args if torch.is_tensor(a)]} "
+            f"agrees ({tol}, max_abs_err={err}) kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by}: {nbytes} B, "
+            f"{ops} ops) [{card_line}]")
+        out[f"{name} {label}"] = dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms, bound_ms=bms,
+                                      bound_by=by)
+    return out
+
+
+def host_queries(card_line, api):
+    """The host index's single-point queries on 100K points in a 100 m box:
+    build time and per-query microseconds (one query at the box centre
+    repeated, the reference's method; 2000 random queries), and 50 queries
+    held against the float64 cKDTree."""
+    from scipy.spatial import cKDTree
+
+    pts = bench_cloud(100_000, box=100.0)
+    c = api.PointCloud.from_numpy(pts)
+    t0 = time.perf_counter()
+    c._index()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    centre = np.full(3, 50.0, np.float32)
+    qs = (np.random.default_rng(9).random((2000, 3)) * 100).astype(np.float32)
+    res = dict(build_ms=build_ms)
+    for name, fn, q in (
+            ("knn_indices k10 centre", lambda q: api.knn_indices(c, q, 10),
+             [centre] * 5000),
+            ("radius_search r0.1 centre",
+             lambda q: api.radius_search(c, q, 0.1), [centre] * 5000),
+            ("knn_indices k10 random", lambda q: api.knn_indices(c, q, 10),
+             qs),
+            ("radius_search r2.0 random",
+             lambda q: api.radius_search(c, q, 2.0), qs)):
+        t0 = time.perf_counter()
+        for qq in q:
+            fn(qq)
+        res[name] = (time.perf_counter() - t0) * 1e6 / len(q)
+    tree = cKDTree(pts.astype(np.float64))
+    for qq in qs[:50]:
+        q64 = qq.astype(np.float64)
+        if sorted(api.knn_indices(c, qq, 10)) != sorted(
+                tree.query(q64, 10)[1].tolist()):
+            raise AssertionError("knn_indices differs from the oracle")
+        if api.radius_search(c, qq, 2.0) != sorted(
+                tree.query_ball_point(q64, 2.0)):
+            raise AssertionError("radius_search differs from the oracle")
+    log(f"host index 100K in a 100 m box: build {build_ms:.3f} ms; per "
+        f"query (us): " + ", ".join(f"{k} {v:.3f}" for k, v in res.items()
+                                    if k != "build_ms")
+        + f"; 50 queries equal to the cKDTree oracle [{card_line}]")
+    return res
+
+
+def phase7(card_line, K, add):
+    """kNN, clustering, ICP and I/O on the card: kernel checks, each op's
+    kernels launched, p50 over 5 calls and the profiler's breakdown, and
+    the gates (kNN against a cKDTree oracle, ICP and clusters against the
+    port's CPU run, clusters against a query_pairs + connected-components
+    oracle, files byte-equal to the CPU run's)."""
+    from pointclouds_tpu_torch import api
+
+    u100k, q100k = bench_cloud(100_000), bench_cloud(100_000, seed=1)
+    knn_cloud = api.PointCloud.from_numpy(u100k)
+    record = dict(card=card_line,
+                  kernels=phase7_kernels(card_line, K, api, knn_cloud, q100k))
+    icp_src, icp_tgt = icp_clouds(api)
+    icp_tgt_n = api.estimate_normals(icp_tgt, 10)
+    slab = slab_cloud()
+    slab_c = api.PointCloud.from_numpy(slab)
+    ng_c = aerial_non_ground(api)
+    ng = ng_c.to_numpy()
+    IO_DIR.mkdir(parents=True, exist_ok=True)
+    ops7 = [
+        ("knn k10 all 100K", "knn", lambda: api.knn(knn_cloud, u100k, 10)),
+        ("knn k10 cross 100K", "knn_cross",
+         lambda: api.knn(knn_cloud, q100k, 10)),
+        ("icp_point_to_point 10K x50", "icp",
+         lambda: api.icp_point_to_point(icp_src, icp_tgt, max_iterations=50)),
+        ("icp_point_to_plane 10K x50", "icp",
+         lambda: api.icp_point_to_plane(icp_src, icp_tgt_n,
+                                        max_iterations=50)),
+        ("euclidean_cluster slab 100K r0.5", "cluster",
+         lambda: api.euclidean_cluster(slab_c, 0.5, *CLUSTER_SIZES)),
+        (f"euclidean_cluster aerial non-ground {len(ng)} r2.0", "cluster",
+         lambda: api.euclidean_cluster(ng_c, 2.0, *CLUSTER_SIZES)),
+    ] + [(f"{fmt} round trip 100K", "io",
+          lambda fmt=fmt: round_trip(api, knn_cloud, fmt))
+         for fmt in ("pcd", "pcd_binary", "ply", "ply_binary")]
+    outs, ops = {}, {}
+    for name, path, call in ops7:
+        out, launches = path_launches(K, path, call)
+        add(launches)
+        outs[name] = out
+        ms, times = p50_ms(call)
+        prof = None if path == "io" else profile_op(call)
+        log(f"op {name}: p50 {ms:.3f} ms over 5 calls "
+            f"({', '.join(f'{t:.3f}' for t in times)}) launches per call "
+            f"{ {n: v for n, v in launches.items() if v} } [{card_line}]")
+        if prof is not None:
+            log(f"  profiler: device busy {prof[0]:.3f} of the window, "
+                f"{prof[1]:.0f} device kernels per call, top {prof[2]}")
+        ops[name] = dict(p50_ms=ms, times_ms=times, launches=launches,
+                         profile=prof)
+    record["ops"] = ops
+    record["host_index"] = host_queries(card_line, api)
+
+    gates = {}
+    for name, queries in (("knn k10 all 100K", u100k),
+                          ("knn k10 cross 100K", q100k)):
+        idx, dist = outs[name]
+        bad_d, bad_i, tied = oracle_knn(u100k, queries, idx, dist, 10)
+        gates[name] = dict(distances_off=bad_d, sets_differ=bad_i,
+                           tied=tied)
+        log(f"oracle {name}: {bad_d} rows' distances off by > rtol 1e-6, "
+            f"{bad_i} index sets differ ({tied} rows tied at the kth)")
+        if bad_d or bad_i:
+            raise AssertionError(f"{name}: differs from the cKDTree oracle")
+
+    cpu_src, cpu_tgt = icp_clouds(api, "cpu")
+    for name, cpu in (
+            ("icp_point_to_point 10K x50",
+             lambda: api.icp_point_to_point(cpu_src, cpu_tgt,
+                                            max_iterations=50)),
+            ("icp_point_to_plane 10K x50",
+             lambda: api.icp_point_to_plane(
+                 cpu_src, api.estimate_normals(cpu_tgt, 10),
+                 max_iterations=50))):
+        got, want = outs[name], cpu()
+        gates[name] = dict(card=repr(got), cpu=repr(want),
+                           translation=got.translation)
+        log(f"{name}: card {got} translation {got.translation}; CPU {want}")
+        if not (icp_close(got, want) and got.converged):
+            raise AssertionError(f"{name}: differs from the CPU run")
+
+    for name, pts, r in (("euclidean_cluster slab 100K r0.5", slab, 0.5),
+                         (f"euclidean_cluster aerial non-ground {len(ng)} "
+                          "r2.0", ng, 2.0)):
+        got = outs[name]
+        cpu = api.euclidean_cluster(api.PointCloud.from_numpy(
+            pts, device="cpu"), r, *CLUSTER_SIZES)
+        want, near = oracle_clusters(pts, r)
+        gates[name] = dict(clusters=len(got), sizes=[len(c) for c in got[:8]],
+                           cpu_equal=got == cpu, oracle_equal=got == want,
+                           pairs_near_radius=near)
+        log(f"{name}: {len(got)} clusters (largest {[len(c) for c in got[:8]]}"
+            f"), equal to the CPU run: {got == cpu}, to the oracle: "
+            f"{got == want} ({near} pairs within 1e-6 of the radius)")
+        if got != cpu or (got != want and near == 0):
+            raise AssertionError(f"{name}: differs from the CPU run or oracle")
+
+    cpu_cloud = api.PointCloud.from_numpy(u100k, device="cpu")
+    n10 = bench_cloud(10_000)
+    with_normals = [api.estimate_normals(api.PointCloud.from_numpy(
+        n10, device=d), 10) for d in (None, "cpu")]
+    for fmt in ("pcd", "pcd_binary", "ply", "ply_binary"):
+        files = []
+        for d, c in (("card", knn_cloud), ("cpu", cpu_cloud)):
+            path = IO_DIR / f"{d}.{fmt}"
+            getattr(api, f"write_{fmt}")(str(path), c)
+            files.append(path.read_bytes())
+        if fmt.startswith("ply"):  # with the normals each device computed
+            for d, c in zip(("card", "cpu"), with_normals):
+                path = IO_DIR / f"{d}_normals.{fmt}"
+                getattr(api, f"write_{fmt}")(str(path), c)
+                files.append(path.read_bytes())
+        same = files[0] == files[1] and files[2:3] == files[3:4]
+        gates[f"{fmt} files"] = dict(byte_equal=same,
+                                     bytes=[len(f) for f in files])
+        log(f"{fmt}: files written on the card byte-equal to the CPU run's: "
+            f"{same} ({[len(f) for f in files]} bytes)")
+        if not same:
+            raise AssertionError(f"{fmt}: card and CPU files differ")
+    for path in IO_DIR.iterdir():
+        path.unlink()
+    IO_DIR.rmdir()
+    record["gates"] = gates
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "phase7.json").write_text(json.dumps(record, indent=1,
+                                                    default=str))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -765,6 +1082,9 @@ def main() -> int:
     noisy = api.PointCloud.from_numpy(noisy_cloud(NOISY_BOX))
     overflow = api.PointCloud.from_numpy(noisy_cloud(OVERFLOW_BOX))
     r32 = torch.tensor(np.float32(0.5), device="cuda")
+    u100k = bench_cloud(100_000)
+    knn_cloud = api.PointCloud.from_numpy(u100k)
+    icp_src, icp_tgt = icp_clouds(api)
 
     # ── Phase 2: each kernel against its plain version, pipeline shapes ──
     captured = {}
@@ -787,7 +1107,13 @@ def main() -> int:
             # its fused op with a one-row window budget fills both.
             (lambda: fusedops.ror_fused(noisy._arrs, r32, 5, wr=1,
                                         cap=4096),
-             ["rescue_radius_count_groups", "brute_radius_count"])):
+             ["rescue_radius_count_groups", "brute_radius_count"]),
+            # The kNN and ICP ops (phase 7's shapes): the same-cloud kNN of
+            # the 100K cloud (`sweep_knn_two_pass`), ICP at 10K points.
+            (lambda: api.knn(knn_cloud, u100k, 10), ["sweep_knn_select"]),
+            (lambda: api.icp_point_to_point(icp_src, icp_tgt,
+                                            max_iterations=50),
+             ["nn_argmin"])):
         captured.update(capture_inputs(run, names))
     rows = []
     for name, (_, src, line) in KERNELS.items():
@@ -941,6 +1267,9 @@ def main() -> int:
 
     # ── Phase 6: the per-op API ──
     phase6(card_line, K, add)
+
+    # ── Phase 7: kNN, clustering, ICP and I/O ──
+    phase7(card_line, K, add)
 
     for r in rows:
         r["launches"] = launches_total[r["name"]]

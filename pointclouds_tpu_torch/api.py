@@ -1,18 +1,17 @@
-"""Public API on torch tensors: the `PointCloud` class, `PlaneResult` and the
-filter, normals, transform and plane functions of `pointclouds_tpu/api.py`
-(the reference ``pointclouds_rs`` surface), with the same signatures,
-kwargs defaults, exception types and results.
+"""Public API on torch tensors: the whole surface of `pointclouds_tpu/api.py`
+(the reference ``pointclouds_rs`` surface): `PointCloud`, `IcpResult`,
+`PlaneResult`, the filters, normals, ICP, transform, clustering, plane,
+kNN and spatial-query functions and the readers and writers, with the same
+signatures, kwargs defaults, exception types and results.
 
-A cloud lives on one device: `PointCloud.from_numpy` puts it on
-`DEFAULT_DEVICE`, the card, unless the caller names another
+A cloud lives on one device: `PointCloud.from_numpy` and the readers put
+it on `DEFAULT_DEVICE`, the card, unless the caller names another
 (``device="cpu"``), and every cloud an op derives from it stays on its
 device. On the card the ops run the CUDA kernels; on the CPU their plain
 torch versions. A machine without a card raises; it never falls back to
-the CPU.
-
-Still to port from the JAX API: `knn`, `knn_indices`, `radius_search`,
-`radius_search_unsorted`, `euclidean_cluster`, ICP and the readers and
-writers.
+the CPU. Single-point queries (`radius_search`, `knn_indices`, `knn` of
+at most 128 queries) run on the host, from a cell index built once per
+cloud.
 """
 
 from __future__ import annotations
@@ -34,7 +33,11 @@ from .core.cloud import (
     make_cloud_arrays,
     mask_cloud,
 )
+from .io import las as _las
+from .io import pcd as _pcd
+from .io import ply as _ply
 from .ops import fusedops as _fusedops
+from .ops import registration as _registration
 from .ops import segmentation as _segmentation
 from .ops.filters import sor_keep_mask
 from .spatial import engine as _engine
@@ -42,6 +45,7 @@ from .spatial import engine as _engine
 __all__ = [
     "DEFAULT_DEVICE",
     "PointCloud",
+    "IcpResult",
     "PlaneResult",
     "voxel_downsample",
     "passthrough_filter",
@@ -49,9 +53,23 @@ __all__ = [
     "radius_outlier_removal",
     "estimate_normals",
     "estimate_normals_with_viewpoint",
+    "icp_point_to_point",
+    "icp_point_to_plane",
     "apply_transform",
+    "euclidean_cluster",
     "ransac_plane",
     "ransac_plane_seeded",
+    "knn",
+    "knn_indices",
+    "radius_search",
+    "radius_search_unsorted",
+    "read_pcd",
+    "write_pcd",
+    "write_pcd_binary",
+    "read_ply",
+    "write_ply",
+    "write_ply_binary",
+    "read_las",
 ]
 
 # Where `PointCloud.from_numpy` and `PointCloud()` put a cloud unless told.
@@ -71,7 +89,7 @@ class PointCloud:
     """A point cloud on one device: compacted padded tensors, rows [0, len)
     the points in order, rows beyond masked padding."""
 
-    __slots__ = ("_arrs", "_count")
+    __slots__ = ("_arrs", "_count", "_host_index", "_host_xyz")
 
     def __init__(self, device=None):
         self._arrs = make_cloud_arrays(
@@ -112,11 +130,13 @@ class PointCloud:
                 "array must be C-contiguous (row-major). "
                 "Use numpy.ascontiguousarray(arr) to convert."
             )
+        data = array.astype(np.float32, copy=False)
         self = PointCloud.__new__(PointCloud)
         self._arrs = make_cloud_arrays(
-            array.astype(np.float32, copy=False),
-            DEFAULT_DEVICE if device is None else device)
+            data, DEFAULT_DEVICE if device is None else device)
         self._count = int(array.shape[0])
+        # Kept for the host index, so its build reads no device memory.
+        self._host_xyz = (data, np.ones((data.shape[0],), bool))
         return self
 
     @property
@@ -166,6 +186,27 @@ class PointCloud:
     def __repr__(self) -> str:
         return f"PointCloud(n={self._count})"
 
+    def _index(self):
+        """The cloud's host cell index (`spatial/hostindex.py`), built on
+        first use and kept: clouds are immutable."""
+        idx = getattr(self, "_host_index", None)
+        if idx is None:
+            from .spatial.hostindex import HostCellIndex
+
+            idx = HostCellIndex(*self._host_points())
+            self._host_index = idx
+        return idx
+
+    def _host_points(self):
+        """Host copy of (xyz, valid), cached: a `from_numpy` cloud keeps its
+        array; any other pays one device read."""
+        cached = getattr(self, "_host_xyz", None)
+        if cached is None:
+            cached = (self._arrs.xyz.cpu().numpy(),
+                      self._arrs.valid.cpu().numpy())
+            self._host_xyz = cached
+        return cached
+
     # Attribute access (not part of the reference's binding surface).
 
     @property
@@ -183,6 +224,32 @@ class PointCloud:
 
     def _intensity_numpy(self) -> Optional[np.ndarray]:
         return self._host_rows(self._arrs.intensity)
+
+
+def _cloud_from_host(xyz, normals=None, colors=None, intensity=None
+                     ) -> PointCloud:
+    """A cloud on `DEFAULT_DEVICE` from host arrays (the readers')."""
+    self = PointCloud.__new__(PointCloud)
+    self._arrs = make_cloud_arrays(xyz, DEFAULT_DEVICE, normals=normals,
+                                   colors=colors, intensity=intensity)
+    self._count = int(np.asarray(xyz).reshape(-1, 3).shape[0])
+    return self
+
+
+@dataclasses.dataclass
+class IcpResult:
+    converged: bool
+    fitness: float
+    rmse: float
+    num_iterations: int
+    translation: list
+    rotation: list
+
+    def __repr__(self) -> str:
+        return (
+            f"IcpResult(converged={self.converged}, rmse={self.rmse:.6f}, "
+            f"iterations={self.num_iterations})"
+        )
 
 
 @dataclasses.dataclass
@@ -329,6 +396,78 @@ def estimate_normals_with_viewpoint(
                             cloud.len())
 
 
+# ── Registration ─────────────────────────────────────────────────────────────
+
+
+def _empty_icp_result(source: PointCloud, target: PointCloud) -> IcpResult:
+    return IcpResult(
+        converged=source.is_empty() and target.is_empty(),
+        fitness=0.0,
+        rmse=0.0,
+        num_iterations=0,
+        translation=[0.0, 0.0, 0.0],
+        rotation=[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]],
+    )
+
+
+def _finish_icp(packed) -> IcpResult:
+    """IcpResult from the loop's f32[16] ([rot(9), trans(3), fitness, rmse,
+    converged, iterations]), read in one copy. rmse stays inf and fitness
+    0 when no iteration found a correspondence, as in the reference."""
+    v = packed.cpu().numpy().astype(np.float64)
+    return IcpResult(
+        converged=bool(v[14] > 0.5),
+        fitness=float(v[12]),
+        rmse=float(v[13]),
+        num_iterations=int(v[15]),
+        translation=[float(x) for x in v[9:12]],
+        rotation=[[float(x) for x in row] for row in v[:9].reshape(3, 3)],
+    )
+
+
+def _icp_rows(cloud: PointCloud) -> int:
+    """The valid count rounded up to 512 rows (at most the capacity): a
+    cloud's rows past it are padding, trimmed before the quadratic 1-NN."""
+    return min(cloud._arrs.capacity, max(512, -(-cloud.len() // 512) * 512))
+
+
+def icp_point_to_point(
+    source: PointCloud,
+    target: PointCloud,
+    max_iterations: int = 50,
+    tolerance: float = 1e-5,
+    max_correspondence_distance: float = float("inf"),
+) -> IcpResult:
+    if source.is_empty() or target.is_empty():
+        return _empty_icp_result(source, target)
+    return _finish_icp(_registration.icp_point_to_point_packed(
+        source._arrs.xyz, source._arrs.valid, target._arrs.xyz,
+        target._arrs.valid, int(max_iterations), np.float32(tolerance),
+        np.float32(max_correspondence_distance), src_rows=_icp_rows(source),
+        tgt_rows=_icp_rows(target)))
+
+
+def icp_point_to_plane(
+    source: PointCloud,
+    target: PointCloud,
+    max_iterations: int = 50,
+    tolerance: float = 1e-5,
+    max_correspondence_distance: float = float("inf"),
+) -> IcpResult:
+    if target._arrs.normals is None:
+        raise ValueError(
+            "target cloud must have normals for point-to-plane ICP. "
+            "Use estimate_normals(target, k) first."
+        )
+    if source.is_empty() or target.is_empty():
+        return _empty_icp_result(source, target)
+    return _finish_icp(_registration.icp_point_to_plane_packed(
+        source._arrs.xyz, source._arrs.valid, target._arrs.xyz,
+        target._arrs.valid, target._arrs.normals, int(max_iterations),
+        np.float32(tolerance), np.float32(max_correspondence_distance),
+        src_rows=_icp_rows(source), tgt_rows=_icp_rows(target)))
+
+
 # ── Transform ────────────────────────────────────────────────────────────────
 
 
@@ -344,6 +483,47 @@ def apply_transform(cloud: PointCloud, rotation, translation) -> PointCloud:
 
 
 # ── Segmentation ─────────────────────────────────────────────────────────────
+
+
+def euclidean_cluster(
+    cloud: PointCloud, distance_threshold: float, min_size: int, max_size: int
+) -> list:
+    distance_threshold = float(distance_threshold)
+    min_size = int(min_size)
+    max_size = int(max_size)
+    if cloud.is_empty() or distance_threshold <= 0.0 or min_size == 0:
+        return []
+    if not math.isfinite(distance_threshold):
+        return []
+    # One host read: the labels of the valid rows. From the sweep, the
+    # components outside [min_size, max_size] are already dropped on the
+    # device (label -1) and the others carry surviving-component ranks.
+    labels_np, filtered = _engine.cluster_labels(
+        cloud._arrs.xyz, cloud._arrs.valid, distance_threshold,
+        n_valid=cloud.len(), size_filter=(min_size, max_size))
+    labels_np = labels_np[: cloud.len()]
+    remap = None
+    if filtered:
+        # Group only the surviving rows; the compaction is monotone, so the
+        # canonical order below survives the index remap.
+        remap = np.nonzero(labels_np >= 0)[0].astype(np.int64)
+        labels_np = labels_np[remap]
+    # Components, canonically ordered: size descending, then first member;
+    # members ascending.
+    order = np.argsort(labels_np, kind="stable")
+    sorted_labels = labels_np[order]
+    if remap is not None:
+        order = remap[order]
+    boundaries = np.nonzero(
+        np.concatenate([[True], sorted_labels[1:] != sorted_labels[:-1]])
+    )[0]
+    ends = np.concatenate([boundaries[1:], [len(sorted_labels)]])
+    clusters = []
+    for s, e in zip(boundaries, ends):
+        if min_size <= e - s <= max_size:
+            clusters.append(order[s:e].tolist())
+    clusters.sort(key=lambda c: (-len(c), c))
+    return clusters
 
 
 def ransac_plane_seeded(
@@ -379,3 +559,149 @@ def ransac_plane(
     return ransac_plane_seeded(
         cloud, distance_threshold, iterations, secrets.randbits(32)
     )
+
+
+# ── I/O ──────────────────────────────────────────────────────────────────────
+
+
+def read_pcd(path: str) -> PointCloud:
+    try:
+        xyz = _pcd.read_pcd(path)
+    except OSError as e:
+        raise IOError(str(e))
+    return _cloud_from_host(xyz)
+
+
+def write_pcd(path: str, cloud: PointCloud) -> None:
+    try:
+        _pcd.write_pcd(path, cloud.to_numpy())
+    except OSError as e:
+        raise IOError(str(e))
+
+
+def write_pcd_binary(path: str, cloud: PointCloud) -> None:
+    try:
+        _pcd.write_pcd_binary(path, cloud.to_numpy())
+    except OSError as e:
+        raise IOError(str(e))
+
+
+def read_ply(path: str) -> PointCloud:
+    try:
+        xyz, normals, colors = _ply.read_ply(path)
+    except OSError as e:
+        raise IOError(str(e))
+    return _cloud_from_host(xyz, normals=normals, colors=colors)
+
+
+def write_ply(path: str, cloud: PointCloud) -> None:
+    try:
+        _ply.write_ply(path, cloud.to_numpy(), cloud._normals_numpy(),
+                       cloud._colors_numpy())
+    except OSError as e:
+        raise IOError(str(e))
+
+
+def write_ply_binary(path: str, cloud: PointCloud) -> None:
+    try:
+        _ply.write_ply_binary(path, cloud.to_numpy(), cloud._normals_numpy(),
+                              cloud._colors_numpy())
+    except OSError as e:
+        raise IOError(str(e))
+
+
+def read_las(path: str) -> PointCloud:
+    try:
+        xyz, intensity = _las.read_las(path)
+    except OSError as e:
+        raise IOError(str(e))
+    return _cloud_from_host(xyz, intensity=intensity)
+
+
+# ── Spatial queries (the reference's KD-tree capability at crate level:
+#    not in its Python bindings, but part of the library surface) ──────────
+
+
+def knn(cloud: PointCloud, queries, k: int):
+    """K nearest neighbours of each query point in ``cloud``.
+
+    Returns (indices int32[Q, k'], distances f32[Q, k']) with k' = min(k,
+    len(cloud)); distances Euclidean, ascending. An empty cloud, k == 0 or
+    a non-finite query gives no results for that query (index -1, distance
+    +inf). At most 128 queries are answered from the host index; larger
+    batches by the device sweeps (`engine.knn`), the same-cloud sweep when
+    the queries are the cloud's own points in order."""
+    k = int(k)
+    q = np.ascontiguousarray(np.asarray(queries, np.float32)).reshape(-1, 3)
+    nq = q.shape[0]
+    if k <= 0 or cloud.is_empty() or nq == 0:
+        return np.zeros((nq, 0), np.int32), np.zeros((nq, 0), np.float32)
+    k_eff = min(k, cloud.len())
+    if nq <= 128:
+        index = cloud._index()
+        i_out = np.full((nq, k_eff), -1, np.int32)
+        d_out = np.full((nq, k_eff), np.inf, np.float32)
+        for r in np.nonzero(np.isfinite(q).all(axis=1))[0]:
+            rows, dd = index.knn(q[r], k_eff)
+            i_out[r, :len(rows)] = rows
+            d_out[r, :len(rows)] = dd
+        return i_out, d_out
+    arrs = cloud._arrs
+    hxyz, hvalid = cloud._host_points()
+    if (nq == cloud.len() and hxyz.shape[0] >= nq and bool(hvalid[:nq].all())
+            and np.array_equal(q, hxyz[:nq])):
+        dists, idx, nvalid = _engine.knn(arrs.xyz, arrs.valid, arrs.xyz,
+                                         arrs.valid, k_eff)
+    else:
+        qarrs = make_cloud_arrays(q, cloud.device)
+        dists, idx, nvalid = _engine.knn(arrs.xyz, arrs.valid, qarrs.xyz,
+                                         qarrs.valid, k_eff)
+    # One host read: distances and indices (exact in f32 below 2^24 rows,
+    # which the engine requires) in one buffer.
+    buf = torch.cat([torch.where(nvalid, dists, torch.inf)[:nq, :k_eff],
+                     torch.where(nvalid, idx, -1)[:nq, :k_eff].to(
+                         torch.float32)], dim=1).cpu().numpy()
+    return buf[:, k_eff:].astype(np.int32), buf[:, :k_eff].copy()
+
+
+def radius_search(cloud: PointCloud, query, radius: float):
+    """Indices of the points within ``radius`` (inclusive) of ``query``,
+    ascending. Returns [] for an empty cloud, a non-positive or non-finite
+    radius, or a non-finite query. A [Q, 3] query batch returns a list of
+    lists.
+
+    Runs on the host, not the card: the cloud's host cell index
+    (`spatial/hostindex.py`, built once per cloud from a host copy of its
+    points) gathers the candidate cells and tests their distances exactly
+    in float64."""
+    radius = float(radius)
+    qa = np.asarray(query, np.float32)
+    if qa.ndim == 2:
+        if cloud.is_empty() or radius <= 0.0 or not math.isfinite(radius):
+            return [[] for _ in range(qa.shape[0])]
+        index = cloud._index()
+        return [index.radius(row, radius).tolist()
+                if np.all(np.isfinite(row)) else [] for row in qa]
+    q = qa.reshape(3)
+    if (cloud.is_empty() or radius <= 0.0 or not math.isfinite(radius)
+            or not np.all(np.isfinite(q))):
+        return []
+    return cloud._index().radius(q, radius).tolist()
+
+
+def radius_search_unsorted(cloud: PointCloud, query, radius: float):
+    """The results of :func:`radius_search`, with no ordering guarantee (it
+    returns them sorted all the same)."""
+    return radius_search(cloud, query, radius)
+
+
+def knn_indices(cloud: PointCloud, query, k: int):
+    """Indices of the ``k`` nearest neighbours of one ``query`` point,
+    nearest first, from the host index. Returns [] for k == 0, an empty
+    cloud or a non-finite query."""
+    k = int(k)
+    q = np.asarray(query, np.float32).reshape(3)
+    if k <= 0 or cloud.is_empty() or not np.all(np.isfinite(q)):
+        return []
+    rows, _ = cloud._index().knn(q, min(k, cloud.len()))
+    return rows.tolist()

@@ -1,6 +1,5 @@
-"""The API's filter and normals ops, each as one program with one host read:
-the counterpart of `pointclouds_tpu/ops/fusedops.py` (`knn_fused`, for the
-same-cloud kNN, is not ported yet).
+"""The API's filter, normals and same-cloud kNN ops, each as one program with
+one host read: the counterpart of `pointclouds_tpu/ops/fusedops.py`.
 
 Each op: the grid cell estimated on the device, the sorted-window sweep
 with its group-pruned rescue, the rows still flagged compacted into a
@@ -25,6 +24,7 @@ from ..spatial.kernels import brute_knn_idx, brute_radius_count
 from ..spatial.knn import bruteforce_knn, bruteforce_radius_count
 from ..spatial.sweep import (
     _set_rows,
+    sweep_knn_two_pass,
     sweep_moments_two_pass_rows,
     sweep_radius_count_two_pass,
     sweep_sor_two_pass,
@@ -229,6 +229,28 @@ def normals_fused_small(xyz, valid, viewpoint, *, k: int):
     vp = torch.as_tensor(viewpoint, dtype=torch.float32, device=xyz.device)
     _, idx, nvalid = bruteforce_knn(xyz, valid, xyz, valid, k)
     return normals_from_knn(xyz, idx, nvalid, vp)
+
+
+# ── Same-cloud kNN ───────────────────────────────────────────────────────────
+
+
+def knn_fused(xyz, valid, *, k: int, wr: int, cap: int):
+    """Whole-cloud kNN (self included): the kNN sweep with its group-pruned
+    rescue, then the whole-cloud rescue of up to ``cap`` rows still
+    flagged. Returns (dists f32[N, k], idx i32[N, k], nvalid bool[N, k],
+    exact bool 0-d tensor); exact = False when more than ``cap`` rows
+    stayed flagged."""
+    n = xyz.shape[0]
+    cell = _cell_estimate_device(xyz, valid, k)
+    d, i, nv, ok = sweep_knn_two_pass(xyz, valid, cell, k=k, fix_cap=cap,
+                                      wr=wr)
+    rows, sub_valid, nflag = _flagged_rows(valid & _finite(xyz) & ~ok, cap)
+    d3, i3, v3 = _rescue_knn(xyz, valid, xyz[torch.clamp(rows, max=n - 1)],
+                             sub_valid, k)
+    sv = sub_valid[:, None]
+    return (_set_rows(d, rows, torch.where(sv, d3, 0.0)),
+            _set_rows(i, rows, torch.where(sv, i3.to(i.dtype), 0)),
+            _set_rows(nv, rows, sv & v3), nflag <= cap)
 
 
 # ── Passthrough / voxel ──────────────────────────────────────────────────────

@@ -262,3 +262,37 @@ def ransac_plane_bytes(xyz, valid, threshold, seed, iterations: int, *,
                            device=xyz.device)
     packed = (bits * weights).sum(dim=1, dtype=torch.uint8)
     return torch.cat([scal, packed])
+
+
+# ── Euclidean clustering: the exact last resort ─────────────────────────────
+
+
+def bruteforce_cluster_labels(xyz, valid, radius):
+    """Exact connected-component labels by all-pairs min-label propagation,
+    uncapped: each round gives every point the smallest label within
+    ``radius`` (inclusive; ``radius`` taken as float32 and squared there),
+    then two pointer jumps, until a round changes nothing (a host read per
+    round). d2 has the JAX package's form for its ``jnp.sum(diff * diff,
+    -1)``, fma(dz, dz, fma(dy, dy, dx*dx)). Invalid and non-finite points
+    keep their own row as label. O(N^2) distances a round, in chunks."""
+    from ..spatial.knn import _CHUNK_ELEMS, _d2_sum
+
+    n = xyz.shape[0]
+    dev = xyz.device
+    use = valid & torch.isfinite(xyz).all(dim=-1)
+    r = torch.as_tensor(np.float32(radius), device=dev)
+    r2 = r * r
+    labels = torch.arange(n, dtype=torch.int32, device=dev)
+    step = max(1, _CHUNK_ELEMS // max(n, 1))
+    while True:
+        mins = []
+        for s in range(0, n, step):
+            within = (use[s:s + step, None] & use[None, :]
+                      & (_d2_sum(xyz[s:s + step, None, :], xyz[None]) <= r2))
+            mins.append(torch.where(within, labels[None, :], n).amin(dim=1))
+        m = torch.minimum(labels, torch.cat(mins).to(torch.int32))
+        m = torch.minimum(m, m[m.long()])
+        m = torch.minimum(m, m[m.long()])
+        if torch.equal(m, labels):  # host read: the round changed nothing
+            return labels
+        labels = m

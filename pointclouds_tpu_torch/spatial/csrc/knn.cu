@@ -1,5 +1,5 @@
-// Group-pruned exact k-NN with sorted-frame positions (the normals rescue;
-// later also the kNN two-pass and cross-cloud rescues).
+// Group-pruned exact k-NN with sorted-frame positions (the normals rescue
+// and the kNN two-pass and cross-cloud rescues).
 //
 // Replaces pointclouds_tpu/spatial/pallas_kernels.py::rescue_knn_idx (kernel
 // body _rescue_knn_kernel): compacted flagged query blocks against only the
@@ -67,22 +67,7 @@ __global__ void knn_merge_kernel(const float* __restrict__ part_v,
   if (qi >= nq) return;
   TopKIdx tk;
   merge_partials_idx(part_v, part_p, nq, nsplit, k, qi, tk);
-  float count = 0.0f, kth = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kMaxK; ++i) {
-    if (i < k) {
-      const bool found = tk.r[i] < kInf;
-      out[i * nq + qi] = found ? sqrtf(fmaxf(tk.r[i], 0.0f)) : kInf;
-      out[(k + i) * nq + qi] = found ? (float)tk.p[i] : -1.0f;
-      if (found) {
-        count = __fadd_rn(count, 1.0f);
-        kth = tk.r[i];
-      }
-    }
-  }
-  out[2 * k * nq + qi] = count;
-  out[(2 * k + 1) * nq + qi] = kth;
-  out[(2 * k + 2) * nq + qi] = 1.0f;
+  store_knn_idx(tk, out, nq, qi, k);
 }
 
 }  // namespace

@@ -160,6 +160,30 @@ __device__ __forceinline__ void merge_partials_idx(
     }
 }
 
+// The kNN output rows of query qi (of nq): [0, k) sqrt d2 ascending (+inf
+// pad), [k, 2k) positions (-1 pad), then count, kth d2 (0 if none) and the
+// certificate, always 1 (the selection is exact).
+__device__ __forceinline__ void store_knn_idx(const TopKIdx& tk, float* out,
+                                              long long nq, long long qi,
+                                              int k) {
+  float count = 0.0f, kth = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kMaxK; ++i) {
+    if (i < k) {
+      const bool found = tk.r[i] < kInf;
+      out[i * nq + qi] = found ? sqrtf(fmaxf(tk.r[i], 0.0f)) : kInf;
+      out[(k + i) * nq + qi] = found ? (float)tk.p[i] : -1.0f;
+      if (found) {
+        count = __fadd_rn(count, 1.0f);
+        kth = tk.r[i];
+      }
+    }
+  }
+  out[2 * k * nq + qi] = count;
+  out[(2 * k + 1) * nq + qi] = kth;
+  out[(2 * k + 2) * nq + qi] = 1.0f;
+}
+
 // Every thread of a 128-thread block learns whether any thread's `mine`
 // is true (a block-uniform test before a walk with barriers in it).
 __device__ __forceinline__ bool block_any(bool mine, int* flag) {

@@ -1,11 +1,14 @@
 """Whole-cloud neighbour ops with exactness certified on the host: the
 counterpart of the sweep-backed part of `pointclouds_tpu/spatial/engine.py`
-(`sor_means`, `radius_count_sweep`, `normals` and their helpers).
+(`knn`, `cluster_labels`, `sor_means`, `radius_count_sweep`, `normals` and
+their helpers).
 
-These are the exact multi-dispatch paths that the fused API ops
-(`ops/fusedops.py`) fall back to when their static rescue capacity
-overflows: one sweep, one host read of its certificate or flags, then a
-brute-force rescue of the flagged rows, of any number.
+`knn` and `cluster_labels` are the API's entries; the others are the exact
+multi-dispatch paths that the fused API ops (`ops/fusedops.py`) fall back
+to when their static rescue capacity overflows: one sweep, one host read of
+its certificate or flags, then a brute-force rescue of the flagged rows, of
+any number. Where the JAX package takes its cell-grid engine
+(`spatial/cellgrid.py`, ported last) the port takes the exact brute force.
 
 On the TPU the JAX package picks the Pallas kernels or their XLA mirrors
 (`_kernel_preference`, VMEM gates) and degrades to the mirrors when a
@@ -25,7 +28,10 @@ from ..ops.normals import normals_from_knn, normals_from_moment_rows
 from .knn import bruteforce_knn, bruteforce_radius_count
 from .sweep import (
     _set_rows,
+    sweep_cluster_labels,
+    sweep_knn_cross_two_pass,
     sweep_knn_moments,
+    sweep_knn_two_pass,
     sweep_radius_count,
     sweep_sor_two_pass,
 )
@@ -33,6 +39,13 @@ from .sweep import (
 # Below this many points the brute-force path is cheaper than a sweep (and
 # exact by construction).
 BRUTE_THRESHOLD = 2048
+# The sweep kernels' f32 positions are exact below this many points; the
+# JAX package serves larger clouds from an int64-keyed grid engine.
+CELLGRID_MAX_N = 1 << 24
+_INT64_GRID = ("clouds of 2^24 points or more need the int64-keyed grid "
+               "engine, not ported yet (ROADMAP.md, section 1, 'Ported last')")
+# The sweep kNN kernels' top-k, as the JAX package gates them.
+_SWEEP_KNN_MAX_K = 24
 _RESCUE_BUCKETS = (1024, 4096, 16384, 65536, 262144)
 
 
@@ -183,3 +196,147 @@ def _normals_from_moments(xyz, m1, m2, cnt, viewpoint):
     """Column-layout ([N, 3] / [N, 6]) adapter over
     `normals_from_moment_rows`."""
     return normals_from_moment_rows(m1.T, m2.T, cnt, xyz, viewpoint)
+
+
+# ── kNN ──────────────────────────────────────────────────────────────────────
+
+
+def knn(pxyz, pvalid, qxyz, qvalid, k: int):
+    """Exact batched kNN: (dists f32[Q, k] Euclidean ascending, idx i32[Q,
+    k], nvalid bool[Q, k]). A query identical to a stored point returns it
+    at distance 0. Passing the point tensors themselves as the queries
+    selects the same-cloud sweep."""
+    n = pxyz.shape[0]
+    if k <= 0:
+        raise ValueError("k must be >= 1 at the engine level")
+    if n <= BRUTE_THRESHOLD or k >= n:
+        return bruteforce_knn(pxyz, pvalid, qxyz, qvalid, k)
+    if n >= CELLGRID_MAX_N:
+        raise NotImplementedError(f"knn: {_INT64_GRID}")
+    if k <= _SWEEP_KNN_MAX_K:
+        if qxyz is pxyz and qvalid is pvalid:
+            return _knn_sweep_same_cloud(pxyz, pvalid, k)
+        if qxyz.shape[0] > BRUTE_THRESHOLD:
+            return _knn_sweep_cross(pxyz, pvalid, qxyz, qvalid, k)
+    return bruteforce_knn(pxyz, pvalid, qxyz, qvalid, k)
+
+
+def _brute_flagged(pxyz, pvalid, qxyz, knn_out, residual, k: int):
+    """``knn_out`` with the ``residual`` query rows replaced by their exact
+    brute-force kNN (one host read: the flagged rows)."""
+    if not bool(residual.any()):  # host read: any flagged row
+        return knn_out
+    nq = qxyz.shape[0]
+    sub, sub_valid = _flagged_subset(residual, nq)
+    d3, i3, v3 = bruteforce_knn(pxyz, pvalid, qxyz[torch.clamp(sub, max=nq - 1)],
+                                sub_valid, k)
+    sv = sub_valid[:, None]
+    d, i, v = knn_out
+    return (_set_rows(d, sub, torch.where(sv, d3, 0.0)),
+            _set_rows(i, sub, torch.where(sv, i3, 0)),
+            _set_rows(v, sub, sv & v3))
+
+
+def _knn_sweep_same_cloud(pxyz, pvalid, k: int):
+    """All-points kNN by the fused sweep (`fusedops.knn_fused`); on its
+    rescue-cap overflow, the sweep again and the exact brute force of every
+    row it left flagged."""
+    from ..ops.fusedops import fused_rescue_cap, knn_fused
+
+    n = pxyz.shape[0]
+    wr, cap = _sweep_wr(n), fused_rescue_cap(n)
+    d, i, nv, exact = knn_fused(pxyz, pvalid, k=k, wr=wr, cap=cap)
+    if bool(exact):  # host read: the rescue-cap test
+        return d, i, nv
+    cell = estimate_cell_size(pxyz, pvalid, k)
+    d, i, nv, ok = sweep_knn_two_pass(pxyz, pvalid, np.float32(cell), k=k,
+                                      fix_cap=cap, wr=wr)
+    return _brute_flagged(pxyz, pvalid, pxyz, (d, i, nv),
+                          _residual(pxyz, pvalid, ok), k)
+
+
+def _knn_sweep_cross(pxyz, pvalid, qxyz, qvalid, k: int):
+    """Cross-cloud kNN: the point cloud sorted once, the queries sorted
+    into its cell frame (`sweep.sweep_knn_cross_two_pass`), then the exact
+    brute force of every query it left flagged."""
+    from ..ops.fusedops import fused_rescue_cap
+
+    n, qn = pxyz.shape[0], qxyz.shape[0]
+    cell = estimate_cell_size(pxyz, pvalid, k)
+    d, i, nv, ok = sweep_knn_cross_two_pass(
+        pxyz, pvalid, qxyz, qvalid, np.float32(cell), k=k, wr=_sweep_wr(n),
+        fix_cap=fused_rescue_cap(max(n, qn)))
+    return _brute_flagged(pxyz, pvalid, qxyz, (d, i, nv),
+                          _residual(qxyz, qvalid, ok), k)
+
+
+# ── Euclidean clustering ─────────────────────────────────────────────────────
+
+
+def _surviving_component_ranks(labels, min_size: int, max_size: int):
+    """Per row, the rank of its component among the components whose size
+    lies in [min_size, max_size] (ascending representative order), or -1
+    for rows of the others. Returns (comp i32[N], surviving count)."""
+    n = labels.shape[0]
+    dev = labels.device
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    sl, sidx = torch.sort(labels, stable=True)
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                       sl[1:] != sl[:-1]])
+    start = torch.cummax(torch.where(first, pos, 0), dim=0).values
+    is_end = torch.cat([first[1:], torch.ones(1, dtype=torch.bool,
+                                              device=dev)])
+    end = torch.flip(torch.cummin(torch.flip(
+        torch.where(is_end, pos, n), [0]), dim=0).values, [0])
+    size = end - start + 1
+    ok = (size >= min_size) & (size <= max_size)
+    rank = torch.cumsum((first & ok).to(torch.int64), dim=0) - 1
+    comp = torch.empty(n, dtype=torch.int32, device=dev)
+    comp[sidx] = torch.where(ok, rank, -1).to(torch.int32)
+    return comp, rank[-1] + 1
+
+
+def cluster_labels(xyz, valid, radius: float, n_valid: int | None = None,
+                   size_filter: tuple | None = None):
+    """Connected-component labels under inclusive distance ``radius``, as
+    a host int32 array over the first ``n_valid`` rows rounded up to 128
+    (all rows without ``n_valid``). Invalid and non-finite points are
+    singletons.
+
+    The sweep ladder first (`sweep.sweep_cluster_labels`: the flat row-list
+    walk, then the nine windows with no row cap, each exact or flagged, the
+    kernel branch's window budget on both devices); where no rung is exact
+    (or the cloud has at most 512 points), the uncapped exact all-pairs
+    propagation (`segmentation.bruteforce_cluster_labels`).
+
+    Without ``size_filter`` returns labels whose ascending order is that of
+    the components' smallest rows. With ``size_filter=(min_size,
+    max_size)`` returns (labels, filtered): from the sweep, filtered is
+    True and labels are surviving-component ranks with -1 on the rows of
+    components outside the band (`_surviving_component_ranks`); from the
+    brute force, (raw labels, False)."""
+    from ..ops.segmentation import bruteforce_cluster_labels
+
+    n = xyz.shape[0]
+    if n >= CELLGRID_MAX_N:
+        raise NotImplementedError(f"cluster_labels: {_INT64_GRID}")
+    rows = n if n_valid is None else min(n, max(128, -(-int(n_valid) // 128)
+                                                * 128))
+    r32 = np.float32(radius)
+    if n > BRUTE_THRESHOLD // 4:
+        wr = min(max(-(-n // 128), 1), 64)
+        for row_cap in (16, None):
+            # The windows rung starts at 6 rounds a burst: its resume
+            # bursts extend a run that has not converged.
+            labels, exact = sweep_cluster_labels(
+                xyz, valid, r32, wr=wr, row_cap=row_cap,
+                sweeps=12 if row_cap is not None else 6)
+            if not bool(exact):  # host read: the rung's certificate
+                continue
+            if size_filter is None:
+                return labels[:rows].cpu().numpy()
+            comp, _ = _surviving_component_ranks(labels, int(size_filter[0]),
+                                                 int(size_filter[1]))
+            return comp[:rows].cpu().numpy(), True
+    labels = bruteforce_cluster_labels(xyz, valid, r32)[:rows].cpu().numpy()
+    return labels if size_filter is None else (labels, False)

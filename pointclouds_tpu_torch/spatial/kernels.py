@@ -2,7 +2,8 @@
 
 Counterparts of the Pallas kernels (`pointclouds_tpu/spatial/
 pallas_kernels.py`) on the paths of the KITTI and aerial pipelines and of
-the per-op filter and normals API. Each wrapper checks its inputs, runs
+the per-op API (filters, normals, kNN, clustering, ICP). Each wrapper
+checks its inputs, runs
 the plain version for CPU tensors, and for CUDA tensors
 launches the kernel (built from ``csrc/`` at first use) or raises; it
 never falls back. ``LAUNCHES`` counts kernel launches per wrapper, so a
@@ -35,6 +36,8 @@ LAUNCHES = {
     "rescue_radius_count_groups": 0,
     "brute_knn_idx": 0,
     "brute_radius_count": 0,
+    "sweep_knn_select": 0,
+    "nn_argmin": 0,
 }
 
 # Blocks that share one rescue query block's group list (csrc/select.cu,
@@ -179,12 +182,15 @@ def _ordered_bits(v):
     return b ^ ((b >> 31) & 0x7FFFFFFF)
 
 
-def _topk_lex(vals, k: int):
+def _topk_lex(vals, k: int, pos=None):
     """The k smallest of f32 ``vals`` (no NaN) along the last axis, ties to
     the smaller position (as `lax.top_k` and the kernels order them): one
     int64 key (value, position) per element, since ``torch.topk`` does not
-    promise an order among equal values. Returns (values, positions)."""
-    pos = torch.arange(vals.shape[-1], device=vals.device)
+    promise an order among equal values. ``pos``: non-negative int64
+    positions broadcasting to ``vals`` (default: the index along the last
+    axis). Returns (values, positions)."""
+    if pos is None:
+        pos = torch.arange(vals.shape[-1], device=vals.device)
     key = (_ordered_bits(vals).to(torch.int64) << 32) | pos
     top = torch.topk(key, k, dim=-1, largest=False, sorted=True).values
     top_v = _ordered_bits((top >> 32).to(torch.int32).view(torch.float32))
@@ -675,31 +681,38 @@ def _group_rows(q_planar, active, gr: int, pad_row: int, live=None):
                        groups * gr + slot % gr, pad_row)
 
 
-def rescue_knn_idx_plain(cand_planar, q_planar, active, *, k: int, gr: int):
-    nr = cand_planar.shape[0]
-    qb = q_planar.shape[0]
-    dev = cand_planar.device
-    rows = _group_rows(q_planar, active, gr, nr)
+def _knn_out(vals, pos):
+    """[B, 128, 2k + 3] kNN output rows from the k smallest d2 ``vals``
+    (ascending, +inf = none) and their positions: sqrt d2 (+inf pad),
+    positions (-1 pad), count, kth d2 (0 if none), certificate 1."""
+    found = torch.isfinite(vals)
+    count = found.sum(-1)
+    last = torch.clamp(count - 1, min=0).unsqueeze(-1)
+    kth = torch.where(count > 0, torch.gather(vals, -1, last)[..., 0], 0.0)
+    return torch.cat([
+        torch.where(found, _sqrt_f32(torch.clamp(vals, min=0.0)), torch.inf),
+        torch.where(found, pos.to(torch.float32), -1.0),
+        count[..., None].to(torch.float32), kth[..., None],
+        torch.ones(vals.shape[:-1] + (1,), device=vals.device)], dim=-1)
+
+
+def _knn_rows_plain(q, cands, rows, k: int):
+    """f32[2k + 3, NB*128]: the exact k nearest of each block's queries
+    over its candidate rows [NB, R] (ids into ``cands``, an all-masked pad
+    row last), ties at equal d2 to the smaller position row*128 + lane."""
     parts = []
-    for rs, d2, pair in _block_pairs(q_planar, _with_pad_row(cand_planar),
-                                     rows):
+    for rs, d2, pair in _block_pairs(q, cands, rows):
         b = rs.shape[0]
-        # Ties at equal d2 to the smaller position: candidates are in
-        # ascending position order (at least one group's width, >= k).
-        vals, c = _topk_lex(torch.where(pair, d2, torch.inf), k)
-        row = torch.gather(rs, 1, (c // 128).reshape(b, -1)).reshape(c.shape)
-        pos = (row * 128 + c % 128).to(torch.float32)
-        found = torch.isfinite(vals)
-        count = found.sum(-1)
-        last = torch.clamp(count - 1, min=0).unsqueeze(-1)
-        kth = torch.where(count > 0, torch.gather(vals, -1, last)[..., 0], 0.0)
-        parts.append(torch.cat([
-            torch.where(found, _sqrt_f32(torch.clamp(vals, min=0.0)),
-                        torch.inf),
-            torch.where(found, pos, -1.0),
-            count[..., None].to(torch.float32), kth[..., None],
-            torch.ones((b, 128, 1), device=dev)], dim=2))
-    return torch.cat(parts).reshape(qb * 128, 2 * k + 3).T.contiguous()
+        pos = (rs[:, None, :, None] * 128
+               + torch.arange(128, device=rs.device)).reshape(b, 1, -1)
+        vals, p = _topk_lex(torch.where(pair, d2, torch.inf), k, pos)
+        parts.append(_knn_out(vals, p))
+    return torch.cat(parts).reshape(-1, 2 * k + 3).T.contiguous()
+
+
+def rescue_knn_idx_plain(cand_planar, q_planar, active, *, k: int, gr: int):
+    rows = _group_rows(q_planar, active, gr, cand_planar.shape[0])
+    return _knn_rows_plain(q_planar, _with_pad_row(cand_planar), rows, k)
 
 
 def rescue_knn_idx(cand_planar, q_planar, active, *, k: int, gr: int = 8):
@@ -1046,3 +1059,127 @@ def brute_knn_idx(q_planar, cand_planar, *, k: int):
                 out.data_ptr(), qb, nr, k, _BRUTE_SPLIT, _stream())
     LAUNCHES["brute_knn_idx"] += 1
     return out
+
+
+# ── 10. kNN with positions over the windows ────────────────────────────────
+
+
+def sweep_knn_select_plain(pts_planar, starts, *, k: int, q_planar=None):
+    nr, nb = pts_planar.shape[0], starts.shape[0]
+    q = pts_planar if q_planar is None else q_planar
+    return _knn_rows_plain(q[:nb], _with_pad_row(pts_planar),
+                           _window_rows(starts, nr), k)
+
+
+def sweep_knn_select(pts_planar, starts, *, k: int, q_planar=None):
+    """Exact k nearest candidates, with their positions, of each 128-query
+    block over its nine deduplicated windows [start + skip, start +
+    length) of the cell-sorted candidate rows.
+
+    pts_planar f32[NR, 4, 128] (w = validity); starts i32[NB, 28] (the
+    `_window_starts` pack); ``q_planar`` f32[QB >= NB, 4, 128], a separately
+    sorted query frame whose block b walks starts[b] (the cross-cloud
+    sweep; default: ``pts_planar``, query block b = row b). Returns f32[2k
+    + 3, NB*128]: rows [0, k) sqrt d2 ascending (+inf pad), [k, 2k)
+    positions row*128 + lane in the candidate frame (-1 pad; ties at equal
+    d2 to the smaller position), then count, kth d2 (0 if none), cert (1).
+
+    Replaces `pallas_kernels.sweep_knn_select` (csrc/sweepknn.cu)."""
+    _check_k(k)
+    nr, nb = pts_planar.shape[0], starts.shape[0]
+    dev = pts_planar.device
+    q = pts_planar if q_planar is None else q_planar
+    _check("sweep_knn_select.pts", pts_planar, torch.float32, (nr, 4, 128))
+    _check("sweep_knn_select.q", q, torch.float32, (q.shape[0], 4, 128), dev)
+    _check("sweep_knn_select.starts", starts, torch.int32, (nb, 28), dev)
+    if nb > q.shape[0]:
+        raise ValueError("sweep_knn_select: more blocks than query rows")
+    if nr * 128 >= 1 << 24:
+        raise ValueError("sweep_knn_select: positions must stay exact in f32")
+    if not _on_cuda(pts_planar):
+        return sweep_knn_select_plain(pts_planar, starts, k=k,
+                                      q_planar=q_planar)
+    out = torch.empty((2 * k + 3, nb * 128), dtype=torch.float32, device=dev)
+    _lib().call("pc_sweep_knn_select", pts_planar.data_ptr(), q.data_ptr(),
+                starts.data_ptr(), out.data_ptr(), nb, k, _stream())
+    LAUNCHES["sweep_knn_select"] += 1
+    return out
+
+
+# ── 15. Exact 1-NN over the whole target (ICP correspondences) ─────────────
+
+# Relative band around the smallest plain f32 d2 within which the plain
+# version re-derives the pinned d2: both forms are within a few ulp of the
+# true value (a sum of squares, no cancellation).
+_NN_BAND = 1e-5
+
+
+def _query_use(q_planar):
+    """[QB*128] queries the 1-NN serves: w > 0.5 and finite coordinates."""
+    q = q_planar.permute(1, 0, 2).reshape(4, -1)
+    return (q[3] > 0.5) & torch.isfinite(q[:3]).all(dim=0)
+
+
+def nn_argmin_plain(q_planar, cand_planar):
+    q = q_planar.permute(1, 0, 2).reshape(4, -1)
+    c = cand_planar.permute(1, 0, 2).reshape(4, -1)
+    n = c.shape[1]
+    cvalid = c[3] > 0.5
+    use = _query_use(q_planar)
+    at = torch.arange(n, device=c.device)
+    d2_out, pos_out = [], []
+    step = max(1, _CHUNK_ELEMS // max(n, 1))
+    for s in range(0, q.shape[1], step):
+        qs = torch.where(use[s:s + step], q[:3, s:s + step], 0.0)
+        d = [qs[i][:, None] - c[i][None, :] for i in range(3)]
+        approx = torch.where(cvalid, d[0] * d[0] + d[1] * d[1] + d[2] * d[2],
+                             torch.inf)
+        lo = approx.amin(dim=1, keepdim=True)
+        # The pinned d2 where the plain sum is near the smallest (every
+        # candidate of a query whose candidates are all invalid: +inf).
+        near = approx <= lo * (1.0 + _NN_BAND) + 1e-30
+        exact = torch.full_like(approx, torch.inf)
+        idx = (near & cvalid).nonzero(as_tuple=True)
+        dx, dy, dz = (a[idx] for a in d)
+        exact[idx] = fma_f32(dz, dz, fma_f32(dx, dx, dy * dy))
+        best = exact.amin(dim=1)
+        # Ties (and the all-invalid case) to the last position.
+        tie = exact == best[:, None]
+        d2_out.append(best)
+        pos_out.append(torch.where(tie, at, -1).amax(dim=1))
+    d2 = torch.cat(d2_out)
+    pos = torch.cat(pos_out).to(torch.float32)
+    return torch.where(use, d2, torch.inf), torch.where(use, pos, -1.0)
+
+
+def _nn_splits(qb: int, nr: int) -> int:
+    """CUDA blocks per query block: about four waves of the card's 132 SMs,
+    at most one per target row."""
+    return max(1, min(nr, -(-4 * 132 // max(qb, 1)), 64))
+
+
+def nn_argmin(q_planar, cand_planar):
+    """For every query, the exact squared distance to its nearest valid
+    candidate and that candidate's flat position.
+
+    q_planar f32[QB, 4, 128], cand_planar f32[NR, 4, 128] (w channels =
+    validity). Returns (d2 f32[QB*128], position f32[QB*128]): d2 pinned to
+    fma(dz, dz, fma(dx, dx, dy*dy)), +inf with no valid candidate; among
+    equal d2 the LAST position (with no valid candidate, the last of the
+    target); a query with w <= 0.5 or a non-finite coordinate gets (+inf,
+    -1).
+
+    Replaces `pallas_kernels.nn_argmin` (csrc/nn.cu)."""
+    nr, qb = _check_brute("nn_argmin", q_planar, cand_planar)
+    if not _on_cuda(cand_planar):
+        return nn_argmin_plain(q_planar, cand_planar)
+    dev = cand_planar.device
+    nsplit = _nn_splits(qb, nr)
+    part_d = torch.empty((nsplit, qb * 128), dtype=torch.float32, device=dev)
+    part_p = torch.empty((nsplit, qb * 128), dtype=torch.int32, device=dev)
+    out = torch.empty((2, qb * 128), dtype=torch.float32, device=dev)
+    _lib().call("pc_nn_argmin", q_planar.data_ptr(), cand_planar.data_ptr(),
+                part_d.data_ptr(), part_p.data_ptr(), out.data_ptr(), qb, nr,
+                nsplit, _stream())
+    LAUNCHES["nn_argmin"] += 1
+    return out[0], out[1]

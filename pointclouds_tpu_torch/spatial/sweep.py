@@ -1,16 +1,18 @@
-"""Sorted-window sweep: SOR neighbour means, radius counts, kNN moments and
-cluster labels over cell-sorted planar rows.
+"""Sorted-window sweep: SOR neighbour means, radius counts, kNN moments,
+kNN and cluster labels over cell-sorted planar rows.
 
 Counterpart of `pointclouds_tpu/spatial/sweep.py`, ported for the paths of
-the KITTI and aerial pipelines and of the per-op filter and normals API:
+the KITTI and aerial pipelines and of the per-op API:
 the structure built on rows already sorted by sor cell
 (`structure_from_sorted`) or sorted here (`_sorted_structure`), SOR pass 1
 over flat per-block row lists or the nine windows, the AABB-pruned exact
 rescue with optional lower bounds (`sweep_sor_two_pass`), radius counts
 with and without their rescue (`sweep_radius_count(_two_pass)`), kNN
 moments with and without the exact rescue (`sweep_knn_moments(_rows)`,
-`sweep_moments_two_pass_rows`), and the cluster labels over row lists or
-the nine windows (`sweep_cluster_labels`).
+`sweep_moments_two_pass_rows`), the cluster labels over row lists or the
+nine windows (`sweep_cluster_labels`), and the all-points and cross-cloud
+kNN with their rescue (`sweep_knn`, `sweep_knn_two_pass`,
+`sweep_knn_cross_two_pass`).
 
 Points sorted by linearized cell id (z fastest) pack 128 to a planar row
 ``[x*128 | y*128 | z*128 | w*128]``; for a block of 128 consecutive sorted
@@ -35,6 +37,7 @@ from .kernels import (
     rescue_radius_count_groups,
     rescue_select,
     sweep_moments,
+    sweep_knn_select,
     sweep_select,
     sweep_select_rows,
 )
@@ -286,13 +289,16 @@ def _sweep_pass1(cell_size, *, k: int, prebuilt, row_cap: int | None):
 
 
 def _rescue_structure(planar, order, flagged, fix_cap: int, n: int, radius,
-                      priority=None):
+                      priority=None, q_src=None):
     """Pass-2 front end: compact flagged queries (priority rows first, then
     sorted order), pad the planar rows to rescue groups, and build each
     query block's AABB-pruned active-group list. ``order`` maps sorted
     position -> original row of ``flagged``/``priority`` (None: identity).
-    Returns (planar_g, q_planar [QB, 4, 128], active i32[QB, 1 + NG],
-    qvalid, qsel -- sorted-frame positions)."""
+    ``q_src``: the planar frame the query coordinates come from (default
+    ``planar``; the cross-cloud sweep passes its query frame, and then
+    ``order``, ``flagged`` and ``n`` are the query side's). Returns
+    (planar_g, q_planar [QB, 4, 128], active i32[QB, 1 + NG], qvalid, qsel
+    -- sorted-frame positions)."""
     dev = planar.device
     nrows = planar.shape[0]
     gr = RESCUE_GROUP_ROWS
@@ -321,7 +327,8 @@ def _rescue_structure(planar, order, flagged, fix_cap: int, n: int, radius,
     if qcap > n:
         qvalid = qvalid & (torch.arange(qcap, device=dev) < n)
 
-    qx, qy, qz = (planar[:, i, :].reshape(-1)[qsel] for i in range(3))
+    qf = planar if q_src is None else q_src
+    qx, qy, qz = (qf[:, i, :].reshape(-1)[qsel] for i in range(3))
     qb = qcap // 128
     q_planar = _pack_planar(qx, qy, qz, qvalid, qb)
 
@@ -791,3 +798,177 @@ def sweep_radius_count_two_pass(xyz, valid, radius, *, fix_cap: int = 4096,
     return (_set_rows(counts, rows, torch.where(rok, rcounts.to(torch.int32),
                                                 0)),
             _set_rows(point_ok, rows, rok))
+
+
+# ── kNN (distances and original indices) ───────────────────────────────────
+
+
+def _knn_unsort(out, k: int, block_ok, inv, n: int, order, pn: int):
+    """`sweep_knn_select` rows (sorted query frame) -> original query order:
+    (dists f32[n, k], idx i32[n, k] original point rows (-1 pad), nvalid
+    bool[n, k], count, kth, ok) with ok = the kernel's certificate and its
+    block's window certificate. ``order``/``pn``: the point frame's sort
+    order and size."""
+    ok_sorted = (out[2 * k + 2] > 0.5) & block_ok.repeat_interleave(128)
+    res = torch.cat([out, ok_sorted[None].to(torch.float32)])[:, :n][:, inv]
+    dists = res[:k].T
+    idx = _positions_to_rows(res[k:2 * k].T, order, pn).to(torch.int32)
+    return (dists, idx, torch.isfinite(dists), res[2 * k], res[2 * k + 1],
+            res[2 * k + 3] > 0.5)
+
+
+def _knn_safe2(s, cell_size):
+    """Squared kth-distance bound of pass 1: one cell less the f32
+    floor-rounding margin (the SOR sweep's margin)."""
+    margin = (_hi_cells(s) * 4.0 * 1.2e-7 + 1e-6) * cell_size
+    safe = torch.clamp(cell_size - margin, min=0.0)
+    return safe * safe
+
+
+def _knn_pass1(s, n: int, cell_size, *, k: int):
+    """Pass 1 of the all-points kNN sweep (kernel `sweep_knn_select`) and
+    its certificates, in original order: (dists f32[N, k] Euclidean
+    ascending (+inf pad), idx i32[N, k] original rows (-1 pad), nvalid
+    bool[N, k], point_ok bool[N], want_f = min(k, valid points))."""
+    out = sweep_knn_select(s["planar"], s["starts_skip"], k=k)
+    dists, idx, nvalid, count, kth, ok = _knn_unsort(
+        out, k, s["block_ok"], s["inv"], n, s["order"], n)
+    want_f = torch.clamp(s["use"].sum(), max=k).to(torch.float32)
+    point_ok = (ok & (count >= want_f) & (kth <= _knn_safe2(s, cell_size))
+                & s["use"] & ~s["table_overflow"])
+    return dists, idx, nvalid, point_ok, want_f
+
+
+def sweep_knn(xyz, valid, cell_size, *, k: int, wr: int = 4,
+              table_size: int = SWEEP_TABLE_SIZE):
+    """All-points kNN (self included) by the sorted-window sweep: (dists
+    f32[N, k] Euclidean ascending (+inf pad), idx i32[N, k] original rows
+    (-1 pad), nvalid bool[N, k], point_ok bool[N]). Certified rows hold
+    exactly the k nearest, ties at equal distance to the smaller sorted
+    position. ``cell_size`` is taken as float32."""
+    cell_size = scalar_like(cell_size, xyz)
+    s = _sorted_structure(xyz, valid, cell_size, wr, table_size)
+    return _knn_pass1(s, xyz.shape[0], cell_size, k=k)[:4]
+
+
+def _knn_rescue(knn, rout, k: int, want_f, radius, qvalid, table_overflow,
+                rows_orig, qn: int, order, pn: int):
+    """Scatter the certified rows of a `rescue_knn_idx` pass into the pass-1
+    results ``knn`` = (dists, idx, nvalid, point_ok): a rescued row is
+    certified iff it found min(k, valid points) neighbours strictly inside
+    the (deflated) rescue ball. Uncertified rows keep their pass-1 values
+    and point_ok False."""
+    dists, idx, nvalid, point_ok = knn
+    rd, rpos = rout[:k].T, rout[k:2 * k].T
+    rc = radius * 0.99999
+    rok = ((rout[2 * k] >= want_f) & (rout[2 * k + 1] <= rc * rc)
+           & (rout[2 * k + 2] > 0.5) & qvalid & ~table_overflow)
+    ridx = _positions_to_rows(rpos, order, pn).to(torch.int32)
+    drop = torch.where(rok, rows_orig, qn)
+    ok2 = rok[:, None]
+    return (_set_rows(dists, drop, torch.where(ok2, rd, 0.0)),
+            _set_rows(idx, drop, torch.where(ok2, ridx, 0)),
+            _set_rows(nvalid, drop, ok2 & torch.isfinite(rd)),
+            _set_rows(point_ok, drop, rok))
+
+
+def sweep_knn_two_pass(xyz, valid, cell_size, *, k: int, fix_cap: int = 4096,
+                       rescue_cells: float = 4.0, wr: int = 4,
+                       table_size: int = SWEEP_TABLE_SIZE):
+    """`sweep_knn` plus the exact AABB-group-pruned rescue (kernel
+    `rescue_knn_idx`) of up to ``fix_cap`` flagged rows against the
+    candidate groups within ``rescue_cells`` cells of their query block.
+    Rows uncertified after both passes keep their pass-1 values and
+    point_ok False (the caller's whole-cloud rescue takes them)."""
+    n = xyz.shape[0]
+    cell_size = scalar_like(cell_size, xyz)
+    s = _sorted_structure(xyz, valid, cell_size, wr, table_size)
+    dists, idx, nvalid, point_ok, want_f = _knn_pass1(s, n, cell_size, k=k)
+    order = s["order"]
+    radius = rescue_cells * cell_size
+    planar_g, q_planar, active, qvalid, qsel = _rescue_structure(
+        s["planar"], order, s["use"] & ~point_ok, fix_cap, n, radius)
+    rout = rescue_knn_idx(planar_g, q_planar, active, k=k,
+                          gr=RESCUE_GROUP_ROWS)
+    return _knn_rescue((dists, idx, nvalid, point_ok), rout, k, want_f,
+                       radius, qvalid, s["table_overflow"],
+                       _rescue_rows_orig(order, qsel, n), n, order, n)
+
+
+def _sorted_query_frame(qxyz, qvalid, mn, extent, cell_size,
+                        table_size: int):
+    """Sort a query set into an existing point grid's cell order (``mn``,
+    ``extent`` of the point cloud's `_sorted_structure` at the same
+    ``cell_size``) and pack it as a [QB, 4, 128] planar frame whose block b
+    walks the point windows `_window_starts_from_bounds` gives its cell
+    range. Valid queries whose cell lies outside the point grid sort to the
+    tail with w = 0 and must be rescued (``in_ok`` False); their
+    coordinates stay in the frame for the rescue. Non-finite coordinates
+    are zeroed and never served (``use`` False)."""
+    qn = qxyz.shape[0]
+    dev = qxyz.device
+    finite = torch.isfinite(qxyz).all(dim=-1)
+    use = qvalid & finite
+    qc = torch.where(finite[:, None], qxyz, 0.0)
+    c = torch.clamp(torch.floor(qxyz / cell_size), -1e9, 1e9)
+    c = torch.where(finite[:, None], c, 0.0).to(torch.int32)
+    rel = c - mn[None, :]
+    in_grid = ((rel >= 0) & (rel < extent[None, :])).all(dim=1)
+    inb = use & in_grid
+    relc = torch.minimum(torch.clamp(rel, min=0), extent[None, :] - 1).long()
+    ext64 = extent.to(torch.int64)
+    lin64 = (relc[:, 0] * ext64[1] + relc[:, 1]) * ext64[2] + relc[:, 2]
+    lin = torch.where(inb, torch.clamp(lin64, 0, table_size - 1),
+                      table_size).to(torch.int32)
+    order = stable_argsort(lin)
+    slin = lin[order]
+    suse = slin < table_size
+    tail = (-qn) % 128
+    nb = (qn + tail) // 128
+    sc = [_pad_tail(qc[order, i], tail, 0.0) for i in range(3)]
+    slin = _pad_tail(slin, tail, table_size)
+    suse = _pad_tail(suse, tail, False)
+    blocks = slin.reshape(nb, 128)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(qn, dtype=order.dtype, device=dev)
+    return dict(planar=_pack_planar(*sc, suse, nb), order=order, inv=inv,
+                use=use, in_ok=inb, lo=blocks[:, 0], hi=blocks[:, -1],
+                has_valid=suse.reshape(nb, 128).any(dim=1), nb=nb)
+
+
+def sweep_knn_cross_two_pass(pxyz, pvalid, qxyz, qvalid, cell_size, *,
+                             k: int, fix_cap: int = 4096,
+                             rescue_cells: float = 4.0, wr: int = 4,
+                             table_size: int = SWEEP_TABLE_SIZE):
+    """Cross-cloud kNN (original point indices, per query row): the point
+    cloud is sorted and windowed once, the queries are sorted into its cell
+    frame (`_sorted_query_frame`) and swept by `sweep_knn_select` with the
+    query frame; then the group-pruned rescue of the flagged queries
+    (queries outside the point grid included). Same contract as
+    `sweep_knn_two_pass`; returns (dists f32[Q, k], idx i32[Q, k], nvalid
+    bool[Q, k], point_ok bool[Q]) in the original query order."""
+    pn, qn = pxyz.shape[0], qxyz.shape[0]
+    cell_size = scalar_like(cell_size, pxyz)
+    sp = _sorted_structure(pxyz, pvalid, cell_size, wr, table_size)
+    sq = _sorted_query_frame(qxyz, qvalid, sp["mn"], sp["extent"], cell_size,
+                             table_size)
+    starts, block_ok = _window_starts_from_bounds(
+        sq["lo"], sq["hi"], sq["has_valid"], sp["slin_p"], sp["suse_p"],
+        sp["extent"], sp["nrows"], sp["nb"], wr, table_size)
+    out = sweep_knn_select(sp["planar"], starts, k=k, q_planar=sq["planar"])
+    dists, idx, nvalid, count, kth, ok = _knn_unsort(
+        out, k, block_ok, sq["inv"], qn, sp["order"], pn)
+    want_f = torch.clamp(sp["use"].sum(), max=k).to(torch.float32)
+    point_ok = (ok & (count >= want_f) & (kth <= _knn_safe2(sp, cell_size))
+                & sq["in_ok"] & ~sp["table_overflow"])
+
+    radius = rescue_cells * cell_size
+    planar_g, q_planar, active, qvalid_r, qsel = _rescue_structure(
+        sp["planar"], sq["order"], sq["use"] & ~point_ok, fix_cap, qn,
+        radius, q_src=sq["planar"])
+    rout = rescue_knn_idx(planar_g, q_planar, active, k=k,
+                          gr=RESCUE_GROUP_ROWS)
+    return _knn_rescue((dists, idx, nvalid, point_ok), rout, k, want_f,
+                       radius, qvalid_r, sp["table_overflow"],
+                       _rescue_rows_orig(sq["order"], qsel, qn), qn,
+                       sp["order"], pn)

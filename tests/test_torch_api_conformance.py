@@ -1,10 +1,11 @@
-"""The reference's own binding tests (`tests/test_reference_bindings.py`) for
-the functions the PyTorch port has, run against the port: ``pointclouds_rs``
+"""The reference's own binding tests (`tests/test_reference_bindings.py`),
+all 36, run against the PyTorch port: ``pointclouds_rs``
 is bound to `pointclouds_tpu_torch.api` with clouds made on the CPU, for
 the duration of each test, and the reference file itself is left as it is.
 """
 
 import importlib.util
+import inspect
 import sys
 import types
 from pathlib import Path
@@ -33,7 +34,16 @@ PORTED = [
     "test_statistical_outlier_removal",
     "test_radius_outlier_removal",
     "test_estimate_normals",
+    "test_icp_point_to_point",
+    "test_icp_point_to_plane",
+    "test_icp_point_to_plane_no_normals",
+    "test_euclidean_cluster",
     "test_ransac_plane",
+    "test_read_write_pcd",
+    "test_read_write_ply",
+    "test_read_write_ply_binary",
+    "test_read_las_nonexistent",
+    "test_read_las_available",
     "test_empty_cloud_to_numpy",
     "test_from_numpy_wrong_shape",
     "test_from_numpy_wrong_columns",
@@ -41,10 +51,17 @@ PORTED = [
     "test_from_numpy_inf_values",
     "test_voxel_downsample_very_large_voxel",
     "test_voxel_downsample_very_small_voxel",
+    "test_icp_identical_clouds",
     "test_ransac_with_only_3_points",
+    "test_euclidean_cluster_single_point",
     "test_estimate_normals_two_points",
     "test_passthrough_filter_all_filtered",
 ]
+
+
+def test_every_reference_test_is_ported():
+    names = {n for n in dir(reference) if n.startswith("test_")}
+    assert names == set(PORTED)
 
 
 @pytest.fixture
@@ -58,8 +75,10 @@ def port_as_pointclouds_rs(monkeypatch):
 
 
 @pytest.mark.parametrize("name", PORTED)
-def test_reference_binding_on_port(name, port_as_pointclouds_rs):
-    getattr(reference, name)()
+def test_reference_binding_on_port(name, port_as_pointclouds_rs, tmp_path):
+    fn = getattr(reference, name)
+    # The file tests take pytest's tmp_path.
+    fn(*([tmp_path] if inspect.signature(fn).parameters else []))
     import pointclouds_rs
 
     assert pointclouds_rs is port_as_pointclouds_rs

@@ -321,3 +321,59 @@ def test_api_gpu_equals_cpu(dev):
         assert api.statistical_outlier_removal(c, 10, 2.0).device == c.device
     for g, w in zip(out[str(dev)], out["cpu"]):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("k", [1, 10, 24])
+def test_sweep_knn_select(dev, k):
+    s = _structure(dev, seed=9, wr=6, cell=0.9)
+    s["planar"][2, :3, :64] = s["planar"][2, :3, 64:]  # ties at equal d2
+    got = _count_launch("sweep_knn_select", lambda: kernels.sweep_knn_select(
+        s["planar"], s["starts_skip"], k=k))
+    want = kernels.sweep_knn_select_plain(s["planar"], s["starts_skip"], k=k)
+    assert torch.equal(got, want)
+    assert (got[2 * k] == k).float().mean() > 0.5
+
+
+def test_sweep_knn_select_cross(dev):
+    """The query-frame form, on a shuffled query frame against the same
+    windows (the positions name candidate rows either way)."""
+    s = _structure(dev, seed=10, wr=6, cell=0.9)
+    nb = s["starts_skip"].shape[0]
+    rng = np.random.default_rng(10)
+    q = _planar(rng, nb + 3, scale=10.0).to(dev)
+    got = _count_launch("sweep_knn_select", lambda: kernels.sweep_knn_select(
+        s["planar"], s["starts_skip"], k=10, q_planar=q))
+    want = kernels.sweep_knn_select_plain(s["planar"], s["starts_skip"], k=10,
+                                          q_planar=q)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("lattice", [False, True])
+def test_nn_argmin(dev, lattice):
+    rng = np.random.default_rng(11)
+    if lattice:  # every query at half-shift: 8 tied nearest candidates
+        g = np.arange(16, dtype=np.float32)
+        c = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+        q = c[:2000] + np.float32(0.5)
+    else:
+        c = rng.uniform(-5, 5, (3000, 3)).astype(np.float32)
+        q = rng.uniform(-5, 5, (1000, 3)).astype(np.float32)
+    cv = torch.from_numpy(rng.random(len(c)) > 0.1)
+    qv = torch.from_numpy(rng.random(len(q)) > 0.1)
+    q = torch.from_numpy(q)
+    q[5] = float("nan")  # a non-finite valid query: (+inf, -1)
+    from pointclouds_tpu_torch.ops.registration import _to_planar
+
+    qp = _to_planar(q, qv).to(dev)
+    cp = _to_planar(torch.from_numpy(c), cv).to(dev)
+    got = _count_launch("nn_argmin", lambda: kernels.nn_argmin(qp, cp))
+    want = kernels.nn_argmin_plain(qp, cp)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    served = qv.clone()
+    served[5] = False
+    served = served.to(dev)
+    assert got[1][5] == -1.0 and (got[1][:len(q)][served] >= 0).all()
+    none = kernels.nn_argmin(qp, torch.zeros_like(cp))  # no valid target
+    assert torch.isinf(none[0][:len(q)][served]).all()
+    assert (none[1][:len(q)][served] == cp.shape[0] * 128 - 1).all()
