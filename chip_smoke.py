@@ -59,7 +59,19 @@ Phases:
    port's CPU run (iterations; rotation and translation within 1e-5),
    clusters equal to the CPU run and to a query_pairs + connected
    components oracle, files written on the card byte-equal to the CPU
-   run's (phase7.json in chiprun_out/).
+   run's (phase7.json in chiprun_out/);
+8. the last three kernels and their paths: `segmented_select`,
+   `sor_select` and `cluster_propagate` against their plain versions at
+   the inputs of the KITTI bench frame's cell-grid SOR backends
+   (sor_backend "xla" and "pallas") and of `euclidean_cluster` on a
+   uniform cloud of 1.2M points (bucket 2^21, above the reference's
+   residency gate, so the hop loop runs) in a 63 m cube at r 0.5, with
+   `torch.topk` of the work rows as kernel 18's yardstick; the bench frame
+   through both backends for RANSAC seeds 0-4 (launches, grid flags,
+   sor_certified and clusters reported, not gated; seed 0 equal to the
+   port's CPU run: centroids, keep mask, plane, clusters; stage times and
+   the frame p50), and the large clustering (hops, p50, clusters equal to a
+   query_pairs + connected-components oracle; phase8.json).
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; each of its kernels must have launched. Prints the kernels'
@@ -102,13 +114,20 @@ KERNELS = {
     "brute_radius_count": ("ops.fusedops", "brute.cu", 2829),
     "sweep_knn_select": ("spatial.sweep", "sweepknn.cu", 2469),
     "nn_argmin": ("ops.registration", "nn.cu", 2612),
+    "cluster_propagate": ("spatial.sweep", "propagate.cu", 969),
+    "sor_select": ("spatial.cellgrid", "cellsel.cu", 230),
+    "segmented_select": ("spatial.cellgrid", "cellsel.cu", 152),
 }
+# The kernels phase 8 checks (at the cell-grid backends' and the large
+# cloud's shapes).
+PHASE8_KERNELS = ("cluster_propagate", "sor_select", "segmented_select")
 # Kernels whose outputs are held bitwise against their plain versions (the
-# same f32 operations in the same order; counts are exact integer sums).
+# same f32 operations in the same order; counts are exact integer sums;
+# labels are integers).
 BITWISE = ("segmented_scan_sums", "ransac_score_counts", "sweep_moments",
            "rescue_knn_idx", "count_within", "rescue_radius_count_groups",
            "brute_radius_count", "brute_knn_idx", "sweep_knn_select",
-           "nn_argmin")
+           "nn_argmin", "cluster_propagate", "sor_select")
 KITTI = dict(voxel=0.15, sor_std=2.0, ransac_thresh=0.15, cluster_r=0.8,
              sor_k=20, ransac_iters=500, ds_cap=98_304,
              ransac_subsample=4096, obstacle_cap=8192)
@@ -143,6 +162,10 @@ PATHS = {
     "cluster": ["cluster_multisweep"],
     "icp": ["nn_argmin"],
     "io": [],
+    # The KITTI cell-grid backends and the large-cloud hop loop (phase 8).
+    "kitti_xla": ["segmented_scan_sums", "segmented_select"],
+    "kitti_pallas": ["segmented_scan_sums", "sor_select", "segmented_select"],
+    "cluster_large": ["cluster_propagate"],
 }
 SEEDS = range(5)
 KITTI_FRAMES = 20
@@ -168,14 +191,10 @@ def run_kitti(pc, data, seed, device=None, cloud=None, **over):
     if cloud is None:
         cloud = pc.make_cloud_arrays(data, device=device)
     kw = {**KITTI, **over}
-    return pc.kitti_obstacle_pipeline(
-        cloud.xyz, cloud.valid, np.float32(kw["voxel"]),
-        np.float32(kw["sor_std"]), np.float32(kw["ransac_thresh"]),
-        seed, np.float32(kw["cluster_r"]), sor_k=kw["sor_k"],
-        ransac_iters=kw["ransac_iters"], ds_cap=kw["ds_cap"],
-        ransac_subsample=kw["ransac_subsample"],
-        obstacle_cap=kw["obstacle_cap"],
-    )
+    pos = [np.float32(kw.pop(k)) for k in ("voxel", "sor_std",
+                                           "ransac_thresh")]
+    return pc.kitti_obstacle_pipeline(cloud.xyz, cloud.valid, *pos, seed,
+                                      np.float32(kw.pop("cluster_r")), **kw)
 
 
 def run_aerial(pc, data, seed, device=None, cloud=None, **over):
@@ -320,6 +339,30 @@ def check_kernel(name, args, kwargs, K):
     return err, tol, ms, plain_ms
 
 
+def kernel_row(name, args, kwargs, K, card_line, library=None):
+    """Check one kernel against its plain version, time both and bound it;
+    ``library``: one PyTorch call computing the same function, timed as a
+    yardstick. Returns the kernel's entry of the JSON line."""
+    _, src, line = KERNELS[name]
+    err, tol, ms, plain_ms = check_kernel(name, args, kwargs, K)
+    nbytes, ops = work(name, args, kwargs, getattr(K, name)(*args, **kwargs))
+    bms, by = bound_ms(nbytes, ops)
+    lib_ms = None if library is None else cuda_ms(library, 20)
+    shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+    live = {n: int((args[0 if n.startswith("brute") else 1][:, 3, :]
+                    >= RESCUE_LIVE[n]).sum())
+            for n in (name,) if n in RESCUE_LIVE}
+    log(f"kernel {name}: shapes={shapes} {live} agrees ({tol}, "
+        f"max_abs_err={err}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bms:.5f} ms ({by}: {nbytes} B, {ops} ops), library "
+        f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} [{card_line}]")
+    return dict(name=name, route="cuda",
+                source=f"pointclouds_tpu_torch/spatial/csrc/{src}",
+                replaces=f"{PALLAS}:{line}", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
+
+
 def stage_timer(mod, stages):
     """Wrap the pipeline's stage functions in its module so each records a
     CUDA event pair; returns (spy, read)."""
@@ -438,6 +481,20 @@ def work(name, args, kwargs, out):
         live_w = 0.0 if name == "brute_radius_count" else 0.5
         live = int((q[:, 3, :].amax(dim=1) >= live_w).sum())
         return nbytes, PAIR_OPS * pair * live * cand.shape[0]
+    if name == "cluster_propagate":
+        # Rows [start, start + length) of the blocks that run (a valid
+        # query and active); the hop reads no skip.
+        starts = args[2]
+        run = (starts[:, 27] != 0) & (starts[:, 28] != 0)
+        rows = int((starts[:, 18:27].sum(1) * run).sum())
+        return nbytes, PAIR_OPS * pair * rows
+    if name == "sor_select":
+        # Valid queries x valid candidates of each cell (empty cells none).
+        q, qm, cand, cv = args
+        pairs = int((qm.sum(1) * cv.sum(1)).sum())
+        return nbytes, PAIR_OPS * pairs
+    if name == "segmented_select":
+        return nbytes, args[0].numel()  # one compare per element
     raise KeyError(name)
 
 
@@ -1041,6 +1098,122 @@ def phase7(card_line, K, add):
                                                     default=str))
 
 
+# ── The cell-grid KITTI backends and the large-cloud hop loop (phase 8) ─────
+
+CELLGRID_BACKENDS = ("xla", "pallas")
+# A uniform cloud of 1.2M points (bucket 2^21, above the reference's
+# residency gate of 2^20 rows; 9,375 full blocks of 128) in a 63 m cube:
+# 126^3 sort cells of ~0.5 m, within the sweep's 2^21-cell table. At r 0.5
+# a point has 2.5 neighbours on average (below 3D continuum percolation,
+# ~2.7), so the cloud falls into many finite components.
+LARGE_POINTS = 1_200_000
+LARGE_BOX = 63.0
+LARGE_R = 0.5
+CELLGRID_STAGES = ["voxel_downsample_masked", "build_cellgrid",
+                   "point_sor_mean_dists", "cell_sor_mean_dists",
+                   "cell_knn_subset", "sor_keep_mask", "ransac_plane_masked",
+                   "cell_graph_adjacency", "cell_graph_labels"]
+
+
+def phase8_kernels(card_line, K, pc, kdata, api, large):
+    """Kernels 16-18 against their plain versions, at the inputs the
+    KITTI cell-grid backends and the large-cloud clustering give them;
+    kernel 18's yardstick is ``torch.topk`` of its rows."""
+    captured = {}
+    for run, names in (
+            (lambda: run_kitti(pc, kdata, 0, "cuda", sor_backend="xla"),
+             ["segmented_select"]),
+            (lambda: run_kitti(pc, kdata, 0, "cuda", sor_backend="pallas"),
+             ["sor_select"]),
+            (lambda: api.euclidean_cluster(large, LARGE_R, *CLUSTER_SIZES),
+             ["cluster_propagate"])):
+        captured.update(capture_inputs(run, names))
+    rows = []
+    for name in PHASE8_KERNELS:
+        args, kwargs = captured[name]
+        library = None
+        if name == "segmented_select":
+            library = (lambda w=args[0], k=kwargs["k"]:
+                       torch.topk(w, k, dim=1, largest=False))
+        rows.append(kernel_row(name, args, kwargs, K, card_line, library))
+    return rows
+
+
+def kitti_summary(pc, out) -> dict:
+    return dict(ds=int(out.downsampled_valid.sum()),
+                kept=int(out.cleaned_valid.sum()),
+                inliers=int(out.inlier_mask.sum()),
+                clusters=[len(c) for c in kitti_points(pc, out)],
+                sor_certified=bool(out.sor_certified),
+                grid_flags=out.grid_flags.cpu().tolist(),
+                obstacle_overflow=bool(out.obstacle_overflow))
+
+
+def phase8(card_line, K, pc, kitti_mod, kdata, add):
+    """The KITTI bench frame through the cell-grid backends (seeds 0-4:
+    launches, flags, certificate and clusters reported; seed 0 equal to the
+    port's CPU run), then `euclidean_cluster` on the large cloud through
+    the hop loop (hops, launches, p50; clusters equal to a query_pairs +
+    connected-components oracle). Returns kernels 16-18's rows."""
+    from pointclouds_tpu_torch import api
+
+    large_pts = (np.random.default_rng(8).random((LARGE_POINTS, 3))
+                 * LARGE_BOX).astype(np.float32)
+    large = api.PointCloud.from_numpy(large_pts)
+    rows = phase8_kernels(card_line, K, pc, kdata, api, large)
+    record = dict(card=card_line, kitti={})
+    kcloud = pc.make_cloud_arrays(kdata, device="cuda")
+    for backend in CELLGRID_BACKENDS:
+        outs, launches = path_launches(K, f"kitti_{backend}", lambda: {
+            seed: run_kitti(pc, kdata, seed, cloud=kcloud,
+                            sor_backend=backend) for seed in SEEDS})
+        add(launches)
+        per_seed = {seed: kitti_summary(pc, out) for seed, out in outs.items()}
+        for seed, s in per_seed.items():
+            log(f"kitti {backend} seed {seed}: {s}")
+        cpu = run_kitti(pc, kdata, 0, "cpu", sor_backend=backend)
+        got = outs[0]
+        same = dict(
+            centroids=torch.equal(got.centroids.cpu().view(torch.int32),
+                                  cpu.centroids.view(torch.int32)),
+            keep=torch.equal(got.cleaned_valid.cpu(), cpu.cleaned_valid),
+            plane=torch.equal(got.plane_normal.cpu(), cpu.plane_normal),
+            clusters=same_clusters(kitti_points(pc, got),
+                                   kitti_points(pc, cpu)))
+        log(f"kitti {backend} seed 0 equal to the CPU run: {same}")
+        if not all(same.values()):
+            raise AssertionError(f"kitti {backend}: differs from the CPU run")
+        timed_frames(lambda f: run_kitti(pc, kdata, f % len(SEEDS),
+                                         cloud=kcloud, sor_backend=backend),
+                     len(SEEDS), kitti_mod, CELLGRID_STAGES, card_line,
+                     f"kitti {backend}")
+        record["kitti"][backend] = dict(seeds=per_seed, launches=launches,
+                                        cpu_equal=same)
+
+    call = lambda: api.euclidean_cluster(large, LARGE_R,  # noqa: E731
+                                         *CLUSTER_SIZES)
+    got, launches = path_launches(K, "cluster_large", call)
+    add(launches)
+    ms, times = p50_ms(call)
+    want, near = oracle_clusters(large_pts, LARGE_R)
+    hops = launches["cluster_propagate"]
+    log(f"euclidean_cluster uniform {LARGE_POINTS} in a {LARGE_BOX} m cube "
+        f"r{LARGE_R}: {len(got)} clusters (largest "
+        f"{[len(c) for c in got[:8]]}), {hops} hops, p50 {ms:.3f} ms over 5 "
+        f"calls ({', '.join(f'{t:.3f}' for t in times)}), equal to the "
+        f"oracle: {got == want} ({near} pairs within 1e-6 of the radius) "
+        f"[{card_line}]")
+    if got != want and near == 0:
+        raise AssertionError("large euclidean_cluster differs from the oracle")
+    record["cluster_large"] = dict(clusters=len(got), hops=hops, p50_ms=ms,
+                                   times_ms=times, oracle_equal=got == want,
+                                   pairs_near_radius=near)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "phase8.json").write_text(json.dumps(record, indent=1,
+                                                    default=str))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1115,25 +1288,8 @@ def main() -> int:
                                             max_iterations=50),
              ["nn_argmin"])):
         captured.update(capture_inputs(run, names))
-    rows = []
-    for name, (_, src, line) in KERNELS.items():
-        args, kwargs = captured[name]
-        err, tol, ms, plain_ms = check_kernel(name, args, kwargs, K)
-        nbytes, ops = work(name, args, kwargs,
-                           getattr(K, name)(*args, **kwargs))
-        bms, by = bound_ms(nbytes, ops)
-        shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-        live = {n: int((args[0 if n.startswith("brute") else 1][:, 3, :]
-                        >= RESCUE_LIVE[n]).sum())
-                for n in (name,) if n in RESCUE_LIVE}
-        log(f"kernel {name}: shapes={shapes} {live} agrees ({tol}, "
-            f"max_abs_err={err}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bms:.5f} ms ({by}: {nbytes} B, {ops} ops) [{card_line}]")
-        rows.append(dict(name=name, route="cuda",
-                         source=f"pointclouds_tpu_torch/spatial/csrc/{src}",
-                         replaces=f"{PALLAS}:{line}", max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                         bound_by=by, library_ms=None))
+    rows = [kernel_row(name, *captured[name], K, card_line)
+            for name in KERNELS if name not in PHASE8_KERNELS]
     launches_total = {name: 0 for name in KERNELS}
 
     def add(launches):
@@ -1270,6 +1426,9 @@ def main() -> int:
 
     # ── Phase 7: kNN, clustering, ICP and I/O ──
     phase7(card_line, K, add)
+
+    # ── Phase 8: the cell-grid KITTI backends, the large-cloud hop loop ──
+    rows += phase8(card_line, K, pc, kitti_mod, kdata, add)
 
     for r in rows:
         r["launches"] = launches_total[r["name"]]

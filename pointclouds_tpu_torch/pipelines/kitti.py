@@ -1,10 +1,12 @@
 """KITTI obstacle detection on torch tensors: voxel downsample -> SOR ->
 RANSAC ground plane -> ground removal -> euclidean clustering.
 
-Counterpart of `pointclouds_tpu/pipelines/kitti.py` (its sweep backend with
-the fused voxel->sweep front end). Same positional arguments, keyword
-names and defaults; scalar arguments are taken as float32, as the JAX
-pipeline receives them from its callers (numpy float32). Runs on the
+Counterpart of `pointclouds_tpu/pipelines/kitti.py`: every SOR backend
+(the sorted-window sweep and the cell-grid backends) and both voxel front
+ends (fused with the sweep ordering, and plain). Same positional
+arguments, keyword names and defaults; scalar arguments are taken as
+float32, as the JAX pipeline receives them from its callers (numpy
+float32). Runs on the
 device of ``xyz``: CUDA tensors go through the hand-written kernels, CPU
 tensors through their plain torch versions.
 """
@@ -16,9 +18,22 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.cloud import stable_argsort
-from ..ops.filters import sor_keep_mask_thr, voxel_downsample_sweep_fused
+from ..core.cloud import compaction_order, stable_argsort
+from ..ops.filters import (
+    sor_keep_mask,
+    sor_keep_mask_thr,
+    voxel_downsample_masked,
+    voxel_downsample_sweep_fused,
+)
 from ..ops.segmentation import ransac_plane_masked
+from ..spatial.cellgrid import (
+    build_cellgrid,
+    cell_graph_adjacency,
+    cell_graph_labels,
+    cell_knn_subset,
+    cell_sor_mean_dists,
+    point_sor_mean_dists,
+)
 from ..spatial.grid import scalar_like
 from ..spatial.sweep import (
     structure_from_sorted,
@@ -78,54 +93,85 @@ def kitti_obstacle_pipeline(
 ):
     """The fused KITTI pipeline on ``xyz`` f32[N, 3] / ``valid`` bool[N].
 
-    Only the sweep backend is ported: ``sor_backend`` must be "auto" or
-    "sweep". ``sor_m``, ``cluster_m``, ``sor_cell_cap`` and
-    ``cluster_cell_cap`` size the cell-grid backends and are unused here;
-    ``sor_per_seg`` and ``cluster_sweeps`` tune the TPU kernels' lane
-    certificate and sweep budget, which the exact CUDA selection and the
-    converge-until-fixpoint cluster rounds do not need.
+    ``sor_backend`` takes the reference's strings: "auto", "sweep" and
+    "sweep_xla" run the sorted-window sweep (SOR and clustering); "xla"
+    the point-centric cell-grid SOR (`cellgrid.point_sor_mean_dists`,
+    kernel ``segmented_select``); "pallas" and "pallas_interpret" the
+    cell-centric one with kernel ``sor_select``; any other string the
+    cell-centric one with the chunked selection. The cell-grid backends
+    resolve flagged points on a 4x coarser grid and cluster on the
+    collapsed cell graph (ring 2 at ``cluster_r / 2``), sized by
+    ``sor_m``, ``sor_cell_cap``, ``cluster_m`` and ``cluster_cell_cap``;
+    ``grid_flags`` carries their overflow flags. The device of ``xyz``
+    decides between the kernels and their plain versions. The fused
+    voxel->sweep front end runs for the sweep backends at an integer
+    ``sor_cell_factor`` and ``ds_cap % 128 == 0``; elsewhere the plain
+    voxel downsample, cut to ``ds_cap`` rows. ``sor_per_seg`` and
+    ``cluster_sweeps`` tune the TPU kernels' lane certificate and sweep
+    budget, which the exact selections and the converge-until-fixpoint
+    cluster rounds do not need.
     """
-    if sor_backend not in ("auto", "sweep"):
-        raise NotImplementedError(
-            f"sor_backend={sor_backend!r}: only the sweep backend is ported")
     if ds_cap is None:
         ds_cap = xyz.shape[0]
-    if not float(sor_cell_factor).is_integer() or ds_cap % 128:
-        raise NotImplementedError(
-            "only the fused voxel->sweep front end is ported (integer "
-            "sor_cell_factor, ds_cap % 128 == 0)")
+    sweep_backend = sor_backend in ("auto", "sweep", "sweep_xla")
     voxel = scalar_like(np.float32(voxel_size), xyz)
-    factor = int(sor_cell_factor)
+    false = torch.zeros((), dtype=torch.bool, device=xyz.device)
 
-    # ── Step 1: voxel downsample, rows emitted in sweep order ──────────────
-    fe = voxel_downsample_sweep_fused(xyz, valid, voxel, factor=factor,
-                                      ds_cap=ds_cap)
-    centroids, ds_valid, canon = fe["centroids"], fe["out_valid"], fe["canon"]
-    prebuilt = structure_from_sorted(
-        centroids, ds_valid, fe["slin"], fe["extent"], fe["hi_cells"],
-        fe["table_overflow"], wr=4,
-        grid_origin=(fe["mn_v"], float(np.float32(voxel_size)), factor),
-    )
+    # ── Step 1: voxel downsample ────────────────────────────────────────────
+    canon = None
+    prebuilt = None
+    if (sweep_backend and float(sor_cell_factor).is_integer()
+            and ds_cap % 128 == 0):
+        # Fused front end: rows emitted in sweep order.
+        factor = int(sor_cell_factor)
+        fe = voxel_downsample_sweep_fused(xyz, valid, voxel, factor=factor,
+                                          ds_cap=ds_cap)
+        centroids, ds_valid, canon = (fe["centroids"], fe["out_valid"],
+                                      fe["canon"])
+        ds_overflow = fe["ds_overflow"]
+        prebuilt = structure_from_sorted(
+            centroids, ds_valid, fe["slin"], fe["extent"], fe["hi_cells"],
+            fe["table_overflow"], wr=4,
+            grid_origin=(fe["mn_v"], float(np.float32(voxel_size)), factor),
+        )
+    else:
+        # Compacted centroids in ascending cell-key order, cut to ds_cap.
+        centroids_full, ds_valid_full = voxel_downsample_masked(xyz, valid,
+                                                                voxel)
+        centroids = centroids_full[:ds_cap]
+        ds_valid = ds_valid_full[:ds_cap]
+        ds_overflow = ds_valid_full[ds_cap:].any()
 
-    # ── Step 2: statistical outlier removal (two-pass sweep) ──────────────
+    # ── Step 2: statistical outlier removal ────────────────────────────────
     sor_cell = voxel * sor_cell_factor
-    mean_dists, point_ok, _, mean_lb = sweep_sor_two_pass(
-        centroids, ds_valid, sor_cell, k=sor_k, fix_cap=sor_fix_cap,
-        rescue_cells=8.0, prebuilt=prebuilt, row_cap=sor_row_cap,
-        with_lb=True,
-    )
-    cleaned_valid, sor_thr = sor_keep_mask_thr(mean_dists, ds_valid,
-                                               np.float32(sor_std))
-    # Keep-DECISION certificate: exact mean, or an upper bound that passes,
-    # or a proven lower bound above the threshold.
-    decision_ok = point_ok | cleaned_valid | (mean_lb.to(torch.float64)
-                                              > sor_thr)
-    sor_certified = (decision_ok | ~ds_valid).all()
+    if sweep_backend:
+        mean_dists, point_ok, _, mean_lb = sweep_sor_two_pass(
+            centroids, ds_valid, sor_cell, k=sor_k, fix_cap=sor_fix_cap,
+            rescue_cells=8.0, prebuilt=prebuilt, row_cap=sor_row_cap,
+            with_lb=True,
+        )
+        cleaned_valid, sor_thr = sor_keep_mask_thr(mean_dists, ds_valid,
+                                                   np.float32(sor_std))
+        # Keep-DECISION certificate: exact mean, or an upper bound that
+        # passes, or a proven lower bound above the threshold.
+        decision_ok = point_ok | cleaned_valid | (mean_lb.to(torch.float64)
+                                                  > sor_thr)
+        sor_certified = (decision_ok | ~ds_valid).all()
+        grid_flags = (false, false)
+    else:
+        mean_dists, sor_certified, grid_flags = _cellgrid_sor(
+            centroids, ds_valid, sor_cell, sor_k=sor_k, sor_m=sor_m,
+            sor_cell_cap=sor_cell_cap, sor_fix_cap=sor_fix_cap,
+            sor_backend=sor_backend)
+        cleaned_valid = sor_keep_mask(mean_dists, ds_valid,
+                                      np.float32(sor_std))
 
     # ── Step 3: RANSAC ground plane ────────────────────────────────────────
-    # Canonical mini-sort: position p -> the row holding the p-th cleaned
-    # centroid in canonical voxel order (the JAX package's sample order).
-    position_rows = _canonical_order(cleaned_valid, canon)
+    # Canonical mini-sort (fused front end): position p -> the row holding
+    # the p-th cleaned centroid in canonical voxel order (the JAX package's
+    # sample order); otherwise the rows are in that order already.
+    position_rows = (None if canon is None
+                     else _canonical_order(cleaned_valid, canon))
     normal, d, inlier_mask = ransac_plane_masked(
         centroids, cleaned_valid, ransac_thresh, int(seed), ransac_iters,
         score_subsample=ransac_subsample, position_rows=position_rows,
@@ -134,20 +180,30 @@ def kitti_obstacle_pipeline(
         adaptive=(ransac_subsample is None),
     )
 
-    # ── Step 4: ground removal + canonical-order obstacle compaction ───────
+    # ── Step 4: ground removal + obstacle compaction ───────────────────────
     obstacle_mask = cleaned_valid & ~inlier_mask
-    order = _canonical_order(obstacle_mask, canon)
+    order = (compaction_order(obstacle_mask) if canon is None
+             else _canonical_order(obstacle_mask, canon))
     obs_src = order[:obstacle_cap]
     obs_valid = obstacle_mask[obs_src]
     obs_xyz = centroids[obs_src]
     overflow = obstacle_mask.sum() > obstacle_cap
 
     # ── Step 5: euclidean clustering ───────────────────────────────────────
-    labels, cluster_exact = sweep_cluster_labels(
-        obs_xyz, obs_valid, np.float32(cluster_r), wr=cluster_wr,
-        row_cap=cluster_row_cap,
-    )
-    false = torch.zeros((), dtype=torch.bool, device=xyz.device)
+    if sweep_backend:
+        labels, cluster_exact = sweep_cluster_labels(
+            obs_xyz, obs_valid, np.float32(cluster_r), wr=cluster_wr,
+            row_cap=cluster_row_cap,
+        )
+        cluster_flags = (~cluster_exact, false)
+    else:
+        # Collapsed cell graph: cell r/2, ring 2.
+        r = scalar_like(np.float32(cluster_r), xyz)
+        cgrid = build_cellgrid(obs_xyz, obs_valid, r * 0.5,
+                               m_per_cell=cluster_m,
+                               cell_cap=cluster_cell_cap, ring=2)
+        labels = cell_graph_labels(cgrid, cell_graph_adjacency(cgrid, r))
+        cluster_flags = (cgrid.overflow, cgrid.table_overflow)
     return KittiPipelineOutput(
         centroids=centroids,
         downsampled_valid=ds_valid,
@@ -160,9 +216,43 @@ def kitti_obstacle_pipeline(
         labels=labels,
         obstacle_overflow=overflow,
         sor_certified=sor_certified,
-        grid_flags=torch.stack([false, false, ~cluster_exact, false,
-                                fe["ds_overflow"]]),
+        grid_flags=torch.stack([*grid_flags, *cluster_flags, ds_overflow]),
     )
+
+
+def _cellgrid_sor(centroids, ds_valid, sor_cell, *, sor_k: int, sor_m: int,
+                  sor_cell_cap: int, sor_fix_cap: int, sor_backend: str):
+    """The cell-grid SOR backends: pass 1 on a grid of cell ``sor_cell``
+    (point-centric for "xla", cell-centric otherwise), then the flagged
+    points (at most ``sor_fix_cap``) re-queried against a 4x coarser grid.
+    Returns (mean f32[N], sor_certified, (grid overflow, table overflow)):
+    certified only if every flagged point was resolved and no grid dropped
+    a point or a cell."""
+    grid = build_cellgrid(centroids, ds_valid, sor_cell, m_per_cell=sor_m,
+                          cell_cap=sor_cell_cap)
+    if sor_backend == "xla":
+        mean_dists, point_ok, _ = point_sor_mean_dists(
+            grid, centroids, ds_valid, k=sor_k)
+    else:
+        mean_dists, point_ok, _ = cell_sor_mean_dists(
+            grid, k=sor_k, chunk=256, backend=sor_backend)
+
+    flagged = ds_valid & ~point_ok
+    fix_rows = compaction_order(flagged)[:sor_fix_cap]
+    fix_valid = flagged[fix_rows]
+    coarse = build_cellgrid(centroids, ds_valid, sor_cell * 4.0,
+                            m_per_cell=128, cell_cap=2048)
+    fix_means, fix_ok = cell_knn_subset(coarse, centroids[fix_rows],
+                                        fix_rows.to(torch.int32), fix_valid,
+                                        k=sor_k)
+    mean_dists = mean_dists.clone()
+    mean_dists[fix_rows] = torch.where(fix_valid, fix_means,
+                                       mean_dists[fix_rows])
+    sor_certified = ((flagged.sum() <= sor_fix_cap)
+                     & (~fix_valid | fix_ok).all()
+                     & ~(grid.overflow | grid.table_overflow
+                         | coarse.overflow | coarse.table_overflow))
+    return mean_dists, sor_certified, (grid.overflow, grid.table_overflow)
 
 
 def extract_clusters(out: KittiPipelineOutput, min_size: int, max_size: int):

@@ -7,8 +7,9 @@ their helpers).
 multi-dispatch paths that the fused API ops (`ops/fusedops.py`) fall back
 to when their static rescue capacity overflows: one sweep, one host read of
 its certificate or flags, then a brute-force rescue of the flagged rows, of
-any number. Where the JAX package takes its cell-grid engine
-(`spatial/cellgrid.py`, ported last) the port takes the exact brute force.
+any number. `cluster_labels` takes the reference's cell-graph rung
+(`cellgrid.py`); where the JAX package's `knn` and radius counts take
+their cell-grid rungs (not ported) the port takes the exact brute force.
 
 On the TPU the JAX package picks the Pallas kernels or their XLA mirrors
 (`_kernel_preference`, VMEM gates) and degrades to the mirrors when a
@@ -25,6 +26,8 @@ import torch
 
 from ..ops.filters import sor_mean_dists_from_knn
 from ..ops.normals import normals_from_knn, normals_from_moment_rows
+from . import sweep
+from .cellgrid import build_cellgrid, cell_graph_adjacency, cell_graph_labels
 from .knn import bruteforce_knn, bruteforce_radius_count
 from .sweep import (
     _set_rows,
@@ -39,6 +42,8 @@ from .sweep import (
 # Below this many points the brute-force path is cheaper than a sweep (and
 # exact by construction).
 BRUTE_THRESHOLD = 2048
+# Per-cell capacities of the cell-graph rung's grid, one per try.
+M_LADDER = (16, 32, 64, 128)
 # The sweep kernels' f32 positions are exact below this many points; the
 # JAX package serves larger clouds from an int64-keyed grid engine.
 CELLGRID_MAX_N = 1 << 24
@@ -303,18 +308,22 @@ def cluster_labels(xyz, valid, radius: float, n_valid: int | None = None,
     (all rows without ``n_valid``). Invalid and non-finite points are
     singletons.
 
-    The sweep ladder first (`sweep.sweep_cluster_labels`: the flat row-list
-    walk, then the nine windows with no row cap, each exact or flagged, the
-    kernel branch's window budget on both devices); where no rung is exact
-    (or the cloud has at most 512 points), the uncapped exact all-pairs
-    propagation (`segmentation.bruteforce_cluster_labels`).
+    The reference's ladder (`pointclouds_tpu/spatial/engine.py`) on both
+    devices, each rung exact or flagged: the sweep rungs
+    (`sweep.sweep_cluster_labels`) -- up to `sweep.CLUSTER_RESIDENT_BYTES`
+    of planar rows (2^20 points) the flat row-list walk then the nine
+    windows with no row cap, above it the hop loop at window budgets 7, 14
+    and 28 rows -- then the collapsed cell-graph rung (`_cell_graph_rung`),
+    and where that cannot serve the cloud (or it has at most 512 points)
+    the uncapped exact all-pairs propagation
+    (`segmentation.bruteforce_cluster_labels`).
 
     Without ``size_filter`` returns labels whose ascending order is that of
     the components' smallest rows. With ``size_filter=(min_size,
-    max_size)`` returns (labels, filtered): from the sweep, filtered is
+    max_size)`` returns (labels, filtered): from a sweep rung, filtered is
     True and labels are surviving-component ranks with -1 on the rows of
     components outside the band (`_surviving_component_ranks`); from the
-    brute force, (raw labels, False)."""
+    other rungs, (raw labels, False)."""
     from ..ops.segmentation import bruteforce_cluster_labels
 
     n = xyz.shape[0]
@@ -324,8 +333,12 @@ def cluster_labels(xyz, valid, radius: float, n_valid: int | None = None,
                                                 * 128))
     r32 = np.float32(radius)
     if n > BRUTE_THRESHOLD // 4:
-        wr = min(max(-(-n // 128), 1), 64)
-        for row_cap in (16, None):
+        nrows = max(-(-n // 128), 1)
+        if nrows * 8 * 128 * 4 <= sweep.CLUSTER_RESIDENT_BYTES:
+            ladder = ((min(nrows, 64), 16), (min(nrows, 64), None))
+        else:
+            ladder = ((7, 16), (14, 16), (28, 16))
+        for wr, row_cap in ladder:
             # The windows rung starts at 6 rounds a burst: its resume
             # bursts extend a run that has not converged.
             labels, exact = sweep_cluster_labels(
@@ -338,5 +351,36 @@ def cluster_labels(xyz, valid, radius: float, n_valid: int | None = None,
             comp, _ = _surviving_component_ranks(labels, int(size_filter[0]),
                                                  int(size_filter[1]))
             return comp[:rows].cpu().numpy(), True
-    labels = bruteforce_cluster_labels(xyz, valid, r32)[:rows].cpu().numpy()
+    labels = _cell_graph_rung(xyz, valid, radius)
+    if labels is None:
+        labels = bruteforce_cluster_labels(xyz, valid, r32)
+    labels = labels[:rows].cpu().numpy()
     return labels if size_filter is None else (labels, False)
+
+
+def _cell_cap(n: int) -> int:
+    """Cells never outnumber points; rounded up to the chunking grain."""
+    return max(2048, -(-n // 2048) * 2048)
+
+
+def _cell_graph_rung(xyz, valid, radius: float):
+    """The collapsed cell-graph labels (`cellgrid.cell_graph_labels`) at
+    cell r/2 less the f32 margin, ring 2, growing the per-cell capacity
+    over `M_LADDER`; None where the table overflows, no capacity holds
+    every cell, or the cell would be empty."""
+    ext = _extent(xyz, valid)
+    max_abs = ext[2] if ext else 0.0
+    cell = radius * 0.5 * (1.0 - 1e-5) - max_abs * 3e-7
+    if cell <= 0:
+        return None
+    cap = _cell_cap(xyz.shape[0])
+    for m in M_LADDER:
+        grid = build_cellgrid(xyz, valid, cell, m_per_cell=m, cell_cap=cap,
+                              ring=2)
+        if bool(grid.table_overflow):  # host read: the grid's flags
+            return None
+        if bool(grid.overflow):
+            continue
+        return cell_graph_labels(
+            grid, cell_graph_adjacency(grid, np.float32(radius)))
+    return None

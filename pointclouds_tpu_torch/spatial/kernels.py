@@ -1,8 +1,9 @@
 """The port's hand-written CUDA kernels, each beside its plain torch version.
 
 Counterparts of the Pallas kernels (`pointclouds_tpu/spatial/
-pallas_kernels.py`) on the paths of the KITTI and aerial pipelines and of
-the per-op API (filters, normals, kNN, clustering, ICP). Each wrapper
+pallas_kernels.py`) on the paths of the KITTI pipeline (every SOR
+backend), the aerial pipeline and the per-op API (filters, normals, kNN,
+clustering, ICP). Each wrapper
 checks its inputs, runs
 the plain version for CPU tensors, and for CUDA tensors
 launches the kernel (built from ``csrc/`` at first use) or raises; it
@@ -38,6 +39,9 @@ LAUNCHES = {
     "brute_radius_count": 0,
     "sweep_knn_select": 0,
     "nn_argmin": 0,
+    "cluster_propagate": 0,
+    "sor_select": 0,
+    "segmented_select": 0,
 }
 
 # Blocks that share one rescue query block's group list (csrc/select.cu,
@@ -1183,3 +1187,161 @@ def nn_argmin(q_planar, cand_planar):
                 nsplit, _stream())
     LAUNCHES["nn_argmin"] += 1
     return out[0], out[1]
+
+
+# ── 16. One min-label hop over the windows (the cluster hop loop) ──────────
+
+# Label of an invalid query in a block that runs (the reference's 2^25).
+HOP_BIGLAB = 1 << 25
+
+
+def _hop_rows(starts, pad_row: int):
+    """[NB, 9 * wr] rows [start, start + length) of each block's windows
+    (the reference's hop reads no skip: a candidate read twice cannot lower
+    a minimum twice), ``pad_row`` past a window's length and for blocks
+    that do not run (no valid query, or not active). A host read: plain
+    versions only."""
+    nb = starts.shape[0]
+    run = (starts[:, 27] != 0) & (starts[:, 28] != 0)
+    ln = starts[:, 18:27, None].long()
+    wr = max(int(ln.max()) if nb else 0, 1)
+    r = torch.arange(wr, device=starts.device)
+    keep = (r < ln) & run[:, None, None]
+    rows = starts[:, :9, None].long() + r
+    return torch.where(keep, rows, pad_row).reshape(nb, 9 * wr), run
+
+
+def cluster_propagate_plain(pts_planar, labels, starts, r2):
+    nr, nb = pts_planar.shape[0], starts.shape[0]
+    dev = pts_planar.device
+    rows, run = _hop_rows(starts, nr)
+    pts = _with_pad_row(pts_planar)
+    labx = torch.cat([labels, torch.full((128,), HOP_BIGLAB,
+                                         dtype=torch.int32, device=dev)])
+    labx = labx.reshape(nr + 1, 128)
+    qlab = labels[: nb * 128]
+    best = []
+    for rs, qs, cand in _block_cands(pts[:nb], pts, rows):
+        pair = (qs[:, 3, :, None] > 0.5) & (cand[:, 3, None, :] > 0.5)
+        clab = labx[rs].reshape(rs.shape[0], 1, -1)
+        best.append(torch.where(pair & _within_r2(qs, cand, r2), clab,
+                                HOP_BIGLAB).amin(-1).reshape(-1))
+    qm = pts_planar[:nb, 3, :].reshape(-1) > 0.5
+    hop = torch.where(qm, torch.minimum(torch.cat(best), qlab), HOP_BIGLAB)
+    runq = run.repeat_interleave(128)
+    changed = runq & qm & (hop < qlab)
+    return torch.where(runq, hop, qlab), changed.to(torch.int32)
+
+
+def cluster_propagate(pts_planar, labels, starts, r2):
+    """One min-label hop over each 128-query block's nine sorted windows:
+    every valid query of a block that runs takes the smallest label among
+    its own and those of the valid candidates within ``r2`` (inclusive, d2
+    pinned to fma(dz, dz, fma(dx, dx, dy*dy))).
+
+    pts_planar f32[NR, 4, 128] (w = validity); labels i32[NR*128], every
+    planar row's current label (exact below 2^24); starts i32[NB, 29]: the
+    `_window_starts` pack plus a per-block ACTIVE column (blocks without a
+    valid query or not active pass their labels through); r2 the squared
+    radius. Returns (labels i32[NB*128], changed i32[NB*128]): an invalid
+    query of a running block gets `HOP_BIGLAB`; changed = 1 where a valid
+    query's label decreased.
+
+    Replaces `pallas_kernels.cluster_propagate` (csrc/propagate.cu)."""
+    nr, nb = pts_planar.shape[0], starts.shape[0]
+    dev = pts_planar.device
+    _check("cluster_propagate.pts", pts_planar, torch.float32, (nr, 4, 128))
+    _check("cluster_propagate.labels", labels, torch.int32, (nr * 128,), dev)
+    _check("cluster_propagate.starts", starts, torch.int32, (nb, 29), dev)
+    if nb > nr:
+        raise ValueError("cluster_propagate: more blocks than planar rows")
+    r2 = float(np.float32(r2))
+    if not _on_cuda(pts_planar):
+        return cluster_propagate_plain(pts_planar, labels, starts, r2)
+    out = torch.empty((2, nb * 128), dtype=torch.int32, device=dev)
+    _lib().call("pc_cluster_propagate", pts_planar.data_ptr(),
+                labels.data_ptr(), starts.data_ptr(), out.data_ptr(), nb, r2,
+                _stream())
+    LAUNCHES["cluster_propagate"] += 1
+    return out[0], out[1]
+
+
+# ── 17. Per-cell k+1 smallest over the 27-cell slab (cell-grid SOR) ────────
+
+
+def sor_select_plain(q, qm, cand, cv, *, k: int):
+    c, _, m = q.shape
+    ncand = cand.shape[1]
+    out = torch.zeros((3, c, m), dtype=torch.float32, device=q.device)
+    # Only cells with a valid query have anything to select (a host read).
+    cells = qm.any(dim=1).nonzero(as_tuple=True)[0]
+    step = max(1, _CHUNK_ELEMS // max(m * ncand, 1))
+    for s in range(0, cells.numel(), step):
+        at = cells[s:s + step]
+        qs, cs = q[at], cand[at]
+        d = [cs[:, None, :, i] - qs[:, i, :, None] for i in range(3)]
+        d2 = fma_f32(d[2], d[2], fma_f32(d[0], d[0], d[1] * d[1]))
+        pair = qm[at][:, :, None] & cv[at][:, None, :]
+        out[:, at] = torch.stack(_topk_stats(
+            torch.where(pair, d2, torch.inf), k + 1))
+    return out[0], out[1].to(torch.int32), out[2]
+
+
+def sor_select(q, qm, cand, cv, *, k: int):
+    """Per cell, the k+1 smallest squared distances of each of its queries
+    to the valid candidates of its gathered slab (d2 pinned to fma(dz, dz,
+    fma(dx, dx, dy*dy)), the Pallas kernel's form on the CPU).
+
+    q f32[C, 3, M] planar cell query blocks, qm bool[C, M], cand f32[C,
+    CAND, 3] candidate slabs, cv bool[C, CAND]. Returns (total f32[C, M]
+    sum of the square roots, added in ascending order; count i32[C, M];
+    kth f32[C, M] the last extracted d2, 0 if none).
+
+    Replaces `pallas_kernels.sor_select` (csrc/cellsel.cu)."""
+    c, _, m = q.shape
+    ncand = cand.shape[1]
+    dev = q.device
+    _check("sor_select.q", q, torch.float32, (c, 3, m))
+    _check("sor_select.qm", qm, torch.bool, (c, m), dev)
+    _check("sor_select.cand", cand, torch.float32, (c, ncand, 3), dev)
+    _check("sor_select.cv", cv, torch.bool, (c, ncand), dev)
+    if not _on_cuda(q):
+        return sor_select_plain(q, qm, cand, cv, k=k)
+    _check_k(k + 1)
+    total = torch.empty((c, m), dtype=torch.float32, device=dev)
+    count = torch.empty((c, m), dtype=torch.int32, device=dev)
+    kth = torch.empty((c, m), dtype=torch.float32, device=dev)
+    _lib().call("pc_sor_select", q.data_ptr(), qm.data_ptr(), cand.data_ptr(),
+                cv.data_ptr(), total.data_ptr(), count.data_ptr(),
+                kth.data_ptr(), c, m, ncand, k + 1, _stream())
+    LAUNCHES["sor_select"] += 1
+    return total, count, kth
+
+
+# ── 18. k smallest of each work row (cell-grid SOR, point-centric) ─────────
+
+
+def segmented_select_plain(work, *, k: int):
+    total, count, kth = _topk_stats(work, k)
+    return total, count, kth, torch.ones_like(total, dtype=torch.bool)
+
+
+def segmented_select(work, *, k: int):
+    """The k smallest finite values of each row of ``work`` f32[Q, W]
+    (squared distances, +inf where masked): (total f32[Q] sum of their
+    square roots, added in ascending order; count f32[Q]; kth f32[Q] the
+    last of them, 0 if none; ok bool[Q], always True: the selection is
+    exact, so it certifies every row the reference's segment certificate
+    does, with equal values).
+
+    Replaces `pallas_kernels.segmented_select` (csrc/cellsel.cu)."""
+    q, w = work.shape
+    _check("segmented_select.work", work, torch.float32, (q, w))
+    if not _on_cuda(work):
+        return segmented_select_plain(work, k=k)
+    _check_k(k)
+    out = torch.empty((4, q), dtype=torch.float32, device=work.device)
+    _lib().call("pc_segmented_select", work.data_ptr(), out.data_ptr(), q, w,
+                k, _stream())
+    LAUNCHES["segmented_select"] += 1
+    return out[0], out[1], out[2], out[3] > 0.5

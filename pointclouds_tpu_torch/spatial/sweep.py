@@ -31,6 +31,7 @@ from .grid import scalar_like
 from .kernels import (
     cluster_multisweep,
     cluster_multisweep_windows,
+    cluster_propagate,
     count_within,
     fma_f32,
     rescue_knn_idx,
@@ -45,6 +46,13 @@ from .kernels import (
 SWEEP_TABLE_SIZE = 1 << 21
 NSHIFT = 9
 RESCUE_GROUP_ROWS = 8  # candidate rows (of 128 points) per prune group
+# The reference's dispatch rule for clustering (its VMEM residency gate,
+# `pointclouds_tpu/spatial/sweep.py`): above this many bytes of an 8-channel
+# planar pack, `sweep_cluster_labels` iterates single hops (kernel
+# `cluster_propagate`) instead of the propagation rounds. The card has no
+# such limit; the port keeps the rule so that both packages run the same
+# algorithm on the same input.
+CLUSTER_RESIDENT_BYTES = 32 * 1024 * 1024  # 2^20 rows
 
 
 def _shift_offsets(extent):
@@ -550,11 +558,13 @@ def sweep_cluster_labels(xyz, valid, radius, *, wr: int = 7,
     """Euclidean-cluster labels (inclusive distance ``radius``, taken as
     float32) by min-label propagation over the cell-sorted windows.
 
-    ``row_cap=int`` walks each block's flat row list (at most ``max_iters``
-    rounds); ``row_cap=None`` walks the nine windows with no cap (the dense
+    Up to `CLUSTER_RESIDENT_BYTES` of planar rows: ``row_cap=int`` walks
+    each block's flat row list (at most ``max_iters`` rounds);
+    ``row_cap=None`` walks the nine windows with no cap (the dense
     backend), in bursts of at most ``sweeps`` rounds: a first burst, then up
     to 8 more resumed from the current labels while the last round still
-    changed any.
+    changed any. Above it, the reference's hop loop (`_hop_loop_labels`)
+    over the windows, whatever ``row_cap`` and ``sweeps``.
 
     Returns (labels i32[N], exact bool): label = smallest original row in
     the component, or with ``rep_labels=False`` a canonical component id
@@ -573,6 +583,11 @@ def sweep_cluster_labels(xyz, valid, radius, *, wr: int = 7,
     starts_skip = s["starts_skip"]
     nall = nrows * 128
     exact = s["block_ok"][:nb].all() & ~s["table_overflow"]
+    if nrows * 8 * 128 * 4 > CLUSTER_RESIDENT_BYTES:
+        labels, iters = _hop_loop_labels(planar, starts_skip, r2, nb,
+                                         max_iters)
+        exact = exact & (iters < max_iters)
+        return _cluster_epilogue(labels, s, n, nall, exact, rep_labels)
     if row_cap is not None:
         rowlist, fits = _window_row_lists(starts_skip, row_cap, nrows)
         labels, changed, _ = cluster_multisweep(
@@ -593,6 +608,50 @@ def sweep_cluster_labels(xyz, valid, radius, *, wr: int = 7,
                                                  dtype=labels.dtype,
                                                  device=labels.device)])
     return _cluster_epilogue(labels, s, n, nall, exact, rep_labels)
+
+
+def _hop_loop_labels(planar, starts_skip, r2: float, nb: int,
+                     max_iters: int):
+    """The reference's hop loop (`sweep.py` of the JAX package, its
+    `use_kernel=False` branch): each iteration one min-label hop over the
+    active blocks' windows (kernel `cluster_propagate`), a scatter-min hook
+    of every changed label into its old root, two pointer jumps, and
+    the next frontier: the blocks whose window rows hold a changed label.
+    Runs while the hop changed a label, at most ``max_iters`` iterations
+    (one host read each). Returns (labels i32[NR*128] sorted positions of
+    the component minima, iterations run)."""
+    nrows = planar.shape[0]
+    nall = nrows * 128
+    dev = planar.device
+    st = starts_skip[:, :NSHIFT]
+    lo_rows = torch.clamp(st + starts_skip[:, NSHIFT:2 * NSHIFT],
+                          max=nrows).long()
+    hi_rows = torch.clamp(st + starts_skip[:, 2 * NSHIFT:3 * NSHIFT],
+                          max=nrows).long()
+    lab = torch.arange(nall, dtype=torch.int32, device=dev)
+    active = torch.ones(nb, dtype=torch.bool, device=dev)
+    iters = 0
+    while iters < max_iters:
+        starts_it = torch.cat([starts_skip, active.to(torch.int32)[:, None]],
+                              dim=1).contiguous()
+        m, changed = cluster_propagate(planar, lab, starts_it, r2)
+        if nall > nb * 128:
+            m = torch.cat([m, lab[nb * 128:]])
+        new = torch.minimum(lab, m)
+        # Hook: each discovery also lowers its old root's label.
+        new.scatter_reduce_(0, torch.clamp(lab, 0, nall - 1).long(), m,
+                            reduce="amin")
+        for _ in range(2):
+            new = torch.minimum(new, new[torch.clamp(new, 0, nall - 1).long()])
+        diff_rows = (new != lab).reshape(nrows, 128).any(dim=1)
+        cum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                         torch.cumsum(diff_rows.to(torch.int64), 0)])
+        active = ((cum[hi_rows] - cum[lo_rows]) > 0).any(dim=1)
+        lab = new
+        iters += 1
+        if not bool(changed.any()):  # host read: the loop's condition
+            break
+    return lab, iters
 
 
 # ── kNN moments (normal estimation) ─────────────────────────────────────────

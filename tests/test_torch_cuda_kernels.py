@@ -377,3 +377,94 @@ def test_nn_argmin(dev, lattice):
     none = kernels.nn_argmin(qp, torch.zeros_like(cp))  # no valid target
     assert torch.isinf(none[0][:len(q)][served]).all()
     assert (none[1][:len(q)][served] == cp.shape[0] * 128 - 1).all()
+
+
+@pytest.mark.parametrize("active", ["all", "half"])
+def test_cluster_propagate(dev, active):
+    rng = np.random.default_rng(16)
+    xyz = (rng.random((3000, 3)) * 6).astype(np.float32)
+    t = torch.from_numpy(xyz)
+    cell = sweep.cluster_cell_size(torch.tensor(np.float32(0.4)),
+                                   t.abs().amax())
+    s = sweep._sorted_structure(t, torch.ones(3000, dtype=torch.bool), cell,
+                                7, sweep.SWEEP_TABLE_SIZE)
+    nb, nrows = s["nb"], s["nrows"]
+    lab = torch.arange(nrows * 128, dtype=torch.int32)
+    lab[rng.random(lab.shape[0]) < 0.3] //= 3
+    act = torch.ones(nb, dtype=torch.int32) if active == "all" else \
+        torch.from_numpy((rng.random(nb) < 0.5).astype(np.int32))
+    starts = torch.cat([s["starts_skip"], act[:, None]], dim=1).contiguous()
+    args = [a.to(dev) for a in (s["planar"], lab, starts)]
+    got = _count_launch("cluster_propagate",
+                        lambda: kernels.cluster_propagate(*args, 0.16))
+    want = kernels.cluster_propagate_plain(*args, float(np.float32(0.16)))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_hop_loop_gpu_equals_cpu(dev, monkeypatch):
+    monkeypatch.setattr(sweep, "CLUSTER_RESIDENT_BYTES", 0)
+    data = kitti_scene(seed=5, scale=0.05)
+    xyz = np.zeros((4096, 3), np.float32)
+    xyz[: len(data)] = data
+    valid = np.zeros(4096, bool)
+    valid[: len(data)] = True
+    lab_c, ex_c = sweep.sweep_cluster_labels(
+        torch.from_numpy(xyz), torch.from_numpy(valid), np.float32(0.8), wr=12)
+    lab_g, ex_g = _count_launch("cluster_propagate",
+                                lambda: sweep.sweep_cluster_labels(
+                                    torch.from_numpy(xyz).to(dev),
+                                    torch.from_numpy(valid).to(dev),
+                                    np.float32(0.8), wr=12))
+    assert bool(ex_c) and bool(ex_g)
+    assert torch.equal(lab_g.cpu(), lab_c)
+
+
+@pytest.mark.parametrize("m,k", [(56, 20), (8, 3), (200, 31)])
+def test_sor_select(dev, m, k):
+    rng = np.random.default_rng(m)
+    c, ncand = 40, 27 * min(m, 40)
+    q = torch.from_numpy((rng.random((c, 3, m)) * 3).astype(np.float32))
+    qm = torch.from_numpy(rng.random((c, m)) < 0.7)
+    qm[c - 5:] = False  # cells past num_cells
+    cand = torch.from_numpy((rng.random((c, ncand, 3)) * 3).astype(np.float32))
+    cv = torch.from_numpy(rng.random((c, ncand)) < 0.5)
+    args = [a.to(dev) for a in (q, qm, cand, cv)]
+    got = _count_launch("sor_select", lambda: kernels.sor_select(*args, k=k))
+    want = kernels.sor_select_plain(*args, k=k)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("w,k", [(1536, 21), (512, 32), (128, 1), (40, 5)])
+def test_segmented_select(dev, w, k):
+    rng = np.random.default_rng(w)
+    work = (rng.random((777, w)) * 9.0).astype(np.float32)
+    work[rng.random(work.shape) < 0.4] = np.inf
+    work[:3] = np.inf
+    work[5, :7] = 0.25  # ties
+    work = torch.from_numpy(work).to(dev)
+    got = _count_launch("segmented_select",
+                        lambda: kernels.segmented_select(work, k=k))
+    want = kernels.segmented_select_plain(work, k=k)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
+def test_cellgrid_pipeline_gpu_equals_cpu(dev):
+    """Both cell-grid SOR backends (kernels 17, 18) and the cell-graph
+    clustering: the card's frame equals the CPU run's."""
+    data = kitti_scene(seed=3, scale=0.1)
+    for backend, kname in (("xla", "segmented_select"),
+                           ("pallas", "sor_select")):
+        outs = []
+        for d in ("cpu", dev):
+            c = port.make_cloud_arrays(data, device=d)
+            before = kernels.LAUNCHES[kname]
+            outs.append(port.kitti_obstacle_pipeline(
+                c.xyz, c.valid, np.float32(0.15), np.float32(2.0),
+                np.float32(0.15), 7, np.float32(0.8), sor_backend=backend,
+                ransac_subsample=4096, obstacle_cap=8192))
+            assert (kernels.LAUNCHES[kname] > before) == (d == dev)
+        for a, b in zip(*outs):
+            assert torch.equal(a, b.cpu())

@@ -135,10 +135,50 @@ def test_sor_windows_pass1_matches_jax():
     assert [len(x) for x in tclusters] == [len(x) for x in jclusters]
 
 
-def test_unported_backends_raise():
-    c = port.make_cloud_arrays(_crop(3, 0.02), device="cpu")
-    for bad in (dict(sor_backend="xla"), dict(ds_cap=1000)):
-        with pytest.raises(NotImplementedError):
-            port.kitti_obstacle_pipeline(c.xyz, c.valid, *ARGS, 0,
-                                         np.float32(0.8),
-                                         **{**KW, **bad})
+@pytest.mark.parametrize("jax_kw,port_kw,scale", [
+    # The point-centric cell-grid SOR (kernel 18) and the cell-centric one
+    # (kernel 17; the reference's Pallas kernel in interpret mode), both
+    # with the coarse second pass and the cell-graph clustering.
+    (dict(sor_backend="xla"), dict(sor_backend="xla"), 0.03),
+    (dict(sor_backend="pallas_interpret"), dict(sor_backend="pallas"), 0.03),
+    # The sweep backend behind the plain voxel front end (ds_cap % 128).
+    (dict(sor_backend="sweep_xla", ds_cap=1000), dict(ds_cap=1000), 0.08),
+], ids=["xla", "pallas", "sweep-nonfused"])
+def test_unported_backends_raise(jax_kw, port_kw, scale):
+    """The backends and the front end that raised before this port now
+    match the JAX pipeline: centroids bitwise, keep sets within 1% (equal
+    where both certify every decision), the plane, the five grid flags and
+    the clusters by coordinates."""
+    kw = {**KW, "sor_cell_cap": 2048, "cluster_cell_cap": 2048}
+    data = _crop(42, scale)
+    a = jax_make_cloud(data)
+    jout = jax_pipeline(a.xyz, a.valid, *ARGS, 11, np.float32(0.8),
+                        **{**kw, **jax_kw})
+    c = port.make_cloud_arrays(data, device="cpu")
+    t = _as_np(port.kitti_obstacle_pipeline(c.xyz, c.valid, *ARGS, 11,
+                                            np.float32(0.8),
+                                            **{**kw, **port_kw}))
+    np.testing.assert_array_equal(
+        t.centroids.view(np.uint32), np.asarray(jout.centroids).view(np.uint32))
+    np.testing.assert_array_equal(t.downsampled_valid,
+                                  np.asarray(jout.downsampled_valid))
+    jk, tk = int(np.asarray(jout.cleaned_valid).sum()), int(t.cleaned_valid.sum())
+    assert abs(jk - tk) <= max(3, jk // 100)
+    # Both cell-centric selections are exact: equal means, equal keep sets.
+    if port_kw.get("sor_backend") == "pallas" or (
+            bool(jout.sor_certified) and bool(t.sor_certified)):
+        np.testing.assert_array_equal(t.cleaned_valid,
+                                      np.asarray(jout.cleaned_valid))
+    assert bool(t.sor_certified) == bool(jout.sor_certified)
+    dot = abs(float(np.dot(np.asarray(jout.plane_normal, np.float64),
+                           t.plane_normal.astype(np.float64))))
+    assert dot > 0.999999
+    np.testing.assert_array_equal(t.grid_flags, np.asarray(jout.grid_flags))
+    # Every component, singletons too (ds_cap=1000 keeps a thin slice).
+    tclusters = port.extract_clusters(_wrap(t), 1, 20_000)
+    jclusters = jax_extract(jout, 1, 20_000)
+    assert len(tclusters) >= 3
+    assert [len(x) for x in tclusters] == [len(x) for x in jclusters]
+    for tp, jp in zip(_cluster_points(t, tclusters),
+                      _cluster_points(jout, jclusters)):
+        np.testing.assert_array_equal(tp, jp)
