@@ -80,10 +80,23 @@ limit, and as its last line {"ok": true, "device": {...}}. Any failure
 raises (exit != 0); without a CUDA device it exits non-zero before
 measuring anything. Long output (build log, phase 6's numbers) goes to
 chiprun_out/.
+
+    python3 chip_smoke.py --ab DIR [DIR ...]
+
+compares this checkout with others (each DIR an unpacked checkout, e.g.
+`git archive` of an earlier commit) on the same card instead: it captures
+the inputs that the KITTI sweep frame (RANSAC seed 0) and the SOR op on
+the noisy 100K cloud give their kernels, then runs the trees in the order
+DIR..., this, this, ...DIR (so that drift on the card shows), each in a
+fresh process that builds its own kernels: each kernel against its plain
+version at the captured inputs (as phase 2) and timed with CUDA events,
+the KITTI frame p50 and stage medians (as phase 3), the SOR op p50. Each
+tree's ptxas log and numbers go to chiprun_out/ab.json.
 """
 
 from __future__ import annotations
 
+import argparse
 import importlib
 import json
 import subprocess
@@ -167,6 +180,9 @@ PATHS = {
     "kitti_pallas": ["segmented_scan_sums", "sor_select", "segmented_select"],
     "cluster_large": ["cluster_propagate"],
 }
+KITTI_STAGES = ["voxel_downsample_sweep_fused", "structure_from_sorted",
+                "sweep_sor_two_pass", "sor_keep_mask_thr",
+                "ransac_plane_masked", "sweep_cluster_labels"]
 SEEDS = range(5)
 KITTI_FRAMES = 20
 AERIAL_FRAMES = 10
@@ -339,6 +355,32 @@ def check_kernel(name, args, kwargs, K):
     return err, tol, ms, plain_ms
 
 
+def select_work(name, args, kwargs) -> str:
+    """What the SOR selection kernels see at these inputs: live query
+    blocks, valid queries, and the rows (pass 1) or active 8-row groups
+    (pass 2) each live block walks."""
+    if name == "sweep_select_rows":
+        pts, rl, cap = args[0], args[1], kwargs["cap"]
+        live = rl[:, cap] != 0
+        rows = rl[live, cap + 1].clamp(max=cap).float()
+        valid = int((pts[:rl.shape[0], 3] > 0.5).sum())
+        return (f"{int(live.sum())} of {rl.shape[0]} blocks live, {valid} "
+                f"valid queries, rows per live block max "
+                f"{int(rows.max()) if rows.numel() else 0} mean "
+                f"{float(rows.mean()) if rows.numel() else 0.0:.2f}")
+    if name == "rescue_select":
+        q, active = args[1], args[2]
+        live = (q[:, 3] > 0.5).any(dim=1)
+        groups = active[live, 0].float()
+        mx, med = ((int(groups.max()), float(groups.median()))
+                   if groups.numel() else (0, 0.0))
+        return (f"{int(live.sum())} of {q.shape[0]} query blocks live, "
+                f"{int((q[:, 3] > 0.5).sum())} valid queries, active groups "
+                f"per live block max {mx} median {med:g} (total "
+                f"{int(groups.sum())})")
+    return ""
+
+
 def kernel_row(name, args, kwargs, K, card_line, library=None):
     """Check one kernel against its plain version, time both and bound it;
     ``library``: one PyTorch call computing the same function, timed as a
@@ -352,7 +394,9 @@ def kernel_row(name, args, kwargs, K, card_line, library=None):
     live = {n: int((args[0 if n.startswith("brute") else 1][:, 3, :]
                     >= RESCUE_LIVE[n]).sum())
             for n in (name,) if n in RESCUE_LIVE}
-    log(f"kernel {name}: shapes={shapes} {live} agrees ({tol}, "
+    seen = select_work(name, args, kwargs)
+    log(f"kernel {name}: shapes={shapes} {live}{f' ({seen})' if seen else ''}"
+        f" agrees ({tol}, "
         f"max_abs_err={err}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bms:.5f} ms ({by}: {nbytes} B, {ops} ops), library "
         f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} [{card_line}]")
@@ -400,6 +444,8 @@ def path_launches(K, name, run):
 
 
 def timed_frames(run, frames, mod, stages, card_line, what):
+    """Frame p50 (host clock ending in a synchronize) and each stage's
+    median (CUDA events); logs both and returns (stages, p50)."""
     times = []
     spy, read = stage_timer(mod, stages)
     with spy:
@@ -411,9 +457,10 @@ def timed_frames(run, frames, mod, stages, card_line, what):
         st = read()
     log(f"{what} stage ms (median, CUDA events): " + ", ".join(
         f"{s}={v:.3f}" for s, v in st.items()) + f" [{card_line}]")
-    log(f"{what} frame p50 {float(np.percentile(times, 50)):.3f} ms over "
-        f"{frames} frames (min {min(times):.3f}, max {max(times):.3f}) "
-        f"[{card_line}]")
+    p50 = float(np.percentile(times, 50))
+    log(f"{what} frame p50 {p50:.3f} ms over {frames} frames (min "
+        f"{min(times):.3f}, max {max(times):.3f}) [{card_line}]")
+    return st, p50
 
 
 # ── Bounds: the least time the card could take for a kernel's work ─────────
@@ -1214,10 +1261,104 @@ def phase8(card_line, K, pc, kitti_mod, kdata, add):
     return rows
 
 
+# ── A/B: this checkout's kernels and frame against other checkouts' ──────
+
+AB_INPUTS = ROOT / "build" / "chip_smoke_ab" / "inputs.pt"
+
+
+def ab_capture(path: Path) -> None:
+    import pointclouds_tpu_torch as pc
+    from pointclouds_tpu_torch import api
+    from pointclouds_tpu_torch.pipelines.scenes import velodyne_scene
+
+    kdata = velodyne_scene(seed=0, n_points=KITTI_POINTS)
+    noisy = api.PointCloud.from_numpy(noisy_cloud(NOISY_BOX))
+    sets = {
+        "kitti": capture_inputs(lambda: run_kitti(pc, kdata, 0, "cuda"),
+                                PATHS["kitti"]),
+        "sor noisy 100K": capture_inputs(
+            lambda: api.statistical_outlier_removal(noisy, 10, 2.0),
+            PATHS["sor"]),
+    }
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(sets, path)
+
+
+def ab_child(tree: Path, inputs: Path) -> dict:
+    """One checkout's numbers, in a process whose package is ``tree``'s."""
+    sys.path.insert(0, str(tree))
+    import pointclouds_tpu_torch as pc
+    from pointclouds_tpu_torch import api
+    from pointclouds_tpu_torch.pipelines import kitti as kitti_mod
+    from pointclouds_tpu_torch.pipelines.scenes import velodyne_scene
+    from pointclouds_tpu_torch.spatial import _build
+    from pointclouds_tpu_torch.spatial import kernels as K
+
+    if not Path(K.__file__).resolve().is_relative_to(tree):
+        raise RuntimeError(f"{K.__file__} is not from {tree}")
+    card_line = card()
+    lib = _build.library()
+    res = dict(tree=str(tree), build_s=lib.build_seconds, ptxas=[
+        line.strip() for line in lib.log.splitlines()
+        if any(w in line for w in ("entry function", "registers", "spill"))],
+        kernels={})
+    for label, captured in torch.load(inputs, weights_only=False).items():
+        for name, (args, kwargs) in captured.items():
+            res["kernels"][f"{name} {label}"] = check_kernel(
+                name, args, kwargs, K)[2]
+    kdata = velodyne_scene(seed=0, n_points=KITTI_POINTS)
+    kcloud = pc.make_cloud_arrays(kdata, device="cuda")
+    run_kitti(pc, kdata, 0, cloud=kcloud)
+    res["stages"], res["frame_p50_ms"] = timed_frames(
+        lambda f: run_kitti(pc, kdata, f, cloud=kcloud), KITTI_FRAMES,
+        kitti_mod, KITTI_STAGES, card_line, "kitti")
+    noisy = api.PointCloud.from_numpy(noisy_cloud(NOISY_BOX))
+    res["sor_op_p50_ms"] = p50_ms(
+        lambda: api.statistical_outlier_removal(noisy, 10, 2.0))[0]
+    return res
+
+
+def ab_main(others) -> int:
+    card_line = card()
+    ab_capture(AB_INPUTS)
+    others = [d.resolve() for d in others]
+    runs = []
+    for tree in [*others, ROOT, ROOT, *reversed(others)]:
+        out = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--ab-child",
+             str(tree), str(AB_INPUTS)], capture_output=True, text=True)
+        if out.returncode != 0:
+            print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"A/B run of {tree} failed")
+        r = json.loads(out.stdout.strip().splitlines()[-1])
+        runs.append(r)
+        log(f"ab {tree}: build {r['build_s']:.1f} s; " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r["kernels"].items()) + " ms; "
+            f"sweep_sor_two_pass {r['stages']['sweep_sor_two_pass']:.3f} ms, "
+            f"KITTI frame p50 {r['frame_p50_ms']:.3f} ms, SOR noisy 100K op "
+            f"p50 {r['sor_op_p50_ms']:.3f} ms [{card_line}]")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "ab.json").write_text(json.dumps(
+        dict(card=card_line, runs=runs), indent=1))
+    log(card_line)
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Smoke test of the port on "
+                                 "one NVIDIA GPU.")
+    ap.add_argument("--ab", nargs="+", type=Path, metavar="DIR",
+                    help="compare with these unpacked checkouts instead")
+    ap.add_argument("--ab-child", nargs=2, type=Path, help=argparse.SUPPRESS)
+    a = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if a.ab_child:
+        print(json.dumps(ab_child(*a.ab_child)))
+        return 0
+    if a.ab:
+        return ab_main(a.ab)
     t_start = time.perf_counter()
     import pointclouds_tpu_torch as pc
     from pointclouds_tpu_torch.pipelines import aerial as aerial_mod
@@ -1325,11 +1466,7 @@ def main() -> int:
             raise AssertionError(f"kitti seed {seed}: clusters differ")
     kcloud = pc.make_cloud_arrays(kdata, device="cuda")
     timed_frames(lambda f: run_kitti(pc, kdata, f, cloud=kcloud),
-                 KITTI_FRAMES, kitti_mod,
-                 ["voxel_downsample_sweep_fused", "structure_from_sorted",
-                  "sweep_sor_two_pass", "sor_keep_mask_thr",
-                  "ransac_plane_masked", "sweep_cluster_labels"],
-                 card_line, "kitti")
+                 KITTI_FRAMES, kitti_mod, KITTI_STAGES, card_line, "kitti")
 
     # ── Phase 4: aerial end to end ──
     rounds = []

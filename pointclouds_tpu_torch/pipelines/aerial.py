@@ -73,12 +73,13 @@ def aerial_pipeline(
     (ignored when ``normals_cell_factor`` gives it as a whole number of
     voxels: the voxel output is then emitted in sweep order and the
     moments sweep reuses that sort). ``normals_rescue`` re-resolves the
-    uncertified rows by the exact pruned rescue. Only the sweep backend is
-    ported: ``backend`` must be "auto" or "sweep".
+    uncertified rows by the exact pruned rescue. ``backend`` is dispatched
+    as the JAX package's: "auto", "sweep" and "sweep_xla" run as one (the
+    port has no kernel/XLA-mirror split: tensors on the card run the
+    kernels, CPU tensors their plain versions) and may take the fused
+    voxel front end; any other string takes the plain voxel front end.
     """
-    if backend not in ("auto", "sweep"):
-        raise NotImplementedError(
-            f"backend={backend!r}: only the sweep backend is ported")
+    fused_front = backend in ("auto", "sweep", "sweep_xla")
     voxel = scalar_like(np.float32(voxel_size), xyz)
     if ds_cap is None:
         ds_cap = xyz.shape[0]
@@ -86,8 +87,8 @@ def aerial_pipeline(
 
     # ── Step 1: voxel downsample ──
     prebuilt = None
-    if (normals_cell_factor is not None and not normals_rescue
-            and ds_cap % 128 == 0):
+    if (fused_front and normals_cell_factor is not None
+            and not normals_rescue and ds_cap % 128 == 0):
         fe = voxel_downsample_sweep_fused(xyz, valid, voxel,
                                           factor=normals_cell_factor,
                                           ds_cap=ds_cap)

@@ -35,8 +35,7 @@ _SIGNATURES = {
     "pc_segscan5": ([_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
                     _I),
     "pc_sweep_select_rows": ([_P, _P, _P, _I, _I, _I, _P], _I),
-    "pc_rescue_select": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-                         _I),
+    "pc_rescue_select": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "pc_cluster_round": ([_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P],
                          _I),
     "pc_ransac_score_counts": ([_P, _P, _P, _P, _I, _I, _P], _I),

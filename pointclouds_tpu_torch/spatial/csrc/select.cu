@@ -12,24 +12,36 @@
 //     8-row candidate groups in each block's AABB-pruned active list (pass 2).
 //
 // The TPU kernels keep per-lane-segment finalists (a lane trick) and certify
-// them; here each thread owns one query and keeps an exact sorted top-k in
-// registers, so the result is always exact and `ok` is always 1. Outputs per
-// query: total = sum of sqrt(d2) over the k smallest, added in ascending
-// order (the TPU kernel's extraction order, so the f32 sum is bitwise the
-// same), count = number extracted, kth = the last extracted d2 (0 if none).
+// them; here every query gets an exact k smallest, so `ok` is always 1.
+// Outputs per query: total = sum of sqrt(d2) over the k smallest, added in
+// ascending order (the TPU kernel's extraction order, so the f32 sum is
+// bitwise the same), count = number extracted, kth = the last extracted d2
+// (0 if none). They depend on the multiset of the k smallest alone, so any
+// visiting order or partition of the candidates gives the same bits.
 //
-// Design: one block of 128 threads per query block. Each candidate row (128
-// points, 2 KB) is staged in shared memory by the block, then every thread
-// scans it. Bound on Hopper: the per-pair d2 + compare work, not memory:
-// each staged row is reused by all 128 queries, and insertions are rare
-// after the first k candidates. Pass 1 has ~768 query blocks, enough to
-// fill the card; the windows walk (sweep_select) has one block per 128
-// sorted points too (1,024 at 131,072 rows), each walking at most 9 * wr
-// rows (wr <= 16). Pass 2 has only fix_cap/128 (32) blocks, each walking up
-// to every group of the cloud, so its group list is split over `nsplit`
-// blocks per query block, each keeping a partial top-k, and a second
-// kernel merges the partial lists (the k smallest of their union).
-#include "topk.cuh"
+// Bound on Hopper: the per-pair d2 + compare work (operations), not memory:
+// each staged row is reused by every query of its block.
+//
+// sweep_select_rows and rescue_select (the KITTI frame's SOR passes) are
+// warp-cooperative (warpselect.cuh): S warps per query (each walking every
+// S-th row of each tile, their lists merged in shared memory at the end),
+// W warps per CTA = W / S queries of one 128-query block, sharing a
+// cp.async staging of the block's candidate rows in a ring of three 8-row
+// tiles (pass 1: its row list; pass 2: its active 8-row groups). A first
+// walk takes a bound from each lane's two smallest d2; in the second most
+// candidates cost one d2 and, per row, one vote against the warp's
+// threshold, and the few insertions are shared by the warp instead of run
+// per thread under divergence. Pass 2 has no split over blocks, no partial
+// lists in device memory and no merge kernel: its fix_cap queries are
+// fix_cap * S warps (16,384 at the KITTI bench frame), so its critical
+// path is the longest active list (91 of the 96 groups there) walked by
+// 32 * S lanes. W and S were tuned on the H100 at the KITTI bench inputs
+// (below; PERF.md has the table).
+//
+// sweep_select (kernel 9) keeps the per-thread design: one block of 128
+// threads per query block, each thread an exact sorted top-k in registers
+// (topk.cuh), each candidate row staged in shared memory by the block.
+#include "warpselect.cuh"
 
 namespace {
 
@@ -48,27 +60,45 @@ __device__ void store_topk(const TopK& tk, float* out, long long stride,
   out[3 * stride + q] = 1.0f;
 }
 
+// CTAs per 128-query block: each serves W / S of its queries.
+__host__ __device__ constexpr int ctas_per_block(int w, int s) {
+  return kLanes / (w / s);
+}
+
 // pts: [nr + 1, 4, 128] (pad row nr all-masked); rowlist: [nb, cap + 2]
-// (row ids, block-valid flag, true row count). Query block b = row b.
-__global__ void sweep_select_rows_kernel(const float* __restrict__ pts,
-                                         const int* __restrict__ rowlist,
-                                         float* __restrict__ out, int nb,
-                                         int cap, int k) {
-  __shared__ float sh[kRowFloats];
-  const int b = blockIdx.x;
-  const int l = threadIdx.x;
+// (row ids, block-valid flag, true row count). Query block b = row b; CTA
+// i serves its queries (i % kPer) * (W / S) + warp / S.
+struct ListRows {
+  const int* rl;
+  __device__ long long operator()(int t) const { return rl[t]; }
+};
+
+template <int W, int S>
+__global__ void __launch_bounds__(W * 32)
+    sweep_select_rows_kernel(const float* __restrict__ pts,
+                             const int* __restrict__ rowlist,
+                             float* __restrict__ out, int nb, int cap,
+                             int k) {
+  __shared__ __align__(16) float sh[kStages * kTileFloats];
+  constexpr int kPer = ctas_per_block(W, S);
+  const int b = blockIdx.x / kPer;
+  const int warp = threadIdx.x / 32;
+  const int qi = (blockIdx.x % kPer) * (W / S) + warp / S;
   const int* rl = rowlist + (long long)b * (cap + 2);
   const float* q = pts + (long long)b * kRowFloats;
-  float qx = q[l], qy = q[kLanes + l], qz = q[2 * kLanes + l];
-  bool qv = q[3 * kLanes + l] > 0.5f;
-  TopK tk;
-  tk.init();
-  if (rl[cap] != 0) {
-    int nrows = min(rl[cap + 1], cap);
-    for (int t = 0; t < nrows; ++t)
-      visit_row(pts, rl[t], sh, qx, qy, qz, qv, tk, k);
+  const bool walk = rl[cap] != 0;
+  const bool live = walk && q[3 * kLanes + qi] > 0.5f;
+  WarpKSmallest sel;
+  sel.init(k, threadIdx.x & 31);
+  if (__syncthreads_or(live)) {
+    select_rows<W * 32, S>(pts, ListRows{rl},
+                           walk ? min(rl[cap + 1], cap) : 0, sh, q[qi],
+                           q[kLanes + qi], q[2 * kLanes + qi], live,
+                           warp % S, sel);
+    merge_slices<S>(sh, sel);
   }
-  store_topk(tk, out, (long long)nb * kLanes, (long long)b * kLanes + l, k);
+  if (warp % S == 0)
+    sel.store(out, (long long)nb * kLanes, (long long)b * kLanes + qi);
 }
 
 // pts: [nr, 4, 128]; starts: [nb, 28] (the window pack). Query block b =
@@ -97,58 +127,53 @@ __global__ void sweep_select_kernel(const float* __restrict__ pts,
 
 // cand: [nr, 4, 128]; q: [qb, 4, 128]; active: [qb, 1 + ng] (count, then
 // ascending group ids; entries past the count are garbage and never read).
-// Block (b, s) walks groups s, s + nsplit, ... of query block b's list and
-// writes its partial top-k to part[s][i][q] (inf-padded).
-__global__ void rescue_partial_kernel(const float* __restrict__ cand,
-                                      const float* __restrict__ qpl,
-                                      const int* __restrict__ active,
-                                      float* __restrict__ part, int qb,
-                                      int ng1, int gr, int k) {
-  __shared__ float sh[kRowFloats];
-  __shared__ int any_valid;
-  const int b = blockIdx.x;
-  const int split = blockIdx.y;
-  const int nsplit = gridDim.y;
-  const int l = threadIdx.x;
-  const float* q = qpl + (long long)b * kRowFloats;
-  float qx = q[l], qy = q[kLanes + l], qz = q[2 * kLanes + l];
-  bool qv = q[3 * kLanes + l] > 0.5f;
-  if (l == 0) any_valid = 0;
-  __syncthreads();
-  if (qv) any_valid = 1;
-  __syncthreads();
-  TopK tk;
-  tk.init();
-  if (any_valid) {
-    const int* act = active + (long long)b * ng1;
-    int ngroups = act[0];
-    for (int t = split; t < ngroups; t += nsplit) {
-      long long base = (long long)act[1 + t] * gr;
-      for (int r = 0; r < gr; ++r)
-        visit_row(cand, base + r, sh, qx, qy, qz, qv, tk, k);
-    }
+// CTA i serves queries (i % kPer) * (W / S) + warp / S of block i / kPer,
+// together walking every row of the block's active groups.
+struct GroupRows {
+  const int* act;
+  int gr;
+  // The pipelines' 8-row groups take no division: 40 registers against
+  // 54 with it, so 3 CTAs of 512 threads fit an SM instead of 2 (PERF.md).
+  __device__ long long operator()(int t) const {
+    if (gr == kTileRows)
+      return (long long)act[1 + t / kTileRows] * kTileRows + t % kTileRows;
+    return (long long)act[1 + t / gr] * gr + t % gr;
   }
-  const long long nq = (long long)qb * kLanes;
-  const long long qi = (long long)b * kLanes + l;
-#pragma unroll
-  for (int i = 0; i < kMaxK; ++i)
-    if (i < k) part[((long long)split * k + i) * nq + qi] = tk.r[i];
+};
+
+template <int W, int S>
+__global__ void __launch_bounds__(W * 32)
+    rescue_select_kernel(const float* __restrict__ cand,
+                         const float* __restrict__ qpl,
+                         const int* __restrict__ active,
+                         float* __restrict__ out, int qb, int ng1, int gr,
+                         int k) {
+  __shared__ __align__(16) float sh[kStages * kTileFloats];
+  constexpr int kPer = ctas_per_block(W, S);
+  const int b = blockIdx.x / kPer;
+  const int warp = threadIdx.x / 32;
+  const int qi = (blockIdx.x % kPer) * (W / S) + warp / S;
+  const float* q = qpl + (long long)b * kRowFloats;
+  const int* act = active + (long long)b * ng1;
+  const bool live = q[3 * kLanes + qi] > 0.5f;
+  WarpKSmallest sel;
+  sel.init(k, threadIdx.x & 31);
+  if (__syncthreads_or(live)) {
+    select_rows<W * 32, S>(cand, GroupRows{act, gr}, act[0] * gr, sh, q[qi],
+                           q[kLanes + qi], q[2 * kLanes + qi], live,
+                           warp % S, sel);
+    merge_slices<S>(sh, sel);
+  }
+  if (warp % S == 0)
+    sel.store(out, (long long)qb * kLanes, (long long)b * kLanes + qi);
 }
 
-// One thread per query: merge the nsplit partial top-k lists (the k
-// smallest of their union are the k smallest overall) and store.
-__global__ void rescue_merge_kernel(const float* __restrict__ part,
-                                    float* __restrict__ out, long long nq,
-                                    int nsplit, int k) {
-  long long qi = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (qi >= nq) return;
-  TopK tk;
-  tk.init();
-  for (int s = 0; s < nsplit; ++s)
-    for (int i = 0; i < k; ++i)
-      tk.push(part[((long long)s * k + i) * nq + qi], k);
-  store_topk(tk, out, nq, qi, k);
-}
+// (warps per CTA, warps per query), tuned on the H100 at the KITTI bench
+// inputs, W over {4, 8, 16, 32}, then S over {1, 2, 4} at W 8 and 16
+// (PERF.md): pass 1's many short walks want one warp a query, pass 2's
+// one long active list four.
+constexpr int kRowsWarps = 8, kRowsSlices = 1;
+constexpr int kRescueWarps = 16, kRescueSlices = 4;
 
 }  // namespace
 
@@ -158,9 +183,10 @@ extern "C" int pc_sweep_select_rows(const float* pts, const int* rowlist,
                                     float* out, int nb, int cap, int k,
                                     void* stream) {
   if (nb > 0)
-    sweep_select_rows_kernel<<<nb, kLanes, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        pts, rowlist, out, nb, cap, k);
+    sweep_select_rows_kernel<kRowsWarps, kRowsSlices>
+        <<<nb * ctas_per_block(kRowsWarps, kRowsSlices), kRowsWarps * 32, 0,
+           static_cast<cudaStream_t>(stream)>>>(pts, rowlist, out, nb, cap,
+                                                k);
   return (int)cudaGetLastError();
 }
 
@@ -172,19 +198,13 @@ extern "C" int pc_sweep_select(const float* pts, const int* starts,
   return (int)cudaGetLastError();
 }
 
-// part: scratch of nsplit * k * qb * 128 floats.
 extern "C" int pc_rescue_select(const float* cand, const float* q,
-                                const int* active, float* part, float* out,
-                                int qb, int ng1, int gr, int k, int nsplit,
-                                void* stream) {
-  if (qb == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  rescue_partial_kernel<<<dim3(qb, nsplit), kLanes, 0, s>>>(
-      cand, q, active, part, qb, ng1, gr, k);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  long long nq = (long long)qb * kLanes;
-  rescue_merge_kernel<<<(unsigned)((nq + 127) / 128), 128, 0, s>>>(
-      part, out, nq, nsplit, k);
+                                const int* active, float* out, int qb,
+                                int ng1, int gr, int k, void* stream) {
+  if (qb > 0)
+    rescue_select_kernel<kRescueWarps, kRescueSlices>
+        <<<qb * ctas_per_block(kRescueWarps, kRescueSlices),
+           kRescueWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+            cand, q, active, out, qb, ng1, gr, k);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,293 @@
+// Warp-cooperative exact k-smallest selection (k <= 32) for Hopper: one
+// warp serves one query, all the warps of a CTA read one shared staging of
+// their query block's candidate rows.
+//
+// The selection builds on FAISS's WarpSelect (Johnson, Douze and Jegou,
+// "Billion-scale similarity search with GPUs", 2017): lane i of the warp
+// holds the i-th smallest value offered so far (a warp-wide list of 32,
+// ascending by lane, +inf padded), and tau = entry k-1 (read with one
+// shuffle; capped by a bound from a first walk, see select_rows) is the
+// threshold a candidate must beat. Each lane computes the d2 of four
+// candidates of each staged row (128); a candidate enters only if d2 <
+// tau (a value equal to entry k-1 cannot change the multiset of the k
+// smallest, so skipping it is exact). Per 32-candidate step, a ballot of
+// the accepted lanes: a few are inserted one at a time (shuffle-up shift
+// of the list, tau refreshed after each); many (more than kBulk) are
+// sorted across the warp and merged into the list at once (bitonic, over
+// shuffles). WarpSelect's per-lane thread queues of 2 or 4 values, merged
+// when a ballot shows one full, measured slower on both passes at the
+// KITTI bench inputs (PERF.md). The list ends as the exact 32 smallest of
+// everything below the final tau, so its first k entries are the k
+// smallest offered values.
+#pragma once
+#include "topk.cuh"
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Candidate rows staged per tile (2 KB each), in a ring of kStages tiles
+// (48 KB): while one is read, the next kStages - 1 are in flight.
+constexpr int kTileRows = 8;
+constexpr int kTileFloats = kTileRows * kRowFloats;
+constexpr int kStages = 3;
+// Accepted values in one step above which they are sorted and merged all
+// at once instead of inserted one by one.
+constexpr int kBulk = 8;
+
+// Compare-exchange with the lane `stride` away: keep the min or the max.
+__device__ __forceinline__ float cmpx(float x, int stride, bool keep_min) {
+  const float y = __shfl_xor_sync(kFullMask, x, stride);
+  return keep_min ? fminf(x, y) : fmaxf(x, y);
+}
+
+// Bitonic sort of one value per lane, ascending by lane.
+__device__ __forceinline__ float warp_sort(float x, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const bool asc = (lane & size) == 0;  // always true at size 32
+      x = cmpx(x, stride, ((lane & stride) == 0) == asc);
+    }
+  }
+  return x;
+}
+
+// `list` and `s` ascending by lane: returns the 32 smallest of both,
+// ascending. min(list[i], s[31 - i]) holds them as a bitonic sequence,
+// which the half-cleaners sort.
+__device__ __forceinline__ float warp_merge(float list, float s, int lane) {
+  float m = fminf(list, __shfl_sync(kFullMask, s, 31 - lane));
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1)
+    m = cmpx(m, stride, (lane & stride) == 0);
+  return m;
+}
+
+struct WarpKSmallest {
+  float list;   // this lane's entry of the 32 smallest (ascending by lane)
+  float tau;    // min(entry k-1, bound), the same on every lane
+  float bound;  // from set_bound: values at or above it cannot be needed
+  int k, lane;
+
+  __device__ void init(int k_, int lane_) {
+    k = k_;
+    lane = lane_;
+    list = kInf;
+    tau = kInf;
+    bound = kInf;
+  }
+
+  __device__ __forceinline__ void refresh() {
+    tau = fminf(__shfl_sync(kFullMask, list, k - 1), bound);
+  }
+
+  // `m1` <= `m2`: the two smallest d2 among this lane's candidates. The
+  // k-th smallest of these 64 values is the k-th smallest of 64 real
+  // candidates, so it is at or above the k-th smallest of all: values
+  // above it cannot enter, values equal to it may (+inf when fewer than k
+  // candidates were seen). The whole warp calls this.
+  __device__ void set_bound(float m1, float m2) {
+    const float s = warp_merge(warp_sort(m1, lane), warp_sort(m2, lane), lane);
+    bound = nextafterf(__shfl_sync(kFullMask, s, k - 1), kInf);
+    refresh();
+  }
+
+  // The warp offers 32 candidates, one per lane (+inf: none).
+  __device__ __forceinline__ void offer(float d) {
+    const bool acc = d < tau;
+    unsigned m = __ballot_sync(kFullMask, acc);
+    if (m == 0) return;
+    if (__popc(m) > kBulk) {
+      list = warp_merge(list, warp_sort(acc ? d : kInf, lane), lane);
+      refresh();
+      return;
+    }
+    do {
+      const int src = __ffs(m) - 1;
+      m &= m - 1;
+      const float v = __shfl_sync(kFullMask, d, src);
+      if (v < tau) {  // warp-uniform
+        const int pos = __popc(__ballot_sync(kFullMask, list < v));
+        const float up = __shfl_up_sync(kFullMask, list, 1);
+        list = lane > pos ? up : (lane == pos ? v : list);
+        refresh();
+      }
+    } while (m);
+  }
+
+  // Lane 0 stores (total, count, kth, ok = 1) of the k smallest at column
+  // `col` of out [4, stride]: total adds sqrt of each finite value in
+  // ascending order (as `store_topk`), count the finite ones, kth the last
+  // of them (0 if none).
+  __device__ void store(float* out, long long stride, long long col) {
+    const float root = sqrtf(fmaxf(list, 0.0f));  // each lane its own entry
+    float total = 0.0f, count = 0.0f, kth = 0.0f;
+    for (int i = 0; i < k; ++i) {
+      const float v = __shfl_sync(kFullMask, list, i);
+      const float r = __shfl_sync(kFullMask, root, i);
+      if (v < kInf) {
+        total = __fadd_rn(total, r);
+        count = __fadd_rn(count, 1.0f);
+        kth = v;
+      }
+    }
+    if (lane == 0) {
+      out[col] = total;
+      out[stride + col] = count;
+      out[2 * stride + col] = kth;
+      out[3 * stride + col] = 1.0f;
+    }
+  }
+};
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The d2 to the query of four candidates of staged row `s` (+inf where
+// masked): candidates lane + 32 u (kStrided: a lane's four lie apart in
+// the sorted row, so a query's nearest spread over the lanes) or 4 lane + u
+// (one 16-byte load per channel). Every load and d2 is unconditional, so
+// the four run side by side (a masked branch would serialise them).
+template <bool kStrided>
+__device__ __forceinline__ void row_d2(const float* s, int lane, float qx,
+                                       float qy, float qz, float d[4]) {
+  float x[4], y[4], z[4], w[4];
+  if (kStrided) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = u * 32 + lane;
+      x[u] = s[j];
+      y[u] = s[kLanes + j];
+      z[u] = s[2 * kLanes + j];
+      w[u] = s[3 * kLanes + j];
+    }
+  } else {
+    const float4* v = reinterpret_cast<const float4*>(s);
+    const float4 a = v[lane], b = v[32 + lane], c = v[64 + lane],
+                 e = v[96 + lane];
+    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+    y[0] = b.x, y[1] = b.y, y[2] = b.z, y[3] = b.w;
+    z[0] = c.x, z[1] = c.y, z[2] = c.z, z[3] = c.w;
+    w[0] = e.x, w[1] = e.y, w[2] = e.z, w[3] = e.w;
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    d[u] = w[u] > 0.5f ? d2_rn(qx, qy, qz, x[u], y[u], z[u]) : kInf;
+}
+
+// Walk `nrows` planar rows of `pts` (the t-th is row_at(t)) in tiles of
+// kTileRows staged into the ring `sh` [kStages * kTileFloats] by cp.async;
+// warps with a live query call visit(row) on rows first, first + step, ...
+// of each staged tile. All threads of the CTA (kThreads) must call it with
+// the same nrows; `pts` 16-byte aligned.
+template <int kThreads, class RowAt, class Visit>
+__device__ __forceinline__ void walk_rows(const float* __restrict__ pts,
+                                          RowAt row_at, int nrows,
+                                          float* sh, bool live, int first,
+                                          int step, Visit visit) {
+  constexpr int kRowChunks = kRowFloats / 4;  // 16-byte chunks per row
+  const int ntiles = (nrows + kTileRows - 1) / kTileRows;
+  // Stage tile `tile` (if it exists) as one commit group; an empty group
+  // past the end keeps one group per tile for the wait below.
+  auto issue = [&](int tile) {
+    if (tile < ntiles) {
+      float* buf = sh + (tile % kStages) * kTileFloats;
+      const int r0 = tile * kTileRows;
+      const int nr = min(kTileRows, nrows - r0);
+      for (int c = threadIdx.x; c < nr * kRowChunks; c += kThreads) {
+        const int r = c / kRowChunks, off = (c % kRowChunks) * 4;
+        cp_async16(buf + r * kRowFloats + off,
+                   pts + row_at(r0 + r) * kRowFloats + off);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) issue(t);
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile t landed
+    // Everyone's copies of tile t are visible, and every warp is done with
+    // tile t - 1, whose buffer the next issue refills.
+    __syncthreads();
+    issue(t + kStages - 1);
+    if (live) {
+      const float* tile = sh + (t % kStages) * kTileFloats;
+      const int nr = min(kTileRows, nrows - t * kTileRows);
+#pragma unroll 2
+      for (int r = first; r < nr; r += step) visit(tile + r * kRowFloats);
+    }
+  }
+  __syncthreads();  // the ring is free for the next walk
+}
+
+// The exact k smallest d2 of the query (qx, qy, qz) over its share of the
+// `nrows` candidate rows (rows slice, slice + S, ... of each 8-row tile)
+// into `sel`, in two walks. The rows arrive in sorted-cell order, so a
+// query's distances mostly fall as the walk nears its own cell: streamed
+// as they come, nearly every step would carry a merge. The first walk
+// keeps each lane's two smallest d2 (strided lanes) for `set_bound`; the
+// second offers only what lies at or below that bound, a few more values
+// than k a query. Both passes measured faster this way than with one
+// streamed walk, in the same run on the H100 at the KITTI bench inputs
+// (PERF.md). Every thread of the CTA calls this with the same nrows;
+// `live` is uniform over each warp.
+template <int kThreads, int S, class RowAt>
+__device__ __forceinline__ void select_rows(const float* __restrict__ pts,
+                                            RowAt row_at, int nrows,
+                                            float* sh, float qx, float qy,
+                                            float qz, bool live, int slice,
+                                            WarpKSmallest& sel) {
+  const int lane = threadIdx.x & 31;
+  float m1 = kInf, m2 = kInf;  // this lane's two smallest d2
+  walk_rows<kThreads>(pts, row_at, nrows, sh, live, slice, S,
+                      [&](const float* s) {
+    float d[4];
+    row_d2<true>(s, lane, qx, qy, qz, d);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      m2 = fminf(m2, fmaxf(m1, d[u]));
+      m1 = fminf(m1, d[u]);
+    }
+  });
+  sel.set_bound(m1, m2);
+  walk_rows<kThreads>(pts, row_at, nrows, sh, live, slice, S,
+                      [&](const float* s) {
+    float d[4];
+    row_d2<false>(s, lane, qx, qy, qz, d);
+    // Most rows hold nothing below the bound: one vote skips them.
+    if (__any_sync(kFullMask,
+                   fminf(fminf(d[0], d[1]), fminf(d[2], d[3])) < sel.tau)) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) sel.offer(d[u]);
+    }
+  });
+}
+
+// The S warps of each query (consecutive warps of the CTA) merge their
+// lists through the free ring `sh` (>= 32 floats a warp) into the first
+// one's: the k smallest of the union are the k smallest of the parts.
+// Every thread of the CTA calls this, after select_rows.
+template <int S>
+__device__ __forceinline__ void merge_slices(float* sh, WarpKSmallest& sel) {
+  if (S == 1) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  sh[warp * 32 + lane] = sel.list;
+  __syncthreads();
+  if (warp % S == 0) {
+#pragma unroll
+    for (int j = 1; j < S; ++j)
+      sel.list = warp_merge(sel.list, sh[(warp + j) * 32 + lane], lane);
+  }
+}

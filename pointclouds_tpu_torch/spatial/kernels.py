@@ -44,8 +44,8 @@ LAUNCHES = {
     "segmented_select": 0,
 }
 
-# Blocks that share one rescue query block's group list (csrc/select.cu,
-# csrc/knn.cu, csrc/radius.cu).
+# Blocks that share one rescue query block's group list (csrc/knn.cu,
+# csrc/radius.cu).
 _RESCUE_SPLIT = 16
 # Blocks that share one query block's walk over the whole cloud
 # (csrc/brute.cu): the whole-cloud rescues have at most 32 query blocks.
@@ -327,6 +327,12 @@ def sweep_select_rows_plain(pts_padded, rowlist, *, k: int, cap: int):
                               rows, k)
 
 
+def _check_aligned16(name: str, t: torch.Tensor):
+    """The selection kernels stage rows with 16-byte cp.async copies."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data must start on a 16-byte boundary")
+
+
 def _check_k(k: int):
     if not 1 <= k <= 32:
         raise ValueError(f"k={k}: the selection kernels hold at most 32")
@@ -352,6 +358,7 @@ def sweep_select_rows(pts_padded, rowlist, *, k: int, cap: int):
         raise ValueError("sweep_select_rows: fewer planar rows than blocks")
     if not _on_cuda(pts_padded):
         return sweep_select_rows_plain(pts_padded, rowlist, k=k, cap=cap)
+    _check_aligned16("sweep_select_rows.pts", pts_padded)
     out = torch.empty((4, nb * 128), dtype=torch.float32, device=dev)
     _lib().call("pc_sweep_select_rows", pts_padded.data_ptr(),
                 rowlist.data_ptr(), out.data_ptr(), nb, cap, k, _stream())
@@ -386,13 +393,11 @@ def rescue_select(cand_planar, q_planar, active, *, k: int, gr: int = 8):
            (qb, 1 + nr // gr), dev)
     if not _on_cuda(cand_planar):
         return rescue_select_plain(cand_planar, q_planar, active, k=k, gr=gr)
+    _check_aligned16("rescue_select.cand", cand_planar)
     out = torch.empty((4, qb * 128), dtype=torch.float32, device=dev)
-    part = torch.empty((_RESCUE_SPLIT, k, qb * 128), dtype=torch.float32,
-                       device=dev)
     _lib().call("pc_rescue_select", cand_planar.data_ptr(),
-                q_planar.data_ptr(), active.data_ptr(), part.data_ptr(),
-                out.data_ptr(), qb, 1 + nr // gr, gr, k, _RESCUE_SPLIT,
-                _stream())
+                q_planar.data_ptr(), active.data_ptr(), out.data_ptr(), qb,
+                1 + nr // gr, gr, k, _stream())
     LAUNCHES["rescue_select"] += 1
     return out[0], out[1], out[2], out[3] > 0.5
 

@@ -1,7 +1,8 @@
 """The PyTorch port's aerial pipeline on the CPU against the JAX package's
 (`backend="sweep_xla"`, its XLA mirrors), on the small aerial scene of
 tests/test_aerial.py, in three configurations: that test's defaults, the
-benchmark's kwargs, and the exact normals rescue.
+benchmark's kwargs, and the exact normals rescue; and at the benchmark's
+kwargs for the other backend strings the JAX package takes.
 
 Centroids are bitwise equal and the plane agrees to 1e-6. The port's
 exact top-k certifies normals the mirror's lane certificate may flag, so
@@ -46,17 +47,17 @@ def scene():
     return aerial_scene(seed=42, scale=0.05)
 
 
-@pytest.mark.parametrize("config", sorted(CONFIGS))
-def test_port_matches_jax_aerial(scene, config):
+def _assert_port_matches_jax(scene, config, backend="sweep_xla",
+                             port_backend="auto"):
     cell, kw = CONFIGS[config]
     args = (np.float32(0.5), cell, np.float32(0.3), 0, np.float32(2.0))
     a = jax_make_cloud(scene)
     jout = jax_pipeline(a.xyz, a.valid, *args,
-                        jnp.asarray(VP, jnp.float32), backend="sweep_xla",
-                        **kw)
+                        jnp.asarray(VP, jnp.float32), backend=backend, **kw)
     c = port.make_cloud_arrays(scene, device="cpu")
     kernels.reset_launch_counts()
-    tout = port.aerial_pipeline(c.xyz, c.valid, *args, VP, **kw)
+    tout = port.aerial_pipeline(c.xyz, c.valid, *args, VP,
+                                backend=port_backend, **kw)
     assert all(v == 0 for v in kernels.LAUNCHES.values())  # CPU: plain
     t = type(tout)(*(x.numpy() for x in tout))
     j = type(jout)(*(np.asarray(x) for x in jout))
@@ -86,9 +87,16 @@ def test_port_matches_jax_aerial(scene, config):
     assert len(tclusters) >= 5  # the buildings and trees
 
 
-def test_unported_backend_raises(scene):
-    c = port.make_cloud_arrays(scene[:500], device="cpu")
-    with pytest.raises(NotImplementedError):
-        port.aerial_pipeline(c.xyz, c.valid, np.float32(0.5),
-                             np.float32(3.0), np.float32(0.3), 0,
-                             np.float32(2.0), VP, backend="sweep_xla")
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_port_matches_jax_aerial(scene, config):
+    _assert_port_matches_jax(scene, config)
+
+
+@pytest.mark.parametrize("backend", ["sweep_xla", "xla"])
+def test_backend_dispatch_matches_jax(scene, backend):
+    """Every backend string the JAX package takes: "sweep_xla" runs as the
+    sweep backend with the fused voxel front end; any other string (here
+    "xla") takes the plain voxel front end and the normals cell as given.
+    At the bench kwargs, where the two front ends differ."""
+    _assert_port_matches_jax(scene, "bench", backend=backend,
+                             port_backend=backend)

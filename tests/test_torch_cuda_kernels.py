@@ -49,13 +49,35 @@ def test_segmented_scan_sums(dev, n):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
+def _select_planar(rng, nr, case):
+    """Planar rows for the selection kernels: "dup" puts the points on a
+    0.5 m lattice (many exact duplicates, so d2 = 0 and equal d2 values
+    tie at the kth), "few" leaves ~0.4% of them valid (fewer than k valid
+    candidates per query)."""
+    if case == "few":
+        return _planar(rng, nr, frac_valid=0.004)
+    p = _planar(rng, nr)
+    if case == "dup":
+        p[:, :3] = torch.round(p[:, :3] * 2.0) / 2.0 * p[:, 3:4]
+    return p
+
+
+# (case, cap): random rows, duplicate points, few valid candidates, and
+# the largest row list (cap 32) of random rows.
+SELECT_ROWS_CASES = [("random", 12), ("dup", 12), ("few", 12),
+                     ("random", 32)]
+
+
+@pytest.mark.parametrize("case,cap", SELECT_ROWS_CASES)
 @pytest.mark.parametrize("k", [1, 11, 21, 32])
-def test_sweep_select_rows(dev, k):
+def test_sweep_select_rows(dev, k, case, cap):
     rng = np.random.default_rng(k)
-    nb, cap = 40, 12
-    pts = torch.cat([_planar(rng, nb), torch.zeros((1, 4, 128))]).to(dev)
+    nb = 40
+    pts = torch.cat([_select_planar(rng, nb, case),
+                     torch.zeros((1, 4, 128))]).to(dev)
     pts[nb, :3] = 1e9
     n_rows = rng.integers(0, cap + 1, nb)
+    n_rows[0] = cap  # one full list
     rows = rng.integers(0, nb, (nb, cap))
     rows[np.arange(cap)[None, :] >= n_rows[:, None]] = nb
     rl = np.concatenate([rows, (rng.random((nb, 1)) < 0.9),
@@ -65,20 +87,51 @@ def test_sweep_select_rows(dev, k):
     got = kernels.sweep_select_rows(pts, rl, k=k, cap=cap)
     assert kernels.LAUNCHES["sweep_select_rows"] == before + 1
     want = kernels.sweep_select_rows_plain(pts, rl, k=k, cap=cap)
+    assert bool(got[3].all())
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 
-def test_rescue_select(dev):
-    rng = np.random.default_rng(0)
+@pytest.mark.parametrize("case", ["random", "unbalanced", "dup", "few"])
+@pytest.mark.parametrize("k", [1, 11, 21, 32])
+def test_rescue_select(dev, k, case):
+    """Every case has an all-invalid query block (the last); "unbalanced"
+    gives block 0 every group and the others 0-2 of them."""
+    rng = np.random.default_rng(k)
     nr, qb, gr = 64, 5, 8
-    cand = _planar(rng, nr).to(dev)
-    q = _planar(rng, qb).to(dev)
-    q[qb - 1, 3] = 0.0  # an all-invalid block
+    cand = _select_planar(rng, nr, case).to(dev)
+    q = _select_planar(rng, qb, "dup" if case == "dup" else "random").to(dev)
+    q[qb - 1, 3] = 0.0
     ng = nr // gr
     act = np.full((qb, 1 + ng), 12345, np.int32)  # garbage past the count
     for b in range(qb):
-        g = np.sort(rng.choice(ng, rng.integers(0, ng + 1), replace=False))
+        n = rng.integers(0, ng + 1)
+        if case == "unbalanced":
+            n = ng if b == 0 else rng.integers(0, 3)
+        g = np.sort(rng.choice(ng, n, replace=False))
+        act[b, 0] = len(g)
+        act[b, 1:1 + len(g)] = g
+    act = torch.from_numpy(act).to(dev)
+    before = kernels.LAUNCHES["rescue_select"]
+    got = kernels.rescue_select(cand, q, act, k=k, gr=gr)
+    assert kernels.LAUNCHES["rescue_select"] == before + 1
+    want = kernels.rescue_select_plain(cand, q, act, k=k, gr=gr)
+    assert bool(got[3].all())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("gr", [4, 16])
+def test_rescue_select_group_height(dev, gr):
+    """Groups of another height than the staging tile (8 rows)."""
+    rng = np.random.default_rng(gr)
+    nr, qb = 64, 3
+    cand = _select_planar(rng, nr, "dup").to(dev)
+    q = _select_planar(rng, qb, "random").to(dev)
+    act = np.zeros((qb, 1 + nr // gr), np.int32)
+    for b in range(qb):
+        g = np.sort(rng.choice(nr // gr, rng.integers(1, nr // gr + 1),
+                               replace=False))
         act[b, 0] = len(g)
         act[b, 1:1 + len(g)] = g
     act = torch.from_numpy(act).to(dev)
@@ -86,6 +139,19 @@ def test_rescue_select(dev):
     want = kernels.rescue_select_plain(cand, q, act, k=21, gr=gr)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_select_misaligned_raises(dev):
+    """The selection kernels stage rows with 16-byte copies: a tensor whose
+    data starts off that boundary raises instead of being copied."""
+    flat = torch.zeros(9 * 4 * 128 + 1, device=dev)
+    pts = flat[1:].view(9, 4, 128)
+    rl = torch.zeros((8, 14), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.sweep_select_rows(pts, rl, k=5, cap=12)
+    act = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.rescue_select(pts[:8], pts[8:], act, k=5, gr=8)
 
 
 def test_sweep_cluster_labels_gpu_equals_cpu(dev):

@@ -77,28 +77,59 @@ def test_structure_from_sorted_matches_jax(jax_front):
                                       err_msg=key)
 
 
-@pytest.mark.parametrize("cap", [12, 4])
-def test_sweep_select_rows_plain_vs_pallas(jax_front, cap):
-    _, _, _, prebuilt = jax_front
+@pytest.fixture(scope="module")
+def jax_dup():
+    """Every point three times over, so d2 = 0 and equal d2 values tie at
+    the kth; sorted by the JAX sweep without a voxel front end (which
+    would merge the copies). Returns the sweep structure."""
+    rng = np.random.default_rng(29)
+    base = (rng.random((1200, 3)) * [12.0, 12.0, 1.5]).astype(np.float32)
+    pts = rng.permutation(np.repeat(base, 3, axis=0))
+    xyz = np.zeros((4096, 3), np.float32)
+    xyz[: len(pts)] = pts
+    valid = np.zeros(4096, bool)
+    valid[: len(pts)] = True
+    return jsweep._sorted_structure(jnp.asarray(xyz), jnp.asarray(valid),
+                                    jnp.float32(VOXEL * FACTOR), 4,
+                                    jsweep.SWEEP_TABLE_SIZE)
+
+
+def _prebuilt(request, front):
+    if front == "dup":
+        return request.getfixturevalue("jax_dup")
+    return request.getfixturevalue("jax_front")[3]
+
+
+# (front, cap, k): the voxel scene at both row caps over k, and the
+# duplicated cloud with ties at the kth (k 2: three d2 = 0 candidates).
+SELECT_ROWS_CASES = ([("voxel", cap, k) for cap in (12, 4)
+                      for k in (1, 11, K + 1, 32)]
+                     + [("dup", 12, 2), ("dup", 12, K + 1)])
+
+
+@pytest.mark.parametrize("front,cap,k", SELECT_ROWS_CASES)
+def test_sweep_select_rows_plain_vs_pallas(request, front, cap, k):
+    prebuilt = _prebuilt(request, front)
     rowlist, fits = jsweep._window_row_lists(prebuilt["starts_skip"], cap,
                                              prebuilt["planar"].shape[0])
     padded = jsweep._planar_padded(prebuilt["planar"])
-    want = jpk.sweep_select_rows(padded, rowlist, k=K + 1, cap=cap,
+    want = jpk.sweep_select_rows(padded, rowlist, k=k, cap=cap,
                                  per_seg=2, interpret=True)
     t_rowlist, t_fits = sweep._window_row_lists(
         to_torch(prebuilt["starts_skip"]), cap, prebuilt["planar"].shape[0])
     np.testing.assert_array_equal(t_rowlist.numpy(), np.asarray(rowlist))
     np.testing.assert_array_equal(t_fits.numpy(), np.asarray(fits))
     kernels.reset_launch_counts()
-    got = kernels.sweep_select_rows(to_torch(padded), t_rowlist, k=K + 1,
+    got = kernels.sweep_select_rows(to_torch(padded), t_rowlist, k=k,
                                     cap=cap)
     assert kernels.LAUNCHES["sweep_select_rows"] == 0
     _assert_contract(got, want)
 
 
-def test_rescue_select_plain_vs_pallas(jax_front):
-    _, _, _, prebuilt = jax_front
-    planar = prebuilt["planar"]
+@pytest.mark.parametrize("front,k", [("voxel", k) for k in (1, 11, K + 1, 32)]
+                         + [("dup", 2), ("dup", K + 1)])
+def test_rescue_select_plain_vs_pallas(request, front, k):
+    planar = _prebuilt(request, front)["planar"]
     use = planar[:, 3, :].reshape(-1) > 0.5
     rng = np.random.default_rng(5)
     flagged = jnp.logical_and(use, jnp.asarray(rng.random(use.shape) < 0.1))
@@ -111,10 +142,10 @@ def test_rescue_select_plain_vs_pallas(jax_front):
                                 priority=to_torch(prio))
     for g, w in zip(t, (planar_g, q_planar, active, qvalid, qsel)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    want = jpk.rescue_select(planar_g, q_planar, active, k=K + 1, per_seg=5,
+    want = jpk.rescue_select(planar_g, q_planar, active, k=k, per_seg=5,
                              gr=8, interpret=True)
     kernels.reset_launch_counts()
-    got = kernels.rescue_select(t[0], t[1], t[2], k=K + 1, gr=8)
+    got = kernels.rescue_select(t[0], t[1], t[2], k=k, gr=8)
     assert kernels.LAUNCHES["rescue_select"] == 0
     _assert_contract(got, want)
 
