@@ -20,7 +20,10 @@ Phases:
 1. probe: the card, torch/CUDA/nvcc versions; build the kernels;
 2. per kernel, at the shapes the pipelines give it (inputs captured from
    the port's own upstream stages): the CUDA kernel against its plain
-   torch version on the card, and both timed with CUDA events;
+   torch version on the card, and both timed with CUDA events, with the
+   work the warp-select kernels see (live blocks, valid queries, rows or
+   groups a block walks); `sweep_moments` and `rescue_knn_idx` also at
+   the normals op's inputs on phase 6's 100K cloud (phase2.json);
 3. KITTI end to end with RANSAC seeds 0-4: every KITTI kernel launched, no
    overflow flag, sor_certified, >= 3 clusters, cluster sets equal to the
    port's own CPU run of the same frame and seed; per-stage times and the
@@ -85,12 +88,15 @@ chiprun_out/.
 
 compares this checkout with others (each DIR an unpacked checkout, e.g.
 `git archive` of an earlier commit) on the same card instead: it captures
-the inputs that the KITTI sweep frame (RANSAC seed 0) and the SOR op on
-the noisy 100K cloud give their kernels, then runs the trees in the order
-DIR..., this, this, ...DIR (so that drift on the card shows), each in a
-fresh process that builds its own kernels: each kernel against its plain
-version at the captured inputs (as phase 2) and timed with CUDA events,
-the KITTI frame p50 and stage medians (as phase 3), the SOR op p50. Each
+the inputs that the KITTI sweep frame (RANSAC seed 0), the SOR op on the
+noisy 100K cloud, the aerial bench frame (seed 0; with normals_rescue for
+`rescue_knn_idx`) and the normals op on the 100K cloud give their
+kernels, then runs the trees in the order DIR..., this, this, ...DIR (so
+that drift on the card shows), each in a fresh process that builds its
+own kernels: each kernel against its plain version at the captured
+inputs (as phase 2) and timed with CUDA events, the KITTI frame p50 and
+stage medians (as phase 3), the SOR op p50, the aerial frame p50 and
+stage medians (as phase 4), the normals and `knn` 100K op p50s. Each
 tree's ptxas log and numbers go to chiprun_out/ab.json.
 """
 
@@ -134,6 +140,8 @@ KERNELS = {
 # The kernels phase 8 checks (at the cell-grid backends' and the large
 # cloud's shapes).
 PHASE8_KERNELS = ("cluster_propagate", "sor_select", "segmented_select")
+# The kernels phase 2 also checks at the normals 100K op's inputs.
+NORMALS_KERNELS = ["sweep_moments", "rescue_knn_idx"]
 # Kernels whose outputs are held bitwise against their plain versions (the
 # same f32 operations in the same order; counts are exact integer sums;
 # labels are integers).
@@ -183,6 +191,10 @@ PATHS = {
 KITTI_STAGES = ["voxel_downsample_sweep_fused", "structure_from_sorted",
                 "sweep_sor_two_pass", "sor_keep_mask_thr",
                 "ransac_plane_masked", "sweep_cluster_labels"]
+AERIAL_STAGES = ["voxel_downsample_sweep_fused", "structure_from_sorted",
+                 "sweep_knn_moments_rows", "normals_from_moment_rows",
+                 "ransac_plane_masked", "compaction_order",
+                 "sweep_cluster_labels"]
 SEEDS = range(5)
 KITTI_FRAMES = 20
 AERIAL_FRAMES = 10
@@ -356,9 +368,9 @@ def check_kernel(name, args, kwargs, K):
 
 
 def select_work(name, args, kwargs) -> str:
-    """What the SOR selection kernels see at these inputs: live query
-    blocks, valid queries, and the rows (pass 1) or active 8-row groups
-    (pass 2) each live block walks."""
+    """What the warp-select kernels see at these inputs: live query blocks,
+    valid queries, and the rows (SOR pass 1, moments) or active row groups
+    (the rescues) each live block walks."""
     if name == "sweep_select_rows":
         pts, rl, cap = args[0], args[1], kwargs["cap"]
         live = rl[:, cap] != 0
@@ -368,7 +380,19 @@ def select_work(name, args, kwargs) -> str:
                 f"valid queries, rows per live block max "
                 f"{int(rows.max()) if rows.numel() else 0} mean "
                 f"{float(rows.mean()) if rows.numel() else 0.0:.2f}")
-    if name == "rescue_select":
+    if name == "sweep_moments":
+        pts, starts = args
+        nb = starts.shape[0]
+        qv = pts[:nb, 3] > 0.5
+        live = (starts[:, 27] != 0) & qv.any(dim=1)
+        rows = (starts[:, 18:27] - starts[:, 9:18]).clamp(min=0).sum(1)
+        rows = rows[live].float()
+        return (f"{int(live.sum())} of {nb} blocks live, "
+                f"{int(qv[live].sum())} valid queries, window rows per live "
+                f"block max {int(rows.max()) if rows.numel() else 0} mean "
+                f"{float(rows.mean()) if rows.numel() else 0.0:.2f} (total "
+                f"{int(rows.sum())})")
+    if name in ("rescue_select", "rescue_knn_idx"):
         q, active = args[1], args[2]
         live = (q[:, 3] > 0.5).any(dim=1)
         groups = active[live, 0].float()
@@ -381,10 +405,12 @@ def select_work(name, args, kwargs) -> str:
     return ""
 
 
-def kernel_row(name, args, kwargs, K, card_line, library=None):
+def kernel_row(name, args, kwargs, K, card_line, library=None, label=""):
     """Check one kernel against its plain version, time both and bound it;
     ``library``: one PyTorch call computing the same function, timed as a
-    yardstick. Returns the kernel's entry of the JSON line."""
+    yardstick; ``label``: where the inputs come from, for a kernel checked
+    at more than one capture. Returns the kernel's entry of the JSON
+    line."""
     _, src, line = KERNELS[name]
     err, tol, ms, plain_ms = check_kernel(name, args, kwargs, K)
     nbytes, ops = work(name, args, kwargs, getattr(K, name)(*args, **kwargs))
@@ -395,7 +421,8 @@ def kernel_row(name, args, kwargs, K, card_line, library=None):
                     >= RESCUE_LIVE[n]).sum())
             for n in (name,) if n in RESCUE_LIVE}
     seen = select_work(name, args, kwargs)
-    log(f"kernel {name}: shapes={shapes} {live}{f' ({seen})' if seen else ''}"
+    log(f"kernel {name}{f' ({label})' if label else ''}: shapes={shapes} "
+        f"{live}{f' ({seen})' if seen else ''}"
         f" agrees ({tol}, "
         f"max_abs_err={err}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bms:.5f} ms ({by}: {nbytes} B, {ops} ops), library "
@@ -1269,16 +1296,28 @@ AB_INPUTS = ROOT / "build" / "chip_smoke_ab" / "inputs.pt"
 def ab_capture(path: Path) -> None:
     import pointclouds_tpu_torch as pc
     from pointclouds_tpu_torch import api
-    from pointclouds_tpu_torch.pipelines.scenes import velodyne_scene
+    from pointclouds_tpu_torch.pipelines.scenes import (
+        aerial_scene,
+        velodyne_scene,
+    )
 
     kdata = velodyne_scene(seed=0, n_points=KITTI_POINTS)
+    adata = aerial_scene(seed=42, scale=1.0)
     noisy = api.PointCloud.from_numpy(noisy_cloud(NOISY_BOX))
+    u100k = api.PointCloud.from_numpy(bench_cloud(100_000))
     sets = {
         "kitti": capture_inputs(lambda: run_kitti(pc, kdata, 0, "cuda"),
                                 PATHS["kitti"]),
         "sor noisy 100K": capture_inputs(
             lambda: api.statistical_outlier_removal(noisy, 10, 2.0),
             PATHS["sor"]),
+        "aerial": capture_inputs(lambda: run_aerial(pc, adata, 0, "cuda"),
+                                 ["sweep_moments"]),
+        "aerial rescue": capture_inputs(
+            lambda: run_aerial(pc, adata, 0, "cuda", ransac_subsample=None,
+                               normals_rescue=True), ["rescue_knn_idx"]),
+        "normals 100K": capture_inputs(
+            lambda: api.estimate_normals(u100k, 10), NORMALS_KERNELS),
     }
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(sets, path)
@@ -1289,8 +1328,12 @@ def ab_child(tree: Path, inputs: Path) -> dict:
     sys.path.insert(0, str(tree))
     import pointclouds_tpu_torch as pc
     from pointclouds_tpu_torch import api
+    from pointclouds_tpu_torch.pipelines import aerial as aerial_mod
     from pointclouds_tpu_torch.pipelines import kitti as kitti_mod
-    from pointclouds_tpu_torch.pipelines.scenes import velodyne_scene
+    from pointclouds_tpu_torch.pipelines.scenes import (
+        aerial_scene,
+        velodyne_scene,
+    )
     from pointclouds_tpu_torch.spatial import _build
     from pointclouds_tpu_torch.spatial import kernels as K
 
@@ -1315,6 +1358,17 @@ def ab_child(tree: Path, inputs: Path) -> dict:
     noisy = api.PointCloud.from_numpy(noisy_cloud(NOISY_BOX))
     res["sor_op_p50_ms"] = p50_ms(
         lambda: api.statistical_outlier_removal(noisy, 10, 2.0))[0]
+    adata = aerial_scene(seed=42, scale=1.0)
+    acloud = pc.make_cloud_arrays(adata, device="cuda")
+    run_aerial(pc, adata, 0, cloud=acloud)
+    res["aerial_stages"], res["aerial_p50_ms"] = timed_frames(
+        lambda f: run_aerial(pc, adata, f, cloud=acloud), AERIAL_FRAMES,
+        aerial_mod, AERIAL_STAGES, card_line, "aerial")
+    u100k = bench_cloud(100_000)
+    cloud = api.PointCloud.from_numpy(u100k)
+    res["normals_op_p50_ms"] = p50_ms(
+        lambda: api.estimate_normals(cloud, 10))[0]
+    res["knn_op_p50_ms"] = p50_ms(lambda: api.knn(cloud, u100k, 10))[0]
     return res
 
 
@@ -1336,7 +1390,11 @@ def ab_main(others) -> int:
             f"{k} {v:.4f}" for k, v in r["kernels"].items()) + " ms; "
             f"sweep_sor_two_pass {r['stages']['sweep_sor_two_pass']:.3f} ms, "
             f"KITTI frame p50 {r['frame_p50_ms']:.3f} ms, SOR noisy 100K op "
-            f"p50 {r['sor_op_p50_ms']:.3f} ms [{card_line}]")
+            f"p50 {r['sor_op_p50_ms']:.3f} ms, normals_from_moment_rows "
+            f"{r['aerial_stages']['normals_from_moment_rows']:.3f} ms, "
+            f"aerial frame p50 {r['aerial_p50_ms']:.3f} ms, normals 100K op "
+            f"p50 {r['normals_op_p50_ms']:.3f} ms, knn 100K op p50 "
+            f"{r['knn_op_p50_ms']:.3f} ms [{card_line}]")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "ab.json").write_text(json.dumps(
         dict(card=card_line, runs=runs), indent=1))
@@ -1431,6 +1489,17 @@ def main() -> int:
         captured.update(capture_inputs(run, names))
     rows = [kernel_row(name, *captured[name], K, card_line)
             for name in KERNELS if name not in PHASE8_KERNELS]
+    # Kernels 6 and 7 at the normals op's inputs too (phase 6's 100K
+    # cloud), beside the aerial frames' captures above.
+    normals = capture_inputs(lambda: api.estimate_normals(knn_cloud, 10),
+                             NORMALS_KERNELS)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "phase2.json").write_text(json.dumps(dict(
+        card=card_line, kernels=rows, normals_100k=[
+            dict(kernel_row(name, *normals[name], K, card_line,
+                            label="normals 100K"),
+                 work=select_work(name, *normals[name]))
+            for name in NORMALS_KERNELS]), indent=1))
     launches_total = {name: 0 for name in KERNELS}
 
     def add(launches):
@@ -1512,12 +1581,8 @@ def main() -> int:
         raise AssertionError("aerial seed 0: clusters differ from CPU")
     acloud = pc.make_cloud_arrays(adata, device="cuda")
     timed_frames(lambda f: run_aerial(pc, adata, f, cloud=acloud),
-                 AERIAL_FRAMES, aerial_mod,
-                 ["voxel_downsample_sweep_fused", "structure_from_sorted",
-                  "sweep_knn_moments_rows", "normals_from_moment_rows",
-                  "ransac_plane_masked", "compaction_order",
-                  "sweep_cluster_labels"],
-                 card_line, "aerial")
+                 AERIAL_FRAMES, aerial_mod, AERIAL_STAGES, card_line,
+                 "aerial")
 
     # ── Phase 5: the pipelines' default kwargs ──
     kd, launches = path_launches(K, "kitti_default", lambda: run_kitti(

@@ -41,8 +41,7 @@ _SIGNATURES = {
     "pc_ransac_score_counts": ([_P, _P, _P, _P, _I, _I, _P], _I),
     "pc_sweep_moments": ([_P, _P, _P, _I, _I, ctypes.c_float,
                           ctypes.c_float, _P], _I),
-    "pc_rescue_knn_idx": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-                          _I),
+    "pc_rescue_knn_idx": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "pc_cluster_round_windows": ([_P, _P, _P, _P, _P, _I, ctypes.c_float,
                                   _P], _I),
     "pc_sweep_select": ([_P, _P, _P, _I, _I, _P], _I),

@@ -9,83 +9,74 @@
 // the kth d2 (0 if none) and a certificate. The TPU kernel keeps per-lane
 // segment finalists and certifies them; the selection here is exact, so
 // the certificate is always 1. Ties at equal d2 go to the smaller
-// position, so the result does not depend on the walk order.
+// position: the selection keeps the k smallest (d2, position) keys, so the
+// result does not depend on the walk order or the split of the rows.
 //
-// Design: select.cu's rescue split. A rescue has few query blocks
-// (fix_cap / 128) that each walk many groups, so each query block's group
-// list is split over `nsplit` CUDA blocks, each keeping a partial top-k of
-// (d2, position) pairs in registers, and a merge kernel takes the k
-// smallest of their union, carrying the positions. Bound on Hopper: the
-// per-pair d2 + compare work over the active groups (each staged row is
-// reused by 128 queries); the insertion network runs only for candidates
-// below the current kth.
-#include "topk.cuh"
+// Bound on Hopper: the per-pair d2 + compare work over the active groups
+// (operations), not memory: each staged row is reused by 128 queries.
+//
+// Design: rescue_select's (select.cu) on the warp-select core
+// (warpselect.cuh) with 64-bit (d2, position) keys. S warps per query (each
+// walking every S-th row of each tile, their lists merged in shared memory
+// at the end), W warps per CTA = W / S queries of one compacted block,
+// sharing a cp.async ring of 8-row tiles over the block's active groups. A
+// first walk bounds the kth d2 from each lane's two smallest; the second
+// offers keys to the warp's list, one vote a row (a d2 equal to tau's
+// passes the vote, and the key decides). One launch: no split over blocks,
+// no partial lists in device memory and no merge kernel. A query block's
+// critical path is its longest active list (43 groups at the 100K normals
+// op) walked by 32 * S lanes.
+#include "warpselect.cuh"
 
 namespace {
 
-// cand: [nr, 4, 128]; q: [qb, 4, 128]; active: [qb, 1 + ng]. Block (b, s)
-// walks groups s, s + nsplit, ... and writes its partial list to
-// part_v / part_p [nsplit][k][qb * 128].
-__global__ void knn_partial_kernel(const float* __restrict__ cand,
-                                   const float* __restrict__ qpl,
-                                   const int* __restrict__ active,
-                                   float* __restrict__ part_v,
-                                   int* __restrict__ part_p, int qb, int ng1,
-                                   int gr, int k) {
-  __shared__ float sh[kRowFloats];
-  __shared__ int any_valid;
-  const int b = blockIdx.x;
-  const int split = blockIdx.y;
-  const int nsplit = gridDim.y;
-  const int l = threadIdx.x;
+// cand: [nr, 4, 128]; q: [qb, 4, 128]; active: [qb, 1 + ng]; out: [2k + 3,
+// qb * 128]. CTA i serves queries (i % kPer) * (W / S) + warp / S of block
+// i / kPer.
+template <int W, int S>
+__global__ void __launch_bounds__(W * 32)
+    rescue_knn_kernel(const float* __restrict__ cand,
+                      const float* __restrict__ qpl,
+                      const int* __restrict__ active,
+                      float* __restrict__ out, int qb, int ng1, int gr,
+                      int k) {
+  __shared__ __align__(16) float sh[kStages * kTileFloats];
+  constexpr int kPer = ctas_per_block(W, S);
+  const int b = blockIdx.x / kPer;
+  const int warp = threadIdx.x / 32;
+  const int qi = (blockIdx.x % kPer) * (W / S) + warp / S;
   const float* q = qpl + (long long)b * kRowFloats;
-  const float qx = q[l], qy = q[kLanes + l], qz = q[2 * kLanes + l];
-  const bool qv = q[3 * kLanes + l] > 0.5f;
-  TopKIdx tk;
-  tk.init();
-  if (block_any(qv, &any_valid)) {
-    const int* act = active + (long long)b * ng1;
-    const int ngroups = act[0];
-    for (int t = split; t < ngroups; t += nsplit) {
-      const long long base = (long long)act[1 + t] * gr;
-      for (int r = 0; r < gr; ++r)
-        visit_row_idx(cand, base + r, sh, qx, qy, qz, qv, tk, k);
-    }
+  const int* act = active + (long long)b * ng1;
+  const bool live = q[3 * kLanes + qi] > 0.5f;
+  WarpKSmallest<Key> sel;
+  sel.init(k, threadIdx.x & 31);
+  if (__syncthreads_or(live)) {
+    select_rows<W * 32, S>(cand, GroupRows{act, gr}, act[0] * gr, sh, q[qi],
+                           q[kLanes + qi], q[2 * kLanes + qi], live,
+                           warp % S, sel);
+    merge_slices<S>(sh, sel);
   }
-  store_partial_idx(tk, part_v, part_p, split, k, (long long)qb * kLanes,
-                    (long long)b * kLanes + l);
+  if (warp % S == 0)
+    sel.store_knn(out, (long long)qb * kLanes, (long long)b * kLanes + qi);
 }
 
-// One thread per query: the k smallest (d2, position) pairs of the union of
-// the partial lists; out rows [0, k) sqrt d2, [k, 2k) positions, then
-// count, kth d2, certificate.
-__global__ void knn_merge_kernel(const float* __restrict__ part_v,
-                                 const int* __restrict__ part_p,
-                                 float* __restrict__ out, long long nq,
-                                 int nsplit, int k) {
-  const long long qi = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (qi >= nq) return;
-  TopKIdx tk;
-  merge_partials_idx(part_v, part_p, nq, nsplit, k, qi, tk);
-  store_knn_idx(tk, out, nq, qi, k);
-}
+// (warps per CTA, warps per query), measured on the H100 at the normals
+// 100K op's and the aerial rescue frame's inputs (PERF.md): 2 warps a
+// query beat 4 and 8 at both (the keyed insertions run once per slice),
+// and 1 at the op's, whose 14 live blocks want the parallelism; W 16 beat
+// 8 and 32. The compiler's own register choice (56, no spill) beat a cap
+// of 40 (3 CTAs an SM).
+constexpr int kKnnWarps = 16, kKnnSlices = 2;
 
 }  // namespace
 
-// part_v / part_p: scratch of nsplit * k * qb * 128 each; out: [2k + 3,
-// qb * 128].
 extern "C" int pc_rescue_knn_idx(const float* cand, const float* q,
-                                 const int* active, float* part_v,
-                                 int* part_p, float* out, int qb, int ng1,
-                                 int gr, int k, int nsplit, void* stream) {
-  if (qb == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  knn_partial_kernel<<<dim3(qb, nsplit), kLanes, 0, s>>>(
-      cand, q, active, part_v, part_p, qb, ng1, gr, k);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long nq = (long long)qb * kLanes;
-  knn_merge_kernel<<<(unsigned)((nq + 127) / 128), 128, 0, s>>>(
-      part_v, part_p, out, nq, nsplit, k);
+                                 const int* active, float* out, int qb,
+                                 int ng1, int gr, int k, void* stream) {
+  if (qb > 0)
+    rescue_knn_kernel<kKnnWarps, kKnnSlices>
+        <<<qb * ctas_per_block(kKnnWarps, kKnnSlices), kKnnWarps * 32, 0,
+           static_cast<cudaStream_t>(stream)>>>(cand, q, active, out, qb,
+                                                ng1, gr, k);
   return (int)cudaGetLastError();
 }

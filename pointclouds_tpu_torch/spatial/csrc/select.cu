@@ -60,11 +60,6 @@ __device__ void store_topk(const TopK& tk, float* out, long long stride,
   out[3 * stride + q] = 1.0f;
 }
 
-// CTAs per 128-query block: each serves W / S of its queries.
-__host__ __device__ constexpr int ctas_per_block(int w, int s) {
-  return kLanes / (w / s);
-}
-
 // pts: [nr + 1, 4, 128] (pad row nr all-masked); rowlist: [nb, cap + 2]
 // (row ids, block-valid flag, true row count). Query block b = row b; CTA
 // i serves its queries (i % kPer) * (W / S) + warp / S.
@@ -88,7 +83,7 @@ __global__ void __launch_bounds__(W * 32)
   const float* q = pts + (long long)b * kRowFloats;
   const bool walk = rl[cap] != 0;
   const bool live = walk && q[3 * kLanes + qi] > 0.5f;
-  WarpKSmallest sel;
+  WarpKSmallest<float> sel;
   sel.init(k, threadIdx.x & 31);
   if (__syncthreads_or(live)) {
     select_rows<W * 32, S>(pts, ListRows{rl},
@@ -128,19 +123,7 @@ __global__ void sweep_select_kernel(const float* __restrict__ pts,
 // cand: [nr, 4, 128]; q: [qb, 4, 128]; active: [qb, 1 + ng] (count, then
 // ascending group ids; entries past the count are garbage and never read).
 // CTA i serves queries (i % kPer) * (W / S) + warp / S of block i / kPer,
-// together walking every row of the block's active groups.
-struct GroupRows {
-  const int* act;
-  int gr;
-  // The pipelines' 8-row groups take no division: 40 registers against
-  // 54 with it, so 3 CTAs of 512 threads fit an SM instead of 2 (PERF.md).
-  __device__ long long operator()(int t) const {
-    if (gr == kTileRows)
-      return (long long)act[1 + t / kTileRows] * kTileRows + t % kTileRows;
-    return (long long)act[1 + t / gr] * gr + t % gr;
-  }
-};
-
+// together walking every row of the block's active groups (GroupRows).
 template <int W, int S>
 __global__ void __launch_bounds__(W * 32)
     rescue_select_kernel(const float* __restrict__ cand,
@@ -156,7 +139,7 @@ __global__ void __launch_bounds__(W * 32)
   const float* q = qpl + (long long)b * kRowFloats;
   const int* act = active + (long long)b * ng1;
   const bool live = q[3 * kLanes + qi] > 0.5f;
-  WarpKSmallest sel;
+  WarpKSmallest<float> sel;
   sel.init(k, threadIdx.x & 31);
   if (__syncthreads_or(live)) {
     select_rows<W * 32, S>(cand, GroupRows{act, gr}, act[0] * gr, sh, q[qi],

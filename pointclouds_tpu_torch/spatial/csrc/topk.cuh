@@ -1,6 +1,8 @@
-// Per-thread exact top-k (k <= 32) in registers, shared by the selection,
-// moments and kNN kernels. Each thread owns one query; candidate rows of 128
-// points are staged in shared memory by the whole block (`stage_row`).
+// Per-thread exact top-k (k <= 32) in registers, shared by the kernels that
+// keep one thread per query (sweep_select, sweep_knn_select, the brute
+// force, the cell-grid selections). Each thread owns one query; candidate
+// rows of 128 points are staged in shared memory by the whole block
+// (`stage_row`). The warp-cooperative kernels build on warpselect.cuh.
 #pragma once
 #include "common.cuh"
 

@@ -44,8 +44,7 @@ LAUNCHES = {
     "segmented_select": 0,
 }
 
-# Blocks that share one rescue query block's group list (csrc/knn.cu,
-# csrc/radius.cu).
+# Blocks that share one rescue query block's group list (csrc/radius.cu).
 _RESCUE_SPLIT = 16
 # Blocks that share one query block's walk over the whole cloud
 # (csrc/brute.cu): the whole-cloud rescues have at most 32 query blocks.
@@ -328,7 +327,8 @@ def sweep_select_rows_plain(pts_padded, rowlist, *, k: int, cap: int):
 
 
 def _check_aligned16(name: str, t: torch.Tensor):
-    """The selection kernels stage rows with 16-byte cp.async copies."""
+    """The warp-select kernels (2, 3, 6, 7) stage rows with 16-byte
+    cp.async copies."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data must start on a 16-byte boundary")
 
@@ -664,6 +664,7 @@ def sweep_moments(pts_planar, starts, *, k: int):
         raise ValueError("sweep_moments: more blocks than planar rows")
     if not _on_cuda(pts_planar):
         return sweep_moments_plain(pts_planar, starts, k=k)
+    _check_aligned16("sweep_moments.pts", pts_planar)
     out = torch.empty((16, nb * 128), dtype=torch.float32, device=dev)
     _lib().call("pc_sweep_moments", pts_planar.data_ptr(), starts.data_ptr(),
                 out.data_ptr(), nb, k, float(np.float32(1.0 + D2_BAND)),
@@ -749,15 +750,11 @@ def rescue_knn_idx(cand_planar, q_planar, active, *, k: int, gr: int = 8):
            dev)
     if not _on_cuda(cand_planar):
         return rescue_knn_idx_plain(cand_planar, q_planar, active, k=k, gr=gr)
+    _check_aligned16("rescue_knn_idx.cand", cand_planar)
     out = torch.empty((2 * k + 3, qb * 128), dtype=torch.float32, device=dev)
-    part_v = torch.empty((_RESCUE_SPLIT, k, qb * 128), dtype=torch.float32,
-                         device=dev)
-    part_p = torch.empty((_RESCUE_SPLIT, k, qb * 128), dtype=torch.int32,
-                         device=dev)
     _lib().call("pc_rescue_knn_idx", cand_planar.data_ptr(),
-                q_planar.data_ptr(), active.data_ptr(), part_v.data_ptr(),
-                part_p.data_ptr(), out.data_ptr(), qb, 1 + nr // gr, gr, k,
-                _RESCUE_SPLIT, _stream())
+                q_planar.data_ptr(), active.data_ptr(), out.data_ptr(), qb,
+                1 + nr // gr, gr, k, _stream())
     LAUNCHES["rescue_knn_idx"] += 1
     return out
 

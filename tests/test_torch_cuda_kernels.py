@@ -142,8 +142,9 @@ def test_rescue_select_group_height(dev, gr):
 
 
 def test_select_misaligned_raises(dev):
-    """The selection kernels stage rows with 16-byte copies: a tensor whose
-    data starts off that boundary raises instead of being copied."""
+    """The warp-select kernels (2, 3, 6, 7) stage rows with 16-byte copies:
+    a tensor whose data starts off that boundary raises instead of being
+    copied."""
     flat = torch.zeros(9 * 4 * 128 + 1, device=dev)
     pts = flat[1:].view(9, 4, 128)
     rl = torch.zeros((8, 14), dtype=torch.int32, device=dev)
@@ -152,6 +153,11 @@ def test_select_misaligned_raises(dev):
     act = torch.zeros((1, 2), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="16-byte"):
         kernels.rescue_select(pts[:8], pts[8:], act, k=5, gr=8)
+    starts = torch.zeros((8, 28), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.sweep_moments(pts, starts, k=5)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.rescue_knn_idx(pts[:8], pts[8:].contiguous(), act, k=5, gr=8)
 
 
 def test_sweep_cluster_labels_gpu_equals_cpu(dev):
@@ -202,9 +208,11 @@ def test_ransac_score_counts(dev):
     assert (got[200:] == 0).all() and got[:200].sum() > 0
 
 
-def _structure(dev, seed=0, n=4096, wr=4, cell=1.3):
+def _structure(dev, seed=0, n=4096, wr=4, cell=1.3, lattice=False):
     rng = np.random.default_rng(seed)
     xyz = rng.uniform(0, 10, (n, 3)).astype(np.float32)
+    if lattice:  # a 0.5 m lattice: duplicates and equal d2
+        xyz = np.round(xyz * 2.0) / np.float32(2.0)
     valid = rng.random(n) > 0.1
     xyz[~valid & (rng.random(n) > 0.5)] = np.nan
     return sweep._sorted_structure(
@@ -213,33 +221,144 @@ def _structure(dev, seed=0, n=4096, wr=4, cell=1.3):
         sweep.SWEEP_TABLE_SIZE)
 
 
-@pytest.mark.parametrize("k", [5, 15, 32])
-def test_sweep_moments(dev, k):
-    s = _structure(dev)
+def _window_starts(rng, nb, nr, span=6, lo=0):
+    """A starts pack with random windows from row ``lo`` on: overlapping
+    (the same rows in two windows), skips inside and past a window's
+    length, empty windows, and a block whose flag is 0."""
+    st = rng.integers(lo, nr - span, (nb, 9))
+    ln = rng.integers(0, span + 1, (nb, 9))
+    sk = rng.integers(0, span + 2, (nb, 9))
+    sk[rng.random((nb, 9)) < 0.5] = 0
+    flag = np.ones((nb, 1), np.int64)
+    flag[nb - 1] = 0
+    return np.concatenate([st, sk, ln, flag], axis=1).astype(np.int32)
+
+
+def _edge_offset(qc, edge):
+    """A candidate coordinate c near ``qc`` with f32 (qc - c)^2 == edge
+    exactly (the d2 of a candidate shifted along one axis), or None."""
+    qc = np.float32(qc)
+    c = np.float32(qc - np.float32(np.sqrt(np.float64(edge))))
+    for _ in range(64):
+        d = np.float32(qc - c)
+        sq = np.float32(d * d)
+        if sq == edge:
+            return c
+        c = np.nextafter(c, np.float32(np.inf if sq > edge else -np.inf))
+    return None
+
+
+def _band_edges(planar, starts, k):
+    """Put two candidates exactly on one query's band edges, d2 = kth *
+    f32(1 + D2_BAND) and kth * f32(1 + 3 D2_BAND), into masked slots of
+    rows of its windows (each shifted from the query along one axis). The
+    query has k candidates at or below its kth (lattice d2), so neither
+    changes its count or kth. Returns whether both were placed."""
+    want = kernels.sweep_moments_plain(planar, starts, k=k)
+    rows = kernels._window_rows(starts, planar.shape[0])
+    bands = [np.float32(1.0 + kernels.D2_BAND),
+             np.float32(1.0 + 3.0 * kernels.D2_BAND)]
+    for col in ((want[10] == k) & (want[11] > 0)).nonzero().flatten():
+        b, lane = divmod(int(col), 128)
+        free = [(int(r), int(j)) for r in rows[b] if r < planar.shape[0]
+                for j in (planar[r, 3] <= 0.5).nonzero().flatten()]
+        q = planar[b, :3, lane].numpy()
+        kth = np.float32(want[11, col])
+        shifts = [next(((a, c) for a in range(3) if (c := _edge_offset(
+            q[a], np.float32(kth * band))) is not None), None)
+            for band in bands]
+        if len(free) < 2 or None in shifts:
+            continue
+        for (row, slot), (a, c) in zip(free, shifts):
+            planar[row, :3, slot] = torch.from_numpy(q)
+            planar[row, a, slot] = float(c)
+            planar[row, 3, slot] = 1.0
+        return True
+    return False
+
+
+@pytest.mark.parametrize("case", ["random", "dup", "few", "windows"])
+@pytest.mark.parametrize("k", [1, 5, 15, 32])
+def test_sweep_moments(dev, k, case):
+    """"dup": lattice points (ties at the kth) and, for k > 1, two
+    candidates exactly on one query's band edges; "windows": random rows
+    under random, overlapping and skipped windows; "few": the same over
+    rows with ~0.4% of their points valid (fewer than k candidates for
+    most valid queries)."""
+    if case in ("windows", "few"):
+        rng = np.random.default_rng(k)
+        nb, nr = 12, 40
+        planar = _select_planar(rng, nr, "dup" if case == "windows" else
+                                "few")
+        lo = 0
+        if case == "few":  # valid queries; their windows past them
+            planar[:nb] = _planar(rng, nb)
+            lo = nb
+        starts = torch.from_numpy(_window_starts(rng, nb, nr, lo=lo))
+    else:
+        s = _structure(torch.device("cpu"), lattice=case == "dup")
+        planar, starts = s["planar"].clone(), s["starts_skip"]
+    if case == "dup" and k > 1:  # at k 1 the kth is the query: d2 0
+        assert _band_edges(planar, starts, k)
+    planar, starts = planar.to(dev), starts.to(dev)
     got = _count_launch("sweep_moments", lambda: kernels.sweep_moments(
-        s["planar"], s["starts_skip"], k=k))
-    want = kernels.sweep_moments_plain(s["planar"], s["starts_skip"], k=k)
+        planar, starts, k=k))
+    want = kernels.sweep_moments_plain(planar, starts, k=k)
     assert torch.equal(got, want)  # the same adds in the same order
-    assert (got[10] == k).float().mean() > 0.5
+    if case == "few":
+        qv = planar[:starts.shape[0], 3].reshape(-1) > 0.5
+        few = got[10][qv] < k
+        assert few.all() if k >= 15 else few.any()
+    else:
+        assert (got[10] == k).float().mean() > 0.5
+    if case == "dup":
+        assert (got[9] > got[10]).any()  # ties at the kth, the band edges
 
 
-def test_rescue_knn_idx(dev):
-    rng = np.random.default_rng(1)
-    nr, qb, gr, k = 64, 5, 8, 15
-    cand = _planar(rng, nr).to(dev)
-    cand[3, :3, :64] = cand[3, :3, 64:]  # duplicates: ties at equal d2
-    q = _planar(rng, qb).to(dev)
-    q[qb - 1, 3] = 0.0  # an all-invalid block
-    ng = nr // gr
-    act = np.full((qb, 1 + ng), 12345, np.int32)  # garbage past the count
+def _active_groups(rng, qb, ng, case):
+    """[qb, 1 + ng] active lists (garbage past the count): "unbalanced"
+    gives block 0 every group and the others 0-2."""
+    act = np.full((qb, 1 + ng), 12345, np.int32)
     for b in range(qb):
-        g = np.sort(rng.choice(ng, rng.integers(0, ng + 1), replace=False))
+        n = rng.integers(0, ng + 1)
+        if case == "unbalanced":
+            n = ng if b == 0 else rng.integers(0, 3)
+        g = np.sort(rng.choice(ng, n, replace=False))
         act[b, 0] = len(g)
         act[b, 1:1 + len(g)] = g
-    act = torch.from_numpy(act).to(dev)
+    return torch.from_numpy(act)
+
+
+@pytest.mark.parametrize("case", ["random", "unbalanced", "dup", "few"])
+@pytest.mark.parametrize("k", [1, 10, 15, 32])
+def test_rescue_knn_idx(dev, k, case):
+    """Every case has an all-invalid query block (the last). "dup": lattice
+    points, so equal d2 straddle the kth at positions in different rows,
+    tiles and slices of the walk; the positions must be the smallest."""
+    rng = np.random.default_rng(k)
+    nr, qb, gr = 64, 5, 8
+    cand = _select_planar(rng, nr, case).to(dev)
+    q = _select_planar(rng, qb, "dup" if case == "dup" else "random").to(dev)
+    q[qb - 1, 3] = 0.0
+    act = _active_groups(rng, qb, nr // gr, case).to(dev)
     got = _count_launch("rescue_knn_idx", lambda: kernels.rescue_knn_idx(
         cand, q, act, k=k, gr=gr))
     want = kernels.rescue_knn_idx_plain(cand, q, act, k=k, gr=gr)
+    assert torch.equal(got, want)
+    assert (got[2 * k + 2] == 1.0).all()
+    assert (got[2 * k, (qb - 1) * 128:] == 0).all()
+
+
+@pytest.mark.parametrize("gr", [4, 16])
+def test_rescue_knn_idx_group_height(dev, gr):
+    """Groups of another height than the staging tile (8 rows)."""
+    rng = np.random.default_rng(gr)
+    nr, qb = 64, 3
+    cand = _select_planar(rng, nr, "dup").to(dev)
+    q = _select_planar(rng, qb, "random").to(dev)
+    act = _active_groups(rng, qb, nr // gr, "random").to(dev)
+    got = kernels.rescue_knn_idx(cand, q, act, k=15, gr=gr)
+    want = kernels.rescue_knn_idx_plain(cand, q, act, k=15, gr=gr)
     assert torch.equal(got, want)
 
 

@@ -29,9 +29,11 @@ from pointclouds_tpu_torch.spatial import kernels, sweep
 from pointclouds_tpu_torch.utils.interop import to_torch
 
 
-def _cloud(seed, n, invalid_frac=0.1):
+def _cloud(seed, n, invalid_frac=0.1, lattice=False):
     rng = np.random.default_rng(seed)
     xyz = rng.uniform(0, 10, (n, 3)).astype(np.float32)
+    if lattice:  # a 0.5 m grid: duplicates and equal d2 tie at the kth
+        xyz = np.round(xyz * 2.0) / np.float32(2.0)
     valid = rng.random(n) > invalid_frac
     bad = ~valid & (rng.random(n) > 0.5)
     xyz[bad] = np.nan
@@ -43,10 +45,11 @@ def _close(got, want, ok, cell, k):
                                atol=1e-5 * cell * cell * k)
 
 
-@pytest.mark.parametrize("n,k,cell", [(4096, 15, 1.3), (2000, 8, 1.4),
-                                      (1500, 5, 2.0)])
-def test_moments_plain_matches_pallas_and_mirror(n, k, cell):
-    xyz, valid = _cloud(0, n)
+@pytest.mark.parametrize("n,k,cell,lattice", [
+    (4096, 15, 1.3, False), (2000, 8, 1.4, False), (1500, 5, 2.0, False),
+    (2000, 8, 1.4, True), (2000, 1, 1.4, False)])
+def test_moments_plain_matches_pallas_and_mirror(n, k, cell, lattice):
+    xyz, valid = _cloud(0, n, lattice=lattice)
     s = jsweep._sorted_structure(jnp.asarray(xyz), jnp.asarray(valid),
                                  np.float32(cell), 4, jsweep.SWEEP_TABLE_SIZE)
     pal = np.asarray(jpk.sweep_moments(s["planar"], s["starts_skip"], k=k,
@@ -63,6 +66,8 @@ def test_moments_plain_matches_pallas_and_mirror(n, k, cell):
         assert cert.mean() > 0.9
         for row in (9, 10, 11):  # cle, count, kth
             np.testing.assert_array_equal(got[row, cert], want[row, cert])
+        if lattice:  # ties at the kth: cle counts past it
+            assert (got[9, cert] > got[10, cert]).mean() > 0.1
         both = cert & (want[9] == want[10])
         _close(got[:9], want[:9], both, cell, k)
 

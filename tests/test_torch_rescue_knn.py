@@ -4,9 +4,11 @@ Pallas kernel in interpret mode and its XLA mirror, and
 `sweep_moments_two_pass_rows` end to end.
 
 Distances and counts are equal (the same pinned d2, exact selection).
-Positions are compared where the kth distance is not tied: at a tie the
-port takes the smaller position and the Pallas kernel's order depends on
-its lane segments.
+Positions equal the mirror's everywhere (both take the smaller position
+at equal distances) and the Pallas kernel's where the distances are not
+tied: there its order depends on its lane segments. The lattice cases
+put points on a 1 m grid, so duplicates and equal distances tie at the
+kth; they pin the tie order that the CUDA kernel must reproduce.
 """
 
 import jax.numpy as jnp
@@ -21,10 +23,12 @@ from pointclouds_tpu_torch.spatial import kernels, sweep
 from pointclouds_tpu_torch.utils.interop import to_torch
 
 
-def _cloud(seed, n):
+def _cloud(seed, n, lattice=False):
     rng = np.random.default_rng(seed)
     xyz = np.vstack([rng.uniform(0, 10, (n - n // 8, 3)),
                      rng.uniform(0, 40, (n // 8, 3))]).astype(np.float32)
+    if lattice:
+        xyz = np.round(xyz).astype(np.float32)
     valid = rng.random(n) > 0.05
     xyz[~valid & (rng.random(n) > 0.5)] = np.nan
     xyz[7] = xyz[8]  # an exact duplicate: a tie at some kth
@@ -42,9 +46,12 @@ def _rescue_inputs(xyz, valid, k, cell):
                                     xyz.shape[0], 4.0 * np.float32(cell))
 
 
-@pytest.mark.parametrize("n,k,cell", [(3000, 15, 0.8), (2000, 6, 1.0)])
-def test_rescue_knn_plain_matches_pallas_and_mirror(n, k, cell):
-    xyz, valid = _cloud(n, n)
+@pytest.mark.parametrize("n,k,cell,lattice", [
+    (3000, 15, 0.8, False), (2000, 6, 1.0, False), (2000, 10, 1.0, True),
+    (2000, 1, 1.0, True), (2000, 32, 1.0, False)])
+def test_rescue_knn_plain_matches_pallas_and_mirror(n, k, cell, lattice):
+    """k 32 is the most the port's kernels take."""
+    xyz, valid = _cloud(n, n, lattice)
     planar_g, q_planar, active, qvalid, _ = _rescue_inputs(xyz, valid, k,
                                                            cell)
     assert int(np.asarray(qvalid).sum()) > 128  # rows to rescue
@@ -57,20 +64,32 @@ def test_rescue_knn_plain_matches_pallas_and_mirror(n, k, cell):
                                  to_torch(active), k=k, gr=8).numpy()
     assert kernels.LAUNCHES["rescue_knn_idx"] == 0  # CPU: plain
     assert (got[2 * k + 2] == 1.0).all()
+    # Rows whose k + 1 nearest distances all differ (the mirror's; a
+    # missing one is no tie): there no order among equal distances enters.
+    mir1 = np.asarray(jsweep._rescue_knn_xla(planar_g, q_planar, active,
+                                             k=k + 1, gr=8))[:k + 1]
+    with np.errstate(invalid="ignore"):  # inf - inf past the count
+        distinct = (np.diff(mir1, axis=0) != 0).all(axis=0)
     for want in (pal, mir):
         cert = want[2 * k + 2] > 0.5
         assert cert.mean() > 0.9
         np.testing.assert_array_equal(got[:k, cert], want[:k, cert])
         np.testing.assert_array_equal(got[2 * k:2 * k + 2, cert],
                                       want[2 * k:2 * k + 2, cert])
-        # Positions where the kth distance is untied among the candidates.
-        d = got[:k]
-        untied = cert & np.isfinite(d).all(axis=0)
-        with np.errstate(invalid="ignore"):  # inf - inf past the count
-            untied &= (np.diff(d, axis=0) != 0).all(axis=0)
-        assert untied.mean() > 0.5
+        if lattice:  # ties at the kth: compared where the k + 1 differ
+            assert (cert & ~distinct).mean() > 0.1
+            untied = cert & distinct
+        else:  # where the k distances differ
+            d = got[:k]
+            untied = cert & np.isfinite(d).all(axis=0)
+            with np.errstate(invalid="ignore"):
+                untied &= (np.diff(d, axis=0) != 0).all(axis=0)
+            assert untied.mean() > 0.5
         np.testing.assert_array_equal(got[k:2 * k, untied],
                                       want[k:2 * k, untied])
+    # Ties go to the smaller position in the port and the mirror alike.
+    cert = mir[2 * k + 2] > 0.5
+    np.testing.assert_array_equal(got[k:2 * k, cert], mir[k:2 * k, cert])
     # The positions name the candidates at the reported distances.
     pos = got[k:2 * k]
     found = pos >= 0
