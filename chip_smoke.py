@@ -23,7 +23,9 @@ Phases:
    torch version on the card, and both timed with CUDA events, with the
    work the warp-select kernels see (live blocks, valid queries, rows or
    groups a block walks); `sweep_moments` and `rescue_knn_idx` also at
-   the normals op's inputs on phase 6's 100K cloud (phase2.json);
+   the normals op's inputs on phase 6's 100K cloud, `brute_knn_idx` also
+   at the overflow SOR op's (4,096 live queries) and at the clean 100K
+   SOR op's (no live block) (phase2.json);
 3. KITTI end to end with RANSAC seeds 0-4: every KITTI kernel launched, no
    overflow flag, sor_certified, >= 3 clusters, cluster sets equal to the
    port's own CPU run of the same frame and seed; per-stage times and the
@@ -69,7 +71,9 @@ Phases:
    (sor_backend "xla" and "pallas") and of `euclidean_cluster` on a
    uniform cloud of 1.2M points (bucket 2^21, above the reference's
    residency gate, so the hop loop runs) in a 63 m cube at r 0.5, with
-   `torch.topk` of the work rows as kernel 18's yardstick; the bench frame
+   `torch.topk` of the work rows as kernel 18's yardstick (kernel 18 at
+   both of its "xla" frame callers, `point_sor_mean_dists` and
+   `cell_knn_subset`); the bench frame
    through both backends for RANSAC seeds 0-4 (launches, grid flags,
    sor_certified and clusters reported, not gated; seed 0 equal to the
    port's CPU run: centroids, keep mask, plane, clusters; stage times and
@@ -90,12 +94,15 @@ compares this checkout with others (each DIR an unpacked checkout, e.g.
 `git archive` of an earlier commit) on the same card instead: it captures
 the inputs that the KITTI sweep frame (RANSAC seed 0), the SOR op on the
 noisy 100K cloud, the aerial bench frame (seed 0; with normals_rescue for
-`rescue_knn_idx`) and the normals op on the 100K cloud give their
+`rescue_knn_idx`), the normals op on the 100K cloud, the KITTI "xla"
+frame (`segmented_select` at both callers) and the SOR op on the overflow
+and the clean 100K clouds (`brute_knn_idx`) give their
 kernels, then runs the trees in the order DIR..., this, this, ...DIR (so
 that drift on the card shows), each in a fresh process that builds its
 own kernels: each kernel against its plain version at the captured
 inputs (as phase 2) and timed with CUDA events, the KITTI frame p50 and
-stage medians (as phase 3), the SOR op p50, the aerial frame p50 and
+stage medians (as phase 3), the noisy and overflow SOR op p50s, the KITTI
+"xla" frame p50 and stage medians (as phase 8), the aerial frame p50 and
 stage medians (as phase 4), the normals and `knn` 100K op p50s. Each
 tree's ptxas log and numbers go to chiprun_out/ab.json.
 """
@@ -142,6 +149,9 @@ KERNELS = {
 PHASE8_KERNELS = ("cluster_propagate", "sor_select", "segmented_select")
 # The kernels phase 2 also checks at the normals 100K op's inputs.
 NORMALS_KERNELS = ["sweep_moments", "rescue_knn_idx"]
+# Kernel 18's callers in the "xla" KITTI frame (the first is its row in the
+# kernels' line; phase 8 and --ab check it at both).
+SEG_CALLERS = ("point_sor_mean_dists", "cell_knn_subset")
 # Kernels whose outputs are held bitwise against their plain versions (the
 # same f32 operations in the same order; counts are exact integer sums;
 # labels are integers).
@@ -301,13 +311,25 @@ class Spy:
             setattr(mod, name, orig)
 
 
-def capture_inputs(run, names):
+def _called_within(fn_name: str) -> bool:
+    """Whether a function named ``fn_name`` is on the Python call stack."""
+    f = sys._getframe(1)
+    while f is not None:
+        if f.f_code.co_name == fn_name:
+            return True
+        f = f.f_back
+    return False
+
+
+def capture_inputs(run, names, within=None):
     """Run one frame with the named kernel wrappers spied on where the
-    pipeline calls them; keep each kernel's first arguments."""
+    pipeline calls them; keep each kernel's first arguments (``within``:
+    its first call made inside a function of that name)."""
     captured = {}
 
     def hook(name, orig, a, k):
-        if name not in captured:
+        if name not in captured and (within is None
+                                     or _called_within(within)):
             captured[name] = (tuple(x.clone() if torch.is_tensor(x) else x
                                     for x in a), dict(k))
         return orig(*a, **k)
@@ -550,7 +572,12 @@ def work(name, args, kwargs, out):
         return nbytes, 7 * real * int((pts[:, 3] > 0.5).sum())
     if name == "sweep_knn_select":
         return nbytes, PAIR_OPS * pair * _window_rows(args[1])
-    if name in ("brute_knn_idx", "brute_radius_count", "nn_argmin"):
+    if name == "brute_knn_idx":
+        # Each valid query against every candidate row.
+        q, cand = args
+        valid = int((q[:, 3, :] > 0.5).sum())
+        return nbytes, PAIR_OPS * 128 * valid * cand.shape[0]
+    if name in ("brute_radius_count", "nn_argmin"):
         q, cand = args
         live_w = 0.0 if name == "brute_radius_count" else 0.5
         live = int((q[:, 3, :].amax(dim=1) >= live_w).sum())
@@ -727,6 +754,23 @@ def profile_op(fn, reps=5):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
     return (busy / wall_us, len(kern) / reps,
             [(n[:60], round(t / reps / 1e3, 4)) for n, t in top])
+
+
+def device_ms(fn, reps=20):
+    """Device time of the kernels one call of ``fn`` launches, from
+    torch.profiler over ``reps`` calls: a small kernel's CUDA-event time
+    (`cuda_ms`) is its wrapper's host time when that is the longer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3
 
 
 def row_index(pts, out_pts):
@@ -1189,14 +1233,33 @@ CELLGRID_STAGES = ["voxel_downsample_masked", "build_cellgrid",
                    "cell_graph_adjacency", "cell_graph_labels"]
 
 
+def brute_captures(overflow, clean):
+    """Kernel 13's other SOR ops, as (label, cloud): the overflow cloud
+    (its most live queries) and the clean 100K cloud (no live block)."""
+    return (("sor overflow", overflow), ("sor clean 100K", clean))
+
+
+def seg_captures(pc, kdata):
+    """Kernel 18's inputs in the "xla" KITTI frame (seed 0), per caller."""
+    return {f"kitti xla {fn}": capture_inputs(
+        lambda: run_kitti(pc, kdata, 0, "cuda", sor_backend="xla"),
+        ["segmented_select"], within=fn) for fn in SEG_CALLERS}
+
+
+def seg_topk(args, kwargs):
+    """Kernel 18's yardstick: ``torch.topk`` of its rows."""
+    return lambda: torch.topk(args[0], kwargs["k"], dim=1, largest=False)
+
+
 def phase8_kernels(card_line, K, pc, kdata, api, large):
     """Kernels 16-18 against their plain versions, at the inputs the
     KITTI cell-grid backends and the large-cloud clustering give them;
-    kernel 18's yardstick is ``torch.topk`` of its rows."""
-    captured = {}
+    kernel 18's yardstick is ``torch.topk`` of its rows. Returns the
+    kernels' rows and kernel 18's row at its second caller."""
+    seg = seg_captures(pc, kdata)
+    first, second = seg
+    captured = dict(seg[first])
     for run, names in (
-            (lambda: run_kitti(pc, kdata, 0, "cuda", sor_backend="xla"),
-             ["segmented_select"]),
             (lambda: run_kitti(pc, kdata, 0, "cuda", sor_backend="pallas"),
              ["sor_select"]),
             (lambda: api.euclidean_cluster(large, LARGE_R, *CLUSTER_SIZES),
@@ -1205,12 +1268,14 @@ def phase8_kernels(card_line, K, pc, kdata, api, large):
     rows = []
     for name in PHASE8_KERNELS:
         args, kwargs = captured[name]
-        library = None
-        if name == "segmented_select":
-            library = (lambda w=args[0], k=kwargs["k"]:
-                       torch.topk(w, k, dim=1, largest=False))
-        rows.append(kernel_row(name, args, kwargs, K, card_line, library))
-    return rows
+        is_seg = name == "segmented_select"
+        rows.append(kernel_row(name, args, kwargs, K, card_line,
+                               seg_topk(args, kwargs) if is_seg else None,
+                               first if is_seg else ""))
+    args, kwargs = seg[second]["segmented_select"]
+    extra = kernel_row("segmented_select", args, kwargs, K, card_line,
+                       seg_topk(args, kwargs), second)
+    return rows, extra
 
 
 def kitti_summary(pc, out) -> dict:
@@ -1234,8 +1299,8 @@ def phase8(card_line, K, pc, kitti_mod, kdata, add):
     large_pts = (np.random.default_rng(8).random((LARGE_POINTS, 3))
                  * LARGE_BOX).astype(np.float32)
     large = api.PointCloud.from_numpy(large_pts)
-    rows = phase8_kernels(card_line, K, pc, kdata, api, large)
-    record = dict(card=card_line, kitti={})
+    rows, seg_extra = phase8_kernels(card_line, K, pc, kdata, api, large)
+    record = dict(card=card_line, kitti={}, segmented_select_extra=seg_extra)
     kcloud = pc.make_cloud_arrays(kdata, device="cuda")
     for backend in CELLGRID_BACKENDS:
         outs, launches = path_launches(K, f"kitti_{backend}", lambda: {
@@ -1304,6 +1369,7 @@ def ab_capture(path: Path) -> None:
     kdata = velodyne_scene(seed=0, n_points=KITTI_POINTS)
     adata = aerial_scene(seed=42, scale=1.0)
     noisy = api.PointCloud.from_numpy(noisy_cloud(NOISY_BOX))
+    overflow = api.PointCloud.from_numpy(noisy_cloud(OVERFLOW_BOX))
     u100k = api.PointCloud.from_numpy(bench_cloud(100_000))
     sets = {
         "kitti": capture_inputs(lambda: run_kitti(pc, kdata, 0, "cuda"),
@@ -1318,6 +1384,11 @@ def ab_capture(path: Path) -> None:
                                normals_rescue=True), ["rescue_knn_idx"]),
         "normals 100K": capture_inputs(
             lambda: api.estimate_normals(u100k, 10), NORMALS_KERNELS),
+        **seg_captures(pc, kdata),
+        **{label: capture_inputs(
+            lambda c=c: api.statistical_outlier_removal(c, 10, 2.0),
+            ["brute_knn_idx"])
+           for label, c in brute_captures(overflow, u100k)},
     }
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(sets, path)
@@ -1345,10 +1416,13 @@ def ab_child(tree: Path, inputs: Path) -> dict:
         line.strip() for line in lib.log.splitlines()
         if any(w in line for w in ("entry function", "registers", "spill"))],
         kernels={})
+    res["device_ms"] = {}
     for label, captured in torch.load(inputs, weights_only=False).items():
         for name, (args, kwargs) in captured.items():
             res["kernels"][f"{name} {label}"] = check_kernel(
                 name, args, kwargs, K)[2]
+            res["device_ms"][f"{name} {label}"] = device_ms(
+                lambda: getattr(K, name)(*args, **kwargs), 5)
     kdata = velodyne_scene(seed=0, n_points=KITTI_POINTS)
     kcloud = pc.make_cloud_arrays(kdata, device="cuda")
     run_kitti(pc, kdata, 0, cloud=kcloud)
@@ -1358,6 +1432,14 @@ def ab_child(tree: Path, inputs: Path) -> dict:
     noisy = api.PointCloud.from_numpy(noisy_cloud(NOISY_BOX))
     res["sor_op_p50_ms"] = p50_ms(
         lambda: api.statistical_outlier_removal(noisy, 10, 2.0))[0]
+    overflow = api.PointCloud.from_numpy(noisy_cloud(OVERFLOW_BOX))
+    res["sor_overflow_op_p50_ms"] = p50_ms(
+        lambda: api.statistical_outlier_removal(overflow, 10, 2.0))[0]
+    run_kitti(pc, kdata, 0, cloud=kcloud, sor_backend="xla")
+    res["xla_stages"], res["xla_p50_ms"] = timed_frames(
+        lambda f: run_kitti(pc, kdata, f % len(SEEDS), cloud=kcloud,
+                            sor_backend="xla"), len(SEEDS), kitti_mod,
+        CELLGRID_STAGES, card_line, "kitti xla")
     adata = aerial_scene(seed=42, scale=1.0)
     acloud = pc.make_cloud_arrays(adata, device="cuda")
     run_aerial(pc, adata, 0, cloud=acloud)
@@ -1390,7 +1472,12 @@ def ab_main(others) -> int:
             f"{k} {v:.4f}" for k, v in r["kernels"].items()) + " ms; "
             f"sweep_sor_two_pass {r['stages']['sweep_sor_two_pass']:.3f} ms, "
             f"KITTI frame p50 {r['frame_p50_ms']:.3f} ms, SOR noisy 100K op "
-            f"p50 {r['sor_op_p50_ms']:.3f} ms, normals_from_moment_rows "
+            f"p50 {r['sor_op_p50_ms']:.3f} ms, SOR overflow op p50 "
+            f"{r['sor_overflow_op_p50_ms']:.3f} ms, point_sor_mean_dists "
+            f"{r['xla_stages']['point_sor_mean_dists']:.3f} ms, "
+            f"cell_knn_subset {r['xla_stages']['cell_knn_subset']:.3f} ms, "
+            f"KITTI xla frame p50 {r['xla_p50_ms']:.3f} ms, "
+            f"normals_from_moment_rows "
             f"{r['aerial_stages']['normals_from_moment_rows']:.3f} ms, "
             f"aerial frame p50 {r['aerial_p50_ms']:.3f} ms, normals 100K op "
             f"p50 {r['normals_op_p50_ms']:.3f} ms, knn 100K op p50 "
@@ -1493,13 +1580,28 @@ def main() -> int:
     # cloud), beside the aerial frames' captures above.
     normals = capture_inputs(lambda: api.estimate_normals(knn_cloud, 10),
                              NORMALS_KERNELS)
+    # Kernel 13 also at the overflow SOR op (its most live queries) and at
+    # the clean 100K SOR op (no live block), beside the noisy op above.
+    brute = {label: capture_inputs(
+        lambda c=c: api.statistical_outlier_removal(c, 10, 2.0),
+        ["brute_knn_idx"])["brute_knn_idx"]
+        for label, c in brute_captures(overflow, knn_cloud)}
+    brute_rows = []
+    for label, (args, kwargs) in brute.items():
+        row = kernel_row("brute_knn_idx", args, kwargs, K, card_line,
+                         label=label)
+        row["device_ms"] = device_ms(lambda: K.brute_knn_idx(*args, **kwargs))
+        log(f"kernel brute_knn_idx ({label}): device {row['device_ms']:.4f} "
+            f"ms a call (torch.profiler) [{card_line}]")
+        brute_rows.append(row)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "phase2.json").write_text(json.dumps(dict(
         card=card_line, kernels=rows, normals_100k=[
             dict(kernel_row(name, *normals[name], K, card_line,
                             label="normals 100K"),
                  work=select_work(name, *normals[name]))
-            for name in NORMALS_KERNELS]), indent=1))
+            for name in NORMALS_KERNELS], brute_knn_idx=brute_rows),
+        indent=1))
     launches_total = {name: 0 for name in KERNELS}
 
     def add(launches):

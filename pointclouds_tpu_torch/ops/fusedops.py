@@ -47,9 +47,8 @@ def fused_rescue_cap(n: int) -> int:
 
 def _rescue_kernel_fits(n: int, k: int) -> bool:
     """The brute rescue kernels take any cloud whose flat positions stay
-    exact in f32 and any k their per-thread top-k holds (k <= 24, as the
-    JAX package's gate; its VMEM-residency test has no counterpart on the
-    card)."""
+    exact in f32 and k up to the JAX package's gate of 24 (its
+    VMEM-residency test has no counterpart on the card)."""
     return k <= 24 and n <= 2**24
 
 

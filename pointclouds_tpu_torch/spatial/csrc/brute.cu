@@ -16,65 +16,64 @@
 // a point on the radius counts as there. Ties at equal d2 go to the smaller
 // position (a lexicographic (d2, position) order), whatever the split.
 //
-// Design: the callers compact flagged queries to the front, so only the
-// first ceil(nflag / 128) of at most 32 query blocks hold a valid query;
-// the others exit at once. 32 blocks could not fill 132 SMs, and each walks
-// the whole cloud (1,024 rows at 131,072 points), so every query block is
-// split over `nsplit` CUDA blocks that walk rows s, s + nsplit, ... Bound on
-// Hopper: the per-pair d2 + compare work of the live blocks (each staged
-// row is reused by 128 queries). kNN splits keep partial (d2, position)
-// top-k lists in registers and a merge kernel takes the k smallest of
-// their union; radius splits add integer counts with atomics (exact in any
-// order), written out as f32.
-#include "topk.cuh"
+// The callers compact flagged queries to the front, so only the first
+// ceil(nflag / 128) of at most 32 query blocks hold a valid query. Bound on
+// Hopper: the per-pair d2 + compare work of the live queries (operations;
+// each staged row is reused by the CTA's queries).
+//
+// brute_knn_idx runs on the warp-select core (warpselect.cuh) with 64-bit
+// (d2, position) keys, as rescue_knn_idx (knn.cu), over every row of the
+// cloud: S warps per query, each walking every S-th row of each 8-row tile,
+// their lists merged in shared memory at the end; W warps per CTA = W / S
+// queries of one block, sharing a cp.async ring of the cloud's rows. One
+// launch over (query block x CTA of the block); a CTA with no valid query
+// skips the walk and writes the fill (+inf, -1, 0), so a call with no live
+// block costs one launch of empty CTAs. No partial lists in device memory,
+// no merge kernel. The cloud comes in its own order, not sorted by cell, so
+// one streamed walk (tau falls as the list fills) replaces the bound walk:
+// 1.5-1.7x faster on the H100 at the noisy and overflow SOR ops' inputs.
+//
+// brute_radius_count splits every query block over `nsplit` CUDA blocks that
+// walk rows s, s + nsplit, ... (32 blocks could not fill 132 SMs) and adds
+// integer counts with atomics (exact in any order), written out as f32.
+#include "warpselect.cuh"
 
 namespace {
 
-// q: [qb, 4, 128] (w = validity); cand: [nr, 4, 128]. Block (b, s) writes
-// its partial lists to part_v / part_p [nsplit][k][qb * 128].
-__global__ void brute_knn_partial(const float* __restrict__ qpl,
-                                  const float* __restrict__ cand,
-                                  float* __restrict__ part_v,
-                                  int* __restrict__ part_p, int qb, int nr,
-                                  int k) {
-  __shared__ float sh[kRowFloats];
-  __shared__ int live;
-  const int b = blockIdx.x;
-  const int l = threadIdx.x;
+// cand: [nr, 4, 128]; q: [qb, 4, 128] (w = validity); out: [2k + 1, qb *
+// 128]. CTA i serves queries (i % kPer) * (W / S) + warp / S of block i /
+// kPer.
+template <int W, int S>
+__global__ void __launch_bounds__(W * 32)
+    brute_knn_kernel(const float* __restrict__ cand,
+                     const float* __restrict__ qpl, float* __restrict__ out,
+                     int qb, int nr, int k) {
+  __shared__ __align__(16) float sh[kStages * kTileFloats];
+  constexpr int kPer = ctas_per_block(W, S);
+  const int b = blockIdx.x / kPer;
+  const int warp = threadIdx.x / 32;
+  const int qi = (blockIdx.x % kPer) * (W / S) + warp / S;
   const float* q = qpl + (long long)b * kRowFloats;
-  const float qx = q[l], qy = q[kLanes + l], qz = q[2 * kLanes + l];
-  const bool qv = q[3 * kLanes + l] > 0.5f;
-  TopKIdx tk;
-  tk.init();
-  if (block_any(qv, &live))
-    for (int r = blockIdx.y; r < nr; r += gridDim.y)
-      visit_row_idx(cand, r, sh, qx, qy, qz, qv, tk, k);
-  store_partial_idx(tk, part_v, part_p, blockIdx.y, k, (long long)qb * kLanes,
-                    (long long)b * kLanes + l);
+  const bool live = q[3 * kLanes + qi] > 0.5f;
+  WarpKSmallest<Key> sel;
+  sel.init(k, threadIdx.x & 31);
+  if (__syncthreads_or(live)) {
+    select_rows<W * 32, S, false>(cand, EveryRow{}, nr, sh, q[qi],
+                                  q[kLanes + qi], q[2 * kLanes + qi], live,
+                                  warp % S, sel);
+    merge_slices<S>(sh, sel);
+  }
+  if (warp % S == 0)
+    sel.store_knn(out, (long long)qb * kLanes, (long long)b * kLanes + qi,
+                  false);
 }
 
-// One thread per query: the k smallest (d2, position) pairs of the partial
-// lists' union; out rows [0, k) sqrt d2, [k, 2k) positions, 2k the count.
-__global__ void brute_knn_merge(const float* __restrict__ part_v,
-                                const int* __restrict__ part_p,
-                                float* __restrict__ out, long long nq,
-                                int nsplit, int k) {
-  const long long qi = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (qi >= nq) return;
-  TopKIdx tk;
-  merge_partials_idx(part_v, part_p, nq, nsplit, k, qi, tk);
-  float count = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kMaxK; ++i) {
-    if (i < k) {
-      const bool found = tk.r[i] < kInf;
-      out[i * nq + qi] = found ? sqrtf(fmaxf(tk.r[i], 0.0f)) : kInf;
-      out[(k + i) * nq + qi] = found ? (float)tk.p[i] : -1.0f;
-      if (found) count = __fadd_rn(count, 1.0f);
-    }
-  }
-  out[2 * k * nq + qi] = count;
-}
+// (warps per CTA, warps per query), measured on the H100 at the noisy and
+// the overflow SOR ops' inputs (PERF.md): at the noisy op's 276 live
+// queries 4 warps a query tied 8 and beat 2 and 16; at the overflow op's
+// 4,096, where more queries share each staged row, 2 beat 4 by 1.35x and 4
+// beat 8 and 16. Few live queries are the common call. W 32 was no faster.
+constexpr int kBruteWarps = 16, kBruteSlices = 4;
 
 // q: [qb, 4, 128] (w = r2, -1 invalid); cand: [nr, 4, 128] (w = validity).
 // Block (b, s) adds its hits over rows s, s + nsplit, ... to counts.
@@ -102,21 +101,13 @@ __global__ void brute_radius_partial(const float* __restrict__ qpl,
 
 }  // namespace
 
-// part_v / part_p: scratch of nsplit * k * qb * 128 each; out: [2k + 1,
-// qb * 128].
-extern "C" int pc_brute_knn_idx(const float* q, const float* cand,
-                                float* part_v, int* part_p, float* out,
-                                int qb, int nr, int k, int nsplit,
-                                void* stream) {
-  if (qb == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  brute_knn_partial<<<dim3(qb, nsplit), kLanes, 0, s>>>(q, cand, part_v,
-                                                        part_p, qb, nr, k);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long nq = (long long)qb * kLanes;
-  brute_knn_merge<<<(unsigned)((nq + 127) / 128), 128, 0, s>>>(
-      part_v, part_p, out, nq, nsplit, k);
+// out: [2k + 1, qb * 128].
+extern "C" int pc_brute_knn_idx(const float* q, const float* cand, float* out,
+                                int qb, int nr, int k, void* stream) {
+  if (qb > 0)
+    brute_knn_kernel<kBruteWarps, kBruteSlices>
+        <<<qb * ctas_per_block(kBruteWarps, kBruteSlices), kBruteWarps * 32,
+           0, static_cast<cudaStream_t>(stream)>>>(cand, q, out, qb, nr, k);
   return (int)cudaGetLastError();
 }
 

@@ -12,23 +12,32 @@
 //
 // The TPU kernels extract minima one at a time (sor_select) or through
 // per-lane segment finalists with a certificate (segmented_select). Here
-// the selection is an exact top-k in registers (topk.cuh), so
-// segmented_select's ok is always 1. total adds sqrt of the selected values
-// in ascending order (the TPU kernels' extraction order, so the f32 sums are
-// bitwise the same), count counts them, kth is the last of them (0 if none).
+// each selection is exact, so segmented_select's ok is always 1. total adds
+// sqrt of the selected values in ascending order (the TPU kernels'
+// extraction order, so the f32 sums are bitwise the same), count counts
+// them, kth is the last of them (0 if none).
 //
-// sor_select: one block per cell, a thread per query. The slab's candidates
-// are staged in shared memory in tiles of kTile (x, y, z, valid), each tile
-// reused by all the cell's queries; a cell with no valid query (every slot
-// past num_cells) returns at once. Bound: the d2 + compare of M * CAND pairs
-// per occupied cell (operations).
+// sor_select: one block per cell, a thread per query, each an exact top-k
+// in registers (topk.cuh). The slab's candidates are staged in shared
+// memory in tiles of kTile (x, y, z, valid), each tile reused by all the
+// cell's queries; a cell with no valid query (every slot past num_cells)
+// returns at once. Bound: the d2 + compare of M * CAND pairs per occupied
+// cell (operations).
 //
-// segmented_select: one warp per row. Lane l folds elements l, l + 32, ...
-// (coalesced loads) into its own top-k; then k rounds of a warp-wide
-// (value, lane) minimum merge the 32 sorted lists, the winning lane shifting
-// its list by one. Bound: one read of the work array (bytes); after the
-// first k elements most pushes stop at the threshold compare.
-#include "topk.cuh"
+// segmented_select: one warp per row on the warp-select core
+// (warpselect.cuh, WarpKSmallest<float>: lane i holds the i-th smallest
+// value, tau = entry k-1). Bound: one read of the work array (bytes), so
+// the row is read once, in chunks of 32 * kSegValues values held in
+// registers (16-byte loads where the rows are 16-byte aligned, all of a
+// chunk's loads in flight at once). Each lane keeps its four smallest of
+// the chunk (a min/max network, no shuffles) and the warp offers those
+// four steps to the list: a ballot each, few insertions. The k smallest
+// of a row rarely put more than four in one lane; a lane whose fourth is
+// still below tau then offers the rest of its chunk (its values above the
+// fourth and its extra copies of it: everything below the fourth is among
+// the first three). Only the multiset of the k smallest leaves the kernel,
+// so skipping a value equal to tau is exact.
+#include "warpselect.cuh"
 
 namespace {
 
@@ -98,47 +107,92 @@ __global__ void sor_select_kernel(const float* __restrict__ q,
   }
 }
 
-__global__ void segmented_select_kernel(const float* __restrict__ work,
-                                        float* __restrict__ out, long long nq,
-                                        int w, int k) {
+// Values a lane holds per chunk of a row and warps per CTA, measured on
+// the H100 at the KITTI "xla" frame's inputs (PERF.md): 16 and 32 values
+// ran as fast as 48; 16 warps (64 registers, 2 CTAs an SM) beat 8 and 4.
+// Offering every value behind a vote per four, instead of a lane's four
+// smallest, ran 1.12x slower.
+constexpr int kSegValues = 48;
+constexpr int kSegWarps = 16;
+
+// This lane's kSegValues values of the chunk at c0 of row `wr` (+inf past
+// w; NaN read as +inf, as the plain version ranks it): kVec, elements c0 +
+// 4 (32 u + lane) + j, one 16-byte load each (wr and w 16-byte aligned);
+// else c0 + 32 u + lane.
+template <bool kVec>
+__device__ __forceinline__ void load_chunk(const float* __restrict__ wr,
+                                           int c0, int w, int lane,
+                                           float (&v)[kSegValues]) {
+  if constexpr (kVec) {
+    const float4* p = reinterpret_cast<const float4*>(wr + c0);
+#pragma unroll
+    for (int u = 0; u < kSegValues / 4; ++u) {
+      float4 x = make_float4(kInf, kInf, kInf, kInf);
+      if (c0 + 4 * (32 * u + lane) < w) x = __ldg(p + 32 * u + lane);
+      v[4 * u] = x.x;
+      v[4 * u + 1] = x.y;
+      v[4 * u + 2] = x.z;
+      v[4 * u + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < kSegValues; ++u) {
+      const int e = c0 + 32 * u + lane;
+      v[u] = e < w ? __ldg(wr + e) : kInf;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kSegValues; ++u) v[u] = fminf(v[u], kInf);
+}
+
+// Lanes with `rest` offer what their chunk holds beyond its four smallest
+// m[0..3]: the values above m[3] and the copies of m[3] past those among
+// m[0..3]. The whole warp calls this.
+__device__ void offer_rest(const float (&v)[kSegValues], const float (&m)[4],
+                           bool rest, WarpKSmallest<float>& sel) {
+  int extra = 0;
+#pragma unroll
+  for (int u = 0; u < kSegValues; ++u) {
+    sel.offer(rest && v[u] > m[3] ? v[u] : kInf);
+    extra += v[u] == m[3];
+  }
+  extra = rest ? extra - 1 - (m[0] == m[3]) - (m[1] == m[3]) - (m[2] == m[3])
+               : 0;
+  while (__any_sync(kFullMask, extra > 0)) {
+    sel.offer(extra > 0 ? m[3] : kInf);
+    --extra;
+  }
+}
+
+// work: [nq, w]; out: [4, nq]. Warp i of CTA b selects row b * kSegWarps + i.
+template <bool kVec>
+__global__ void __launch_bounds__(kSegWarps * 32)
+    segmented_select_kernel(const float* __restrict__ work,
+                            float* __restrict__ out, long long nq, int w,
+                            int k) {
   const int lane = threadIdx.x & 31;
-  const long long row =
-      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const long long row = (long long)blockIdx.x * kSegWarps + threadIdx.x / 32;
   if (row >= nq) return;  // the whole warp: row is warp-uniform
   const float* wr = work + row * w;
-  TopK tk;
-  tk.init();
-  for (int j = lane; j < w; j += 32) tk.push(__ldg(wr + j), k);
-  float total = 0.0f, count = 0.0f, kth = 0.0f;
-  for (int i = 0; i < k; ++i) {
-    float v = tk.r[0];
-    int who = lane;
+  WarpKSmallest<float> sel;
+  sel.init(k, lane);
+  for (int c0 = 0; c0 < w; c0 += 32 * kSegValues) {
+    float v[kSegValues];
+    load_chunk<kVec>(wr, c0, w, lane, v);
+    float m[4] = {kInf, kInf, kInf, kInf};  // this lane's four smallest
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-      const int ow = __shfl_xor_sync(0xffffffffu, who, off);
-      if (ov < v || (ov == v && ow < who)) {
-        v = ov;
-        who = ow;
-      }
+    for (int u = 0; u < kSegValues; ++u) {
+      m[3] = fminf(m[3], fmaxf(m[2], v[u]));
+      m[2] = fminf(m[2], fmaxf(m[1], v[u]));
+      m[1] = fminf(m[1], fmaxf(m[0], v[u]));
+      m[0] = fminf(m[0], v[u]);
     }
-    if (lane == who) {
 #pragma unroll
-      for (int j = 0; j < kMaxK - 1; ++j) tk.r[j] = tk.r[j + 1];
-      tk.r[kMaxK - 1] = kInf;
-    }
-    if (v < kInf) {
-      total = __fadd_rn(total, sqrtf(fmaxf(v, 0.0f)));
-      count = __fadd_rn(count, 1.0f);
-      kth = v;
-    }
+    for (int j = 0; j < 4; ++j) sel.offer(m[j]);
+    const bool rest = m[3] < sel.tau;
+    if (__any_sync(kFullMask, rest)) offer_rest(v, m, rest, sel);
   }
-  if (lane == 0) {
-    out[row] = total;
-    out[nq + row] = count;
-    out[2 * nq + row] = kth;
-    out[3 * nq + row] = 1.0f;
-  }
+  sel.store(out, nq, row);
 }
 
 }  // namespace
@@ -160,10 +214,13 @@ extern "C" int pc_sor_select(const float* q, const unsigned char* qm,
 extern "C" int pc_segmented_select(const float* work, float* out,
                                    long long nq, int w, int k, void* stream) {
   if (nq == 0) return 0;
-  constexpr int kWarps = 8;
-  const unsigned blocks = (unsigned)((nq + kWarps - 1) / kWarps);
-  segmented_select_kernel<<<blocks, kWarps * 32, 0,
-                            static_cast<cudaStream_t>(stream)>>>(work, out, nq,
-                                                                 w, k);
+  const unsigned blocks = (unsigned)((nq + kSegWarps - 1) / kSegWarps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((unsigned long long)work % 16 == 0 && w % 4 == 0)
+    segmented_select_kernel<true><<<blocks, kSegWarps * 32, 0, s>>>(
+        work, out, nq, w, k);
+  else
+    segmented_select_kernel<false><<<blocks, kSegWarps * 32, 0, s>>>(
+        work, out, nq, w, k);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 // Per-thread exact top-k (k <= 32) in registers, shared by the kernels that
-// keep one thread per query (sweep_select, sweep_knn_select, the brute
-// force, the cell-grid selections). Each thread owns one query; candidate
-// rows of 128 points are staged in shared memory by the whole block
-// (`stage_row`). The warp-cooperative kernels build on warpselect.cuh.
+// keep one thread per query (sweep_select, sweep_knn_select, sor_select).
+// Each thread owns one query; candidate rows of 128 points are staged in
+// shared memory by the whole block (`stage_row`). The warp-cooperative
+// kernels build on warpselect.cuh.
 #pragma once
 #include "common.cuh"
 
@@ -131,35 +131,6 @@ __device__ __forceinline__ void visit_row_idx(const float* __restrict__ pts,
       tk.push(d2_rn(qx, qy, qz, sh[j], sh[kLanes + j], sh[2 * kLanes + j]),
               pos0 + j, k);
   }
-}
-
-// Partial (d2, position) lists of a split walk: part_v / part_p are
-// [nsplit][k][nq]; split s of query qi writes its k slots (+inf pad).
-__device__ __forceinline__ void store_partial_idx(const TopKIdx& tk,
-                                                  float* part_v, int* part_p,
-                                                  int split, int k,
-                                                  long long nq,
-                                                  long long qi) {
-#pragma unroll
-  for (int i = 0; i < kMaxK; ++i)
-    if (i < k) {
-      part_v[((long long)split * k + i) * nq + qi] = tk.r[i];
-      part_p[((long long)split * k + i) * nq + qi] = tk.p[i];
-    }
-}
-
-// The k smallest (d2, position) pairs of the union of the nsplit partial
-// lists of query qi (ties to the smaller position whatever the split).
-__device__ __forceinline__ void merge_partials_idx(
-    const float* __restrict__ part_v, const int* __restrict__ part_p,
-    long long nq, int nsplit, int k, long long qi, TopKIdx& tk) {
-  tk.init();
-  for (int s = 0; s < nsplit; ++s)
-    for (int i = 0; i < k; ++i) {
-      const long long at = ((long long)s * k + i) * nq + qi;
-      const float v = part_v[at];
-      if (v < kInf) tk.push(v, part_p[at], k);
-    }
 }
 
 // The kNN output rows of query qi (of nq): [0, k) sqrt d2 ascending (+inf

@@ -56,6 +56,15 @@ __device__ __forceinline__ float key_none<float>() { return kInf; }
 template <>
 __device__ __forceinline__ Key key_none<Key>() { return ~0ull; }
 
+// The least key of value v: keys below it hold a smaller value.
+template <class K>
+__device__ __forceinline__ K value_bound(float v) {
+  if constexpr (sizeof(K) == 8)
+    return (Key)__float_as_uint(v) << 32;
+  else
+    return v;
+}
+
 __device__ __forceinline__ float kmin(float x, float y) { return fminf(x, y); }
 __device__ __forceinline__ Key kmin(Key x, Key y) { return x < y ? x : y; }
 
@@ -107,12 +116,14 @@ struct WarpKSmallest {
   K bound;  // from set_bound: keys at or above it cannot be needed
   int k, lane;
 
+  // An empty list; the bound admits every finite d2 (a masked candidate's
+  // +inf never enters, so a row's vote can read tau's value from the start).
   __device__ void init(int k_, int lane_) {
     k = k_;
     lane = lane_;
     list = key_none<K>();
-    tau = key_none<K>();
-    bound = key_none<K>();
+    bound = value_bound<K>(kInf);
+    tau = bound;
   }
 
   __device__ __forceinline__ void refresh() {
@@ -127,17 +138,14 @@ struct WarpKSmallest {
   // whole warp calls this.
   __device__ void set_bound(float m1, float m2) {
     const float s = warp_merge(warp_sort(m1, lane), warp_sort(m2, lane), lane);
-    const float v = nextafterf(__shfl_sync(kFullMask, s, k - 1), kInf);
-    if constexpr (kKeyed)
-      bound = (Key)__float_as_uint(v) << 32;
-    else
-      bound = v;
+    bound = value_bound<K>(
+        nextafterf(__shfl_sync(kFullMask, s, k - 1), kInf));
     refresh();
   }
 
   // Whether a candidate at distance d may still enter (a row's vote): a
-  // value below tau's, or equal to it with a smaller position. After
-  // set_bound, tau's value is at most +inf.
+  // value below tau's, or equal to it with a smaller position. Tau's value
+  // is at most +inf (init, set_bound).
   __device__ __forceinline__ bool may_enter(float d) const {
     if constexpr (kKeyed)
       return d <= key_value(tau);
@@ -217,8 +225,10 @@ struct WarpKSmallest {
   // The kNN output rows of query `col` of out [2k + 3, nq] (`store_knn_idx`
   // in topk.cuh): lane i < k writes its entry's sqrt d2 (+inf pad) and
   // position (-1 pad), lane 0 the count, the kth d2 (0 if none) and the
-  // certificate, always 1 (the selection is exact).
-  __device__ void store_knn(float* out, long long nq, long long col) const {
+  // certificate, always 1 (the selection is exact). Without `stats`, out is
+  // [2k + 1, nq]: the count is its last row.
+  __device__ void store_knn(float* out, long long nq, long long col,
+                            bool stats = true) const {
     static_assert(kKeyed, "store_knn: the keyed list");
     int count;
     float kth;
@@ -231,8 +241,10 @@ struct WarpKSmallest {
     }
     if (lane == 0) {
       out[2 * k * nq + col] = (float)count;
-      out[(2 * k + 1) * nq + col] = kth;
-      out[(2 * k + 2) * nq + col] = 1.0f;
+      if (stats) {
+        out[(2 * k + 1) * nq + col] = kth;
+        out[(2 * k + 2) * nq + col] = 1.0f;
+      }
     }
   }
 };
@@ -332,40 +344,45 @@ __device__ __forceinline__ void walk_rows(const float* __restrict__ pts,
 
 // The exact k smallest keys of the query (qx, qy, qz) over its share of
 // the `nrows` candidate rows (rows slice, slice + S, ... of each 8-row
-// tile) into `sel`, in two walks. The rows arrive in sorted-cell order, so
-// a query's distances mostly fall as the walk nears its own cell: streamed
-// as they come, nearly every step would carry a merge. The first walk
-// keeps each lane's two smallest d2 (strided lanes) for `set_bound`; the
-// second offers only what lies at or below that bound, a few more values
-// than k a query. Both SOR passes measured faster this way than with one
-// streamed walk, in the same run on the H100 at the KITTI bench inputs
-// (PERF.md). A keyed selection's positions are row_at(t) * 128 + lane of
-// the candidate frame. Every thread of the CTA calls this with the same
-// nrows; `live` is uniform over each warp.
-template <int kThreads, int S, class RowAt, class K>
+// tile) into `sel`. With kBoundWalk, in two walks: the rows arrive in
+// sorted-cell order, so a query's distances mostly fall as the walk nears
+// its own cell, and streamed as they come nearly every step would carry a
+// merge. The first walk keeps each lane's two smallest d2 (strided lanes)
+// for `set_bound`; the second offers only what lies at or below that
+// bound, a few more values than k a query. Both SOR passes measured faster
+// this way than with one streamed walk, in the same run on the H100 at the
+// KITTI bench inputs (PERF.md). Without it, one streamed walk: for rows in
+// no spatial order (the whole-cloud rescues), where tau falls as fast as
+// it would behind a bound and the second read buys nothing. A keyed
+// selection's positions are row_at(t) * 128 + lane of the candidate frame.
+// Every thread of the CTA calls this with the same nrows; `live` is
+// uniform over each warp.
+template <int kThreads, int S, bool kBoundWalk = true, class RowAt, class K>
 __device__ __forceinline__ void select_rows(const float* __restrict__ pts,
                                             RowAt row_at, int nrows,
                                             float* sh, float qx, float qy,
                                             float qz, bool live, int slice,
                                             WarpKSmallest<K>& sel) {
   const int lane = threadIdx.x & 31;
-  float m1 = kInf, m2 = kInf;  // this lane's two smallest d2
-  walk_rows<kThreads>(pts, row_at, nrows, sh, live, slice, S,
-                      [&](const float* s, int) {
-    float d[4];
-    row_d2<true>(s, lane, qx, qy, qz, d);
+  if constexpr (kBoundWalk) {
+    float m1 = kInf, m2 = kInf;  // this lane's two smallest d2
+    walk_rows<kThreads>(pts, row_at, nrows, sh, live, slice, S,
+                        [&](const float* s, int) {
+      float d[4];
+      row_d2<true>(s, lane, qx, qy, qz, d);
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      m2 = fminf(m2, fmaxf(m1, d[u]));
-      m1 = fminf(m1, d[u]);
-    }
-  });
-  sel.set_bound(m1, m2);
+      for (int u = 0; u < 4; ++u) {
+        m2 = fminf(m2, fmaxf(m1, d[u]));
+        m1 = fminf(m1, d[u]);
+      }
+    });
+    sel.set_bound(m1, m2);
+  }
   walk_rows<kThreads>(pts, row_at, nrows, sh, live, slice, S,
                       [&](const float* s, int t) {
     float d[4];
     row_d2<false>(s, lane, qx, qy, qz, d);
-    // Most rows hold nothing below the bound: one vote skips them.
+    // Most rows hold nothing below tau: one vote skips them.
     if (__any_sync(kFullMask, sel.may_enter(fminf(fminf(d[0], d[1]),
                                                   fminf(d[2], d[3]))))) {
       int pos = 0;  // of candidate 4 lane (the 16-byte loads' order)
@@ -400,6 +417,11 @@ __device__ __forceinline__ void merge_slices(float* sh,
 __host__ __device__ constexpr int ctas_per_block(int w, int s) {
   return kLanes / (w / s);
 }
+
+// Every candidate row: step t is row t (the whole-cloud rescues).
+struct EveryRow {
+  __device__ long long operator()(int t) const { return t; }
+};
 
 // The rows of a rescue query block's active groups: active [1 + ng]
 // (count, then ascending group ids); step t is row t % gr of group t / gr.

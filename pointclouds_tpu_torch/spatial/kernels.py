@@ -46,8 +46,9 @@ LAUNCHES = {
 
 # Blocks that share one rescue query block's group list (csrc/radius.cu).
 _RESCUE_SPLIT = 16
-# Blocks that share one query block's walk over the whole cloud
-# (csrc/brute.cu): the whole-cloud rescues have at most 32 query blocks.
+# Blocks that share one query block's walk over the whole cloud in
+# `brute_radius_count` (csrc/brute.cu): the whole-cloud rescues have at most
+# 32 query blocks.
 _BRUTE_SPLIT = 64
 # Relative inclusion band of the moments' second walk
 # (`pallas_kernels.D2_BAND`): ~7 ulp.
@@ -327,7 +328,7 @@ def sweep_select_rows_plain(pts_padded, rowlist, *, k: int, cap: int):
 
 
 def _check_aligned16(name: str, t: torch.Tensor):
-    """The warp-select kernels (2, 3, 6, 7) stage rows with 16-byte
+    """The warp-select kernels (2, 3, 6, 7, 13) stage rows with 16-byte
     cp.async copies."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data must start on a 16-byte boundary")
@@ -1054,15 +1055,11 @@ def brute_knn_idx(q_planar, cand_planar, *, k: int):
     nr, qb = _check_brute("brute_knn_idx", q_planar, cand_planar)
     if not _on_cuda(cand_planar):
         return brute_knn_idx_plain(q_planar, cand_planar, k=k)
-    dev = cand_planar.device
-    out = torch.empty((2 * k + 1, qb * 128), dtype=torch.float32, device=dev)
-    part_v = torch.empty((_BRUTE_SPLIT, k, qb * 128), dtype=torch.float32,
-                         device=dev)
-    part_p = torch.empty((_BRUTE_SPLIT, k, qb * 128), dtype=torch.int32,
-                         device=dev)
+    _check_aligned16("brute_knn_idx.cand", cand_planar)
+    out = torch.empty((2 * k + 1, qb * 128), dtype=torch.float32,
+                      device=cand_planar.device)
     _lib().call("pc_brute_knn_idx", q_planar.data_ptr(),
-                cand_planar.data_ptr(), part_v.data_ptr(), part_p.data_ptr(),
-                out.data_ptr(), qb, nr, k, _BRUTE_SPLIT, _stream())
+                cand_planar.data_ptr(), out.data_ptr(), qb, nr, k, _stream())
     LAUNCHES["brute_knn_idx"] += 1
     return out
 

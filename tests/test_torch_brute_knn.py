@@ -57,10 +57,15 @@ def _untied(d, k):
             axis=0)
 
 
-@pytest.mark.parametrize("k", [11, 10, 24])
-def test_brute_knn_idx_plain_matches_pallas(k):
+@pytest.mark.parametrize("k,nq", [
+    pytest.param(11, 200, id="11"), pytest.param(10, 200, id="10"),
+    pytest.param(24, 200, id="24"), pytest.param(1, 200, id="1"),
+    pytest.param(11, 0, id="no-live-block")])
+def test_brute_knn_idx_plain_matches_pallas(k, nq):
+    """``nq`` valid queries of 384; with none, every block is all padding."""
     xyz, valid = _cloud(k, 2000)
     sub, sub_valid, use = _queries(xyz, valid, 200, 384, k)
+    sub_valid &= np.arange(384) < nq
     qp = jplanar(jnp.asarray(sub), jnp.asarray(sub_valid))
     cand = jplanar(jnp.asarray(xyz), jnp.asarray(use))
     pal = np.asarray(jpk.brute_knn_idx(qp, cand, k=k, interpret=True))
@@ -70,10 +75,17 @@ def test_brute_knn_idx_plain_matches_pallas(k):
     np.testing.assert_array_equal(got[:k], pal[:k])  # distances, bitwise
     np.testing.assert_array_equal(got[2 * k], pal[2 * k])  # counts
     untied = _untied(got[:k], k)
-    assert untied[:200].mean() > 0.9 and not untied[200:].any()
+    assert not untied[nq:].any()
     np.testing.assert_array_equal(got[k:2 * k, untied], pal[k:2 * k, untied])
     # Padding queries: nothing found.
-    assert (got[2 * k, 200:] == 0).all() and (got[k:2 * k, 200:] == -1).all()
+    assert (got[2 * k, nq:] == 0).all() and (got[k:2 * k, nq:] == -1).all()
+    if nq == 0:
+        assert (got[:k] == np.inf).all()
+        np.testing.assert_array_equal(got, pal)
+        return
+    assert untied[:nq].mean() > 0.9
+    if k == 1:
+        return  # one neighbour: no tie within a list
     # Where tied, the port takes the smaller position.
     pos = got[k:2 * k]
     with np.errstate(invalid="ignore"):

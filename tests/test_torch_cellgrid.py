@@ -124,10 +124,12 @@ def test_point_sor_mean_dists_matches_jax():
     assert bool(tcert) or not bool(jcert)
 
 
-def test_segmented_select_matches_pallas_interpret():
+@pytest.mark.parametrize("k", [21, 11, 32])
+def test_segmented_select_matches_pallas_interpret(k):
     """Kernel 18 (plain version) against the Pallas kernel in interpret
     mode on a [512, 1536] work array: equal where the reference's segment
-    certificate holds (and it holds on most rows); ``ok`` everywhere."""
+    certificate holds (and it holds on most rows, the tied ones too);
+    ``ok`` everywhere."""
     rng = np.random.default_rng(5)
     work = (rng.random((512, 1536)) * 9.0).astype(np.float32)
     work[rng.random(work.shape) < 0.3] = np.inf
@@ -136,11 +138,14 @@ def test_segmented_select_matches_pallas_interpret():
     # j % 128): the reference's certificate fails there.
     work[:16, ::128] = np.float32(0.01) * rng.random((16, 12))
     work[16:24] = np.inf  # no candidate
-    jt, jc, jk, jok = (np.asarray(x) for x in jseg(jnp.asarray(work), k=21,
+    work[24:28] = 0.5  # every value tied
+    work[28:32] = np.round(work[28:32] * 2.0) / 2.0  # ties on a 0.5 lattice
+    jt, jc, jk, jok = (np.asarray(x) for x in jseg(jnp.asarray(work), k=k,
                                                   interpret=True))
-    tt, tc, tk, tok = kernels.segmented_select(to_torch(work), k=21)
+    tt, tc, tk, tok = kernels.segmented_select(to_torch(work), k=k)
     assert tok.numpy().all()
-    assert not jok[:16].any() and jok.sum() > 400
+    assert not jok[:16].any() and jok.sum() > 400 and jok[24:32].all()
+    assert (jc[24:32] == k).all()
     for t, j in ((tt, jt), (tc, jc), (tk, jk)):
         np.testing.assert_array_equal(_bits(t.numpy())[jok], _bits(j)[jok])
 

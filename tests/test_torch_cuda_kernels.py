@@ -142,7 +142,7 @@ def test_rescue_select_group_height(dev, gr):
 
 
 def test_select_misaligned_raises(dev):
-    """The warp-select kernels (2, 3, 6, 7) stage rows with 16-byte copies:
+    """The warp-select kernels (2, 3, 6, 7, 13) stage rows with 16-byte copies:
     a tensor whose data starts off that boundary raises instead of being
     copied."""
     flat = torch.zeros(9 * 4 * 128 + 1, device=dev)
@@ -158,6 +158,8 @@ def test_select_misaligned_raises(dev):
         kernels.sweep_moments(pts, starts, k=5)
     with pytest.raises(ValueError, match="16-byte"):
         kernels.rescue_knn_idx(pts[:8], pts[8:].contiguous(), act, k=5, gr=8)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.brute_knn_idx(pts[8:].contiguous(), pts[:8], k=5)
 
 
 def test_sweep_cluster_labels_gpu_equals_cpu(dev):
@@ -468,18 +470,41 @@ def test_brute_radius_count(dev):
     assert got.sum() > 0 and (got[5 * 128:] == 0).all()
 
 
-@pytest.mark.parametrize("k", [1, 11, 24])
-def test_brute_knn_idx(dev, k):
+@pytest.mark.parametrize("case", ["random", "dup", "dead", "many", "few"])
+@pytest.mark.parametrize("k", [1, 11, 24, 32])
+def test_brute_knn_idx(dev, k, case):
+    """Every case but "many" has an all-invalid block (the last). "dup":
+    lattice points (ties at the kth) and rows copied into rows that other
+    slices of a query walk; "dead": no valid query at all; "many": 20 live
+    blocks; "few": fewer valid candidates than k."""
     rng = np.random.default_rng(k)
-    cand = _planar(rng, 150).to(dev)
+    nr, qb = 150, 20 if case == "many" else 6
+    cand = _select_planar(rng, nr, "dup" if case == "dup" else "random")
     cand[7, :3, :64] = cand[7, :3, 64:]  # duplicates: ties at equal d2
-    q = _planar(rng, 6).to(dev)
-    q[5, 3] = 0.0  # an all-invalid block
+    if case == "dup":
+        cand[8:12] = cand[7]  # the same points in the next tile's rows
+        cand[21] = cand[7]
+    if case == "few":
+        cand[:, 3] = 0.0
+        cand[3, 3, [5, 9, 77]] = 1.0
+        cand[140, 3, 127] = 1.0
+        cand[:, :3] *= cand[:, 3:4]
+    cand = cand.to(dev)
+    q = _select_planar(rng, qb, "dup" if case == "dup" else "random").to(dev)
+    if case != "many":
+        q[qb - 1, 3] = 0.0  # an all-invalid block
+    if case == "dead":
+        q[:, 3] = 0.0
     got = _count_launch("brute_knn_idx",
                         lambda: kernels.brute_knn_idx(q, cand, k=k))
     want = kernels.brute_knn_idx_plain(q, cand, k=k)
     assert torch.equal(got, want)
-    assert (got[2 * k, :5 * 128] > 0).any() and (got[2 * k, 5 * 128:] == 0).all()
+    live = (q[:, 3] > 0.5).reshape(-1)
+    assert (got[2 * k, ~live] == 0).all()
+    if case == "dead":
+        assert (got[:k] == torch.inf).all() and (got[k:2 * k] == -1).all()
+    else:
+        assert (got[2 * k, live] == min(k, 4 if case == "few" else k)).all()
 
 
 def test_api_gpu_equals_cpu(dev):
@@ -621,17 +646,44 @@ def test_sor_select(dev, m, k):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("w,k", [(1536, 21), (512, 32), (128, 1), (40, 5)])
-def test_segmented_select(dev, w, k):
-    rng = np.random.default_rng(w)
-    work = (rng.random((777, w)) * 9.0).astype(np.float32)
+def _seg_work(rng, q, w):
+    """Work rows for kernel 18: random values, 40% masked (+inf), and rows
+    with none finite (0-2), with 5 (3-4), all tied (5), ties on a 0.5
+    lattice (6-7), a few values tied many times (8), many of the smallest
+    in one lane's slots, distinct (9) or equal (10, 11), and a NaN (12)."""
+    work = (rng.random((q, w)) * 9.0).astype(np.float32)
     work[rng.random(work.shape) < 0.4] = np.inf
     work[:3] = np.inf
-    work[5, :7] = 0.25  # ties
-    work = torch.from_numpy(work).to(dev)
+    work[3:5, 5:] = np.inf
+    work[5] = 0.25
+    work[6:8] = np.round(work[6:8] * 2.0) / 2.0
+    work[8, ::3] = 1.5
+    work[9, ::128] = np.float32(1e-3) * rng.random(len(range(0, w, 128)))
+    work[10, ::128] = 0.125
+    work[11, ::32] = 0.125
+    work[12, 1] = np.nan
+    return work
+
+
+@pytest.mark.parametrize("w", [40, 1512, 1513, 1536])
+@pytest.mark.parametrize("k", [1, 11, 21, 32])
+def test_segmented_select(dev, k, w):
+    """Also on a work array whose data starts 4 bytes past a 16-byte
+    boundary (a contiguous view at a storage offset of one float): it runs
+    (one 4-byte load a value) and gives the same bits."""
+    rng = np.random.default_rng(w + k)
+    work = torch.from_numpy(_seg_work(rng, 777, w)).to(dev)
     got = _count_launch("segmented_select",
                         lambda: kernels.segmented_select(work, k=k))
     want = kernels.segmented_select_plain(work, k=k)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    flat = torch.empty(work.numel() + 1, device=dev)
+    shifted = flat[1:].view(work.shape)
+    shifted.copy_(work)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    got = _count_launch("segmented_select",
+                        lambda: kernels.segmented_select(shifted, k=k))
     for g, x in zip(got, want):
         assert torch.equal(g, x)
 
