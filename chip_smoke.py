@@ -93,17 +93,22 @@ chiprun_out/.
 compares this checkout with others (each DIR an unpacked checkout, e.g.
 `git archive` of an earlier commit) on the same card instead: it captures
 the inputs that the KITTI sweep frame (RANSAC seed 0), the SOR op on the
-noisy 100K cloud, the aerial bench frame (seed 0; with normals_rescue for
-`rescue_knn_idx`), the normals op on the 100K cloud, the KITTI "xla"
-frame (`segmented_select` at both callers) and the SOR op on the overflow
-and the clean 100K clouds (`brute_knn_idx`) give their
+noisy 100K cloud, the aerial bench frame (seed 0: `sweep_moments` and
+`cluster_multisweep_windows`; with normals_rescue for `rescue_knn_idx`),
+the 1.2M-point clustering's first hop (`cluster_propagate`), the normals
+op on the 100K cloud, the KITTI "xla" frame (`segmented_select` at both
+callers) and the SOR op on the overflow and the clean 100K clouds
+(`brute_knn_idx`) give their
 kernels, then runs the trees in the order DIR..., this, this, ...DIR (so
 that drift on the card shows), each in a fresh process that builds its
 own kernels: each kernel against its plain version at the captured
-inputs (as phase 2) and timed with CUDA events, the KITTI frame p50 and
+inputs (as phase 2) and timed with CUDA events and torch.profiler, the
+KITTI frame p50 and
 stage medians (as phase 3), the noisy and overflow SOR op p50s, the KITTI
 "xla" frame p50 and stage medians (as phase 8), the aerial frame p50 and
-stage medians (as phase 4), the normals and `knn` 100K op p50s. Each
+stage medians (as phase 4), the normals and `knn` 100K op p50s and the
+1.2M `euclidean_cluster` p50, and the device time (torch.profiler) of an
+aerial frame and of the 1.2M call. Each
 tree's ptxas log and numbers go to chiprun_out/ab.json.
 """
 
@@ -414,6 +419,15 @@ def select_work(name, args, kwargs) -> str:
                 f"block max {int(rows.max()) if rows.numel() else 0} mean "
                 f"{float(rows.mean()) if rows.numel() else 0.0:.2f} (total "
                 f"{int(rows.sum())})")
+    if name == "cluster_propagate":
+        return propagate_work(*args[:3])
+    if name == "cluster_multisweep_windows":
+        w = getattr(importlib.import_module(
+            "pointclouds_tpu_torch.spatial.kernels"), "WINDOW_ROUNDS", None)
+        return "" if w is None else (
+            f"last call: {w['host_reads']} host reads, "
+            f"{w['pairs_visited']} pairs walked (frontier and row prune), "
+            f"labels lowered per round {w.get('lowered')}")
     if name in ("rescue_select", "rescue_knn_idx"):
         q, active = args[1], args[2]
         live = (q[:, 3] > 0.5).any(dim=1)
@@ -425,6 +439,30 @@ def select_work(name, args, kwargs) -> str:
                 f"per live block max {mx} median {med:g} (total "
                 f"{int(groups.sum())})")
     return ""
+
+
+def propagate_work(pts, labels, starts) -> str:
+    """What kernel 16 sees: the running blocks, their window rows
+    [start, start + length), and of those the rows whose smallest valid
+    label lies below the largest valid label of the block's queries -- at
+    most these are walked (the row prune skips the others; a warp's own
+    largest label only falls as it walks)."""
+    nr, nb = pts.shape[0], starts.shape[0]
+    run = (starts[:, 27] != 0) & (starts[:, 28] != 0)
+    ln = starts[:, 18:27].long()
+    wr = max(int(ln.max()) if nb else 0, 1)
+    r = torch.arange(wr, device=starts.device)
+    keep = (r < ln[..., None]) & run[:, None, None]
+    rows = (starts[:, :9, None].long() + r).clamp(max=nr - 1)
+    valid = pts[:, 3] > 0.5
+    lab = labels.reshape(nr, 128)
+    big = torch.iinfo(torch.int32).max
+    rowmin = torch.where(valid, lab, big).amin(1)
+    qmax = torch.where(valid[:nb], lab[:nb], -big).amax(1)
+    walked = keep & (rowmin[rows] < qmax[:, None, None])
+    return (f"{int(run.sum())} of {nb} blocks run, {int(keep.sum())} window "
+            f"rows, at most {int(walked.sum())} walked after the row prune "
+            f"({128 * 128 * int(walked.sum())} pairs)")
 
 
 def kernel_row(name, args, kwargs, K, card_line, library=None, label=""):
@@ -1227,6 +1265,18 @@ CELLGRID_BACKENDS = ("xla", "pallas")
 LARGE_POINTS = 1_200_000
 LARGE_BOX = 63.0
 LARGE_R = 0.5
+
+
+def large_points():
+    """Phase 8's uniform 1.2M-point cloud in a 63 m cube."""
+    return (np.random.default_rng(8).random((LARGE_POINTS, 3))
+            * LARGE_BOX).astype(np.float32)
+
+
+def large_cloud(api):
+    return api.PointCloud.from_numpy(large_points())
+
+
 CELLGRID_STAGES = ["voxel_downsample_masked", "build_cellgrid",
                    "point_sor_mean_dists", "cell_sor_mean_dists",
                    "cell_knn_subset", "sor_keep_mask", "ransac_plane_masked",
@@ -1296,8 +1346,7 @@ def phase8(card_line, K, pc, kitti_mod, kdata, add):
     connected-components oracle). Returns kernels 16-18's rows."""
     from pointclouds_tpu_torch import api
 
-    large_pts = (np.random.default_rng(8).random((LARGE_POINTS, 3))
-                 * LARGE_BOX).astype(np.float32)
+    large_pts = large_points()
     large = api.PointCloud.from_numpy(large_pts)
     rows, seg_extra = phase8_kernels(card_line, K, pc, kdata, api, large)
     record = dict(card=card_line, kitti={}, segmented_select_extra=seg_extra)
@@ -1378,7 +1427,12 @@ def ab_capture(path: Path) -> None:
             lambda: api.statistical_outlier_removal(noisy, 10, 2.0),
             PATHS["sor"]),
         "aerial": capture_inputs(lambda: run_aerial(pc, adata, 0, "cuda"),
-                                 ["sweep_moments"]),
+                                 ["sweep_moments",
+                                  "cluster_multisweep_windows"]),
+        "1.2M first hop": capture_inputs(
+            lambda: api.euclidean_cluster(large_cloud(api), LARGE_R,
+                                          *CLUSTER_SIZES),
+            ["cluster_propagate"]),
         "aerial rescue": capture_inputs(
             lambda: run_aerial(pc, adata, 0, "cuda", ransac_subsample=None,
                                normals_rescue=True), ["rescue_knn_idx"]),
@@ -1423,6 +1477,8 @@ def ab_child(tree: Path, inputs: Path) -> dict:
                 name, args, kwargs, K)[2]
             res["device_ms"][f"{name} {label}"] = device_ms(
                 lambda: getattr(K, name)(*args, **kwargs), 5)
+            if name == "cluster_multisweep_windows":
+                res["window_rounds"] = select_work(name, args, kwargs)
     kdata = velodyne_scene(seed=0, n_points=KITTI_POINTS)
     kcloud = pc.make_cloud_arrays(kdata, device="cuda")
     run_kitti(pc, kdata, 0, cloud=kcloud)
@@ -1446,11 +1502,18 @@ def ab_child(tree: Path, inputs: Path) -> dict:
     res["aerial_stages"], res["aerial_p50_ms"] = timed_frames(
         lambda f: run_aerial(pc, adata, f, cloud=acloud), AERIAL_FRAMES,
         aerial_mod, AERIAL_STAGES, card_line, "aerial")
+    res["aerial_device_ms"] = device_ms(
+        lambda: run_aerial(pc, adata, 0, cloud=acloud), 3)
     u100k = bench_cloud(100_000)
     cloud = api.PointCloud.from_numpy(u100k)
     res["normals_op_p50_ms"] = p50_ms(
         lambda: api.estimate_normals(cloud, 10))[0]
     res["knn_op_p50_ms"] = p50_ms(lambda: api.knn(cloud, u100k, 10))[0]
+    large = large_cloud(api)
+    call = lambda: api.euclidean_cluster(large, LARGE_R,  # noqa: E731
+                                         *CLUSTER_SIZES)
+    res["cluster_large_p50_ms"] = p50_ms(call)[0]
+    res["cluster_large_device_ms"] = device_ms(call, 3)
     return res
 
 
@@ -1479,9 +1542,16 @@ def ab_main(others) -> int:
             f"KITTI xla frame p50 {r['xla_p50_ms']:.3f} ms, "
             f"normals_from_moment_rows "
             f"{r['aerial_stages']['normals_from_moment_rows']:.3f} ms, "
-            f"aerial frame p50 {r['aerial_p50_ms']:.3f} ms, normals 100K op "
+            f"sweep_cluster_labels (aerial) "
+            f"{r['aerial_stages']['sweep_cluster_labels']:.3f} ms, "
+            f"aerial frame p50 {r['aerial_p50_ms']:.3f} ms (device "
+            f"{r['aerial_device_ms']:.3f}), normals 100K op "
             f"p50 {r['normals_op_p50_ms']:.3f} ms, knn 100K op p50 "
-            f"{r['knn_op_p50_ms']:.3f} ms [{card_line}]")
+            f"{r['knn_op_p50_ms']:.3f} ms, euclidean_cluster 1.2M p50 "
+            f"{r['cluster_large_p50_ms']:.3f} ms (device "
+            f"{r['cluster_large_device_ms']:.3f})"
+            f"{'; ' + r['window_rounds'] if r.get('window_rounds') else ''}"
+            f" [{card_line}]")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "ab.json").write_text(json.dumps(
         dict(card=card_line, runs=runs), indent=1))

@@ -42,8 +42,8 @@ _SIGNATURES = {
     "pc_sweep_moments": ([_P, _P, _P, _I, _I, ctypes.c_float,
                           ctypes.c_float, _P], _I),
     "pc_rescue_knn_idx": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "pc_cluster_round_windows": ([_P, _P, _P, _P, _P, _I, ctypes.c_float,
-                                  _P], _I),
+    "pc_cluster_rounds_windows": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   ctypes.c_float, _I, _I, _P], _I),
     "pc_sweep_select": ([_P, _P, _P, _I, _I, _P], _I),
     "pc_count_within": ([_P, _P, _P, _I, _P], _I),
     "pc_rescue_radius_count": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],

@@ -45,23 +45,10 @@
 
 namespace {
 
-// The rows of a block's nine windows, window by window: step t lies in
-// window j where pre[j] <= t < pre[j + 1] (pre: prefix sums of the
-// windows' row counts), at row base[j] + t (base[j] = start + skip -
-// pre[j]). Both live in shared memory, past the ring: 48 KB and 80 bytes,
-// above the static limit, so the kernel takes its shared memory
+// The rows of the block's nine windows (WindowRows, warpselect.cuh): their
+// prefix sums and bases live in shared memory past the ring, 48 KB and 80
+// bytes, above the static limit, so the kernel takes its shared memory
 // dynamically.
-struct WindowRows {
-  const int* pre;
-  const int* base;
-  __device__ long long operator()(int t) const {
-    int j = 0;
-#pragma unroll
-    for (int i = 1; i < kShifts; ++i) j += pre[i] <= t;
-    return (long long)base[j] + t;
-  }
-};
-
 constexpr int kRingBytes = kStages * kTileFloats * sizeof(float);
 constexpr int kMomentsSmem = kRingBytes + 2 * 10 * sizeof(int);
 
@@ -81,14 +68,7 @@ __global__ void __launch_bounds__(W * 32, 3)
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int qi = (blockIdx.x % kPer) * W + warp;
   const int* ss = starts + (long long)b * kStartsCols;
-  if (threadIdx.x == 0) {
-    pre[0] = 0;
-    for (int j = 0; j < kShifts; ++j) {
-      const int skip = ss[kShifts + j];
-      pre[j + 1] = pre[j] + max(ss[2 * kShifts + j] - skip, 0);
-      base[j] = ss[j] + skip - pre[j];
-    }
-  }
+  if (threadIdx.x == 0) WindowRows::fill<true>(ss, pre, base);
   __syncthreads();
   // A block with no valid query walks nothing: the zero/ok pattern.
   const int nrows = ss[3 * kShifts] != 0 ? pre[kShifts] : 0;

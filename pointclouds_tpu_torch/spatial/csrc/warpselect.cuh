@@ -418,6 +418,36 @@ __host__ __device__ constexpr int ctas_per_block(int w, int s) {
   return kLanes / (w / s);
 }
 
+// The rows of a block's nine windows, window by window: step t lies in
+// window j where pre[j] <= t < pre[j + 1] (pre: prefix sums of the
+// windows' row counts), at row base[j] + t (base[j] = first row - pre[j]).
+// Both live in the kernel's shared memory.
+struct WindowRows {
+  const int* pre;
+  const int* base;
+
+  // One thread fills pre [kShifts + 1] and base [kShifts] from a block's
+  // starts pack `ss`: windows [start + skip, start + length), or with
+  // kSkip false [start, start + length) (the cluster hop reads no skip).
+  // The CTA syncs before the rows are read.
+  template <bool kSkip>
+  __device__ static void fill(const int* ss, int* pre, int* base) {
+    pre[0] = 0;
+    for (int j = 0; j < kShifts; ++j) {
+      const int skip = kSkip ? ss[kShifts + j] : 0;
+      pre[j + 1] = pre[j] + max(ss[2 * kShifts + j] - skip, 0);
+      base[j] = ss[j] + skip - pre[j];
+    }
+  }
+
+  __device__ long long operator()(int t) const {
+    int j = 0;
+#pragma unroll
+    for (int i = 1; i < kShifts; ++i) j += pre[i] <= t;
+    return (long long)base[j] + t;
+  }
+};
+
 // Every candidate row: step t is row t (the whole-cloud rescues).
 struct EveryRow {
   __device__ long long operator()(int t) const { return t; }

@@ -328,8 +328,8 @@ def sweep_select_rows_plain(pts_padded, rowlist, *, k: int, cap: int):
 
 
 def _check_aligned16(name: str, t: torch.Tensor):
-    """The warp-select kernels (2, 3, 6, 7, 13) stage rows with 16-byte
-    cp.async copies."""
+    """The warp-select kernels (2, 3, 6, 7, 13) and the min-label walk (8,
+    16) stage rows with 16-byte cp.async copies."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data must start on a 16-byte boundary")
 
@@ -497,27 +497,25 @@ def cluster_multisweep(pts_planar, rowlist, r2, *, cap: int,
     if not _on_cuda(pts_planar):
         return cluster_multisweep_plain(pts_planar, rowlist, r2, cap=cap,
                                         max_rounds=max_rounds)
-    return _cluster_rounds_cuda("cluster_multisweep", "pc_cluster_round",
-                                pts_planar, rowlist, (cap,), r2, nb,
-                                max_rounds)
+    return _cluster_rounds_cuda(pts_planar, rowlist, cap, r2, nb, max_rounds)
 
 
-def _cluster_rounds_cuda(name: str, entry: str, pts_planar, cands, extra,
-                         r2: float, nb: int, max_rounds: int, labels0=None):
-    """Launch rounds of ``entry`` until one changes nothing (a host read of
-    the change counter after each round), at most ``max_rounds``."""
+def _cluster_rounds_cuda(pts_planar, rowlist, cap: int, r2: float, nb: int,
+                         max_rounds: int):
+    """Launch row-list rounds until one changes nothing (a host read of the
+    change counter after each round), at most ``max_rounds``."""
     dev = pts_planar.device
     pts = _cluster_pad(pts_planar)
-    lab = _initial_labels(pts_planar.shape[0], nb, labels0, dev)
+    lab = _initial_labels(pts_planar.shape[0], nb, None, dev)
     changed = torch.zeros(nb * 128, dtype=torch.int32, device=dev)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _lib()
     rounds = 0
     while rounds < max_rounds:
-        lib.call(entry, pts.data_ptr(), cands.data_ptr(), lab.data_ptr(),
-                 changed.data_ptr(), counter.data_ptr(), nb, *extra, r2,
-                 _stream())
-        LAUNCHES[name] += 1
+        lib.call("pc_cluster_round", pts.data_ptr(), rowlist.data_ptr(),
+                 lab.data_ptr(), changed.data_ptr(), counter.data_ptr(), nb,
+                 cap, r2, _stream())
+        LAUNCHES["cluster_multisweep"] += 1
         rounds += 1
         if int(counter.item()) == 0:  # host sync: convergence test
             break
@@ -762,6 +760,15 @@ def rescue_knn_idx(cand_planar, q_planar, active, *, k: int, gr: int = 8):
 
 # ── 8. Cluster labels over the windows ─────────────────────────────────────
 
+# Rounds `cluster_multisweep_windows` launches between host reads of its
+# per-round change counts (csrc/cluster.cu): rounds after the first that
+# changed nothing return at once.
+WINDOW_ROUND_BATCH = 4
+# What its last CUDA call took: host reads of the counts, the
+# query-candidate pairs its hops walked (frontier and row prune applied)
+# and the labels each round lowered.
+WINDOW_ROUNDS = {"host_reads": 0, "pairs_visited": 0, "lowered": []}
+
 
 def cluster_multisweep_windows_plain(pts_planar, starts, r2, *,
                                      max_rounds: int, labels0=None):
@@ -782,6 +789,11 @@ def cluster_multisweep_windows(pts_planar, starts, r2, *,
     i32[NB*128] -- the last round's flags, all zero iff converged; rounds
     run).
 
+    The CUDA path launches rounds in batches of `WINDOW_ROUND_BATCH` and
+    reads their change counts once a batch; rounds after the first that
+    changed nothing write nothing, and ``rounds`` counts the rounds up to
+    and including that one.
+
     Replaces `pallas_kernels.cluster_multisweep_windows` (csrc/cluster.cu)."""
     nr = pts_planar.shape[0]
     nb = starts.shape[0]
@@ -799,9 +811,39 @@ def cluster_multisweep_windows(pts_planar, starts, r2, *,
     if not _on_cuda(pts_planar):
         return cluster_multisweep_windows_plain(
             pts_planar, starts, r2, max_rounds=max_rounds, labels0=labels0)
-    return _cluster_rounds_cuda("cluster_multisweep_windows",
-                                "pc_cluster_round_windows", pts_planar,
-                                starts, (), r2, nb, max_rounds, labels0)
+    _check_aligned16("cluster_multisweep_windows.pts", pts_planar)
+    nq = nb * 128
+    # Set up by the first launch: labels, round stamps per row and per
+    # query, per-round change counts after the walked-pairs count.
+    lab = torch.empty(nr * 128, dtype=torch.int32, device=dev)
+    stamp = torch.empty(nr, dtype=torch.int32, device=dev)
+    last = torch.empty(nq, dtype=torch.int32, device=dev)
+    counts = torch.empty(1 + max_rounds, dtype=torch.int64, device=dev)
+    lib = _lib()
+    launched, reads, rounds = 0, 0, max_rounds
+    while True:  # the first launch sets the state up, even for no round
+        n = min(WINDOW_ROUND_BATCH, max_rounds - launched)
+        lib.call("pc_cluster_rounds_windows", pts_planar.data_ptr(),
+                 starts.data_ptr(),
+                 None if labels0 is None else labels0.data_ptr(),
+                 lab.data_ptr(), stamp.data_ptr(), last.data_ptr(),
+                 counts.data_ptr(), nb, nr, counts.numel(), r2, launched + 1,
+                 n, _stream())
+        launched += n
+        got = counts[: launched + 1].tolist()  # host read: once a batch
+        reads += 1
+        if 0 in got[1:]:
+            rounds = got.index(0, 1)
+            break
+        if launched >= max_rounds:
+            break
+    LAUNCHES["cluster_multisweep_windows"] += rounds
+    WINDOW_ROUNDS.update(host_reads=reads, pairs_visited=128 * got[0],
+                         lowered=got[1:rounds + 1])
+    # Lowered in the last round (none if it converged); all zero (`last`)
+    # when no round ran.
+    changed = last == rounds if rounds else last
+    return lab[:nq], changed.to(torch.int32), rounds
 
 
 # ── 9. Exact k-smallest selection over the windows (SOR, no row cap) ───────
@@ -1257,6 +1299,8 @@ def cluster_propagate(pts_planar, labels, starts, r2):
     r2 = float(np.float32(r2))
     if not _on_cuda(pts_planar):
         return cluster_propagate_plain(pts_planar, labels, starts, r2)
+    _check_aligned16("cluster_propagate.pts", pts_planar)
+    _check_aligned16("cluster_propagate.labels", labels)
     out = torch.empty((2, nb * 128), dtype=torch.int32, device=dev)
     _lib().call("pc_cluster_propagate", pts_planar.data_ptr(),
                 labels.data_ptr(), starts.data_ptr(), out.data_ptr(), nb, r2,

@@ -70,8 +70,68 @@ def _cars():
     return xyz, valid, 0.8
 
 
+def _serpentine(r, lanes=10, per=110):
+    """A chain of points 0.9 r apart: ``lanes`` rows of ``per`` points along
+    x, 1.8 r apart in y, joined at alternate ends by one point each."""
+    s = np.float32(0.9) * np.float32(r)
+    pts = []
+    for i in range(lanes):
+        xs = np.arange(per) * s
+        if i % 2:
+            xs = xs[::-1]
+        pts += [(x, 2 * i * s) for x in xs]
+        if i < lanes - 1:
+            pts.append((xs[-1], (2 * i + 1) * s))
+    return np.column_stack([np.array(pts), np.zeros(len(pts))]).astype(
+        np.float32)
+
+
+def _padded(pts, n):
+    xyz = np.zeros((n, 3), np.float32)
+    xyz[: len(pts)] = pts
+    valid = np.zeros(n, bool)
+    valid[: len(pts)] = True
+    return xyz, valid
+
+
+def _long_chain():
+    """1,109 points 0.9 r apart through 9 blocks: the labels take more
+    rounds to meet than one read batch of the CUDA path."""
+    xyz, valid = _padded(_serpentine(0.5), 1280)
+    return xyz, valid, 0.5
+
+
+def _exact_r():
+    """Pairs at exactly d2 == r2 in the pinned form fma(dz, dz, fma(dx, dx,
+    dy*dy)) (linked: the compare is inclusive) and pairs just beyond it
+    (not linked), one of them at r2 in the unfused sum of squares."""
+    pts = np.array([
+        [3.0, 0.0, 0.0], [3.5, 0.0, 0.0], [4.0, 0.0, 0.0], [4.5, 0.0, 0.0],
+        [10.0, 0.0, 0.0], [np.nextafter(np.float32(10.5), np.float32(11)),
+                           0.0, 0.0],
+        # pinned d2 0.25 == r2
+        [20.0, 20.0, 1.0], [20.299903869628906, 20.40007209777832,
+                            0.9999980926513672],
+        # pinned d2 0.25000003 > r2; the unfused sum gives 0.25
+        [30.0, 20.0, 1.0], [30.300079345703125, 20.399940490722656,
+                            0.9999980926513672],
+    ], np.float32)
+    xyz, valid = _padded(pts, 256)
+    return xyz, valid, 0.5
+
+
+def _frontier():
+    """A tight blob that converges in its first round beside the long
+    chain, which needs many."""
+    rng = np.random.default_rng(5)
+    blob = rng.normal([60.0, 60.0, 0.0], 0.05, (100, 3)).astype(np.float32)
+    xyz, valid = _padded(np.vstack([blob, _serpentine(0.5)]), 1280)
+    return xyz, valid, 0.5
+
+
 SCENES = {"blobs": _blobs, "chain": _chain, "boundary": _boundary,
-          "cars": _cars}
+          "cars": _cars, "long_chain": _long_chain, "exact_r": _exact_r,
+          "frontier": _frontier}
 
 
 def _groups(labels, ok):
@@ -213,3 +273,62 @@ def test_sweep_cluster_labels_windows_burst_cap_not_exact(monkeypatch):
     labels, exact = sweep.sweep_cluster_labels(*args, wr=12, row_cap=None,
                                                sweeps=1)
     assert bool(exact) and (labels[:400] == 0).all()
+
+
+# "dead_block": the long chain with block 4's row marked invalid by the
+# test: a block with no valid query, and a candidate row whose 128
+# candidates are all invalid (the chain splits there).
+WINDOW_SCENES = {"long_chain": _long_chain, "exact_r": _exact_r,
+                 "dead_block": _long_chain, "frontier": _frontier}
+
+
+@pytest.mark.parametrize("scene", sorted(WINDOW_SCENES))
+def test_cluster_windows_scenes_plain_vs_pallas(scene):
+    """The window rounds' plain version against the Pallas kernel, labels
+    equal at the fixpoint; on the long chain a run cut after one round
+    reports it and resumes to the same fixpoint."""
+    xyz, valid, r = WINDOW_SCENES[scene]()
+    s, r2 = _window_inputs(xyz, valid, r, 12)
+    planar, starts = np.array(s["planar"]), np.array(s["starts_skip"])
+    if scene == "dead_block":
+        assert planar[4, 3].all() and starts[4, 27] != 0
+        planar[4, 3] = 0.0
+        starts[4, 27] = 0
+    lab, ch = jpk.cluster_multisweep_windows(jnp.asarray(planar),
+                                             jnp.asarray(starts), r2,
+                                             sweeps=12, interpret=True)
+    assert float(np.asarray(ch).sum()) == 0.0  # the Pallas run converged
+    tp, ts = torch.from_numpy(planar), torch.from_numpy(starts)
+    got, changed, rounds = kernels.cluster_multisweep_windows(
+        tp, ts, r2, max_rounds=64)
+    assert not changed.any() and 1 < rounds <= 64
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(lab).astype(np.int32))
+    if scene == "long_chain":
+        assert rounds > 4  # more than one read batch of the CUDA path
+        cut, changed, _ = kernels.cluster_multisweep_windows(tp, ts, r2,
+                                                             max_rounds=1)
+        assert changed.any()
+        again, changed, _ = kernels.cluster_multisweep_windows(
+            tp, ts, r2, max_rounds=64, labels0=cut)
+        assert not changed.any() and torch.equal(again, got)
+
+
+@pytest.mark.parametrize("scene", ["long_chain", "exact_r", "frontier"])
+def test_sweep_cluster_labels_windows_scenes_match_jax(scene):
+    """The window path (`cluster_multisweep_windows`, no row cap) of
+    `sweep_cluster_labels` against the JAX one."""
+    xyz, valid, r = SCENES[scene]()
+    want, exact = jsweep.sweep_cluster_labels(
+        jnp.asarray(xyz), jnp.asarray(valid), np.float32(r), wr=12,
+        row_cap=None, sweeps=12, use_kernel=True, interpret=True)
+    assert bool(exact)
+    got, t_exact = sweep.sweep_cluster_labels(
+        torch.from_numpy(xyz), torch.from_numpy(valid), np.float32(r), wr=12,
+        row_cap=None, sweeps=12)
+    assert bool(t_exact)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if scene == "exact_r":  # linked at r2, apart just beyond it
+        g = got.numpy()
+        assert g[0] == g[1] == g[2] == g[3] and g[6] == g[7]
+        assert g[4] != g[5] and g[8] != g[9]

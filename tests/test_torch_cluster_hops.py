@@ -24,6 +24,7 @@ from pointclouds_tpu.spatial.sweep import (
 )
 from pointclouds_tpu_torch.spatial import engine, kernels, sweep
 from pointclouds_tpu_torch.spatial.grid import scalar_like
+from test_torch_cluster import _exact_r, _frontier, _long_chain
 
 
 def _blobs(seed: int = 7):
@@ -73,7 +74,8 @@ def _georeferenced():
 
 
 SCENES = {"blobs": _blobs, "chain": _chain, "boundary": _boundary,
-          "georeferenced": _georeferenced}
+          "georeferenced": _georeferenced, "long_chain": _long_chain,
+          "exact_r": _exact_r, "frontier": _frontier}
 
 
 @pytest.mark.parametrize("active", ["set", "cleared"])
@@ -106,6 +108,66 @@ def test_cluster_propagate_matches_jax(active):
         np.testing.assert_array_equal(tc.numpy(),
                                       np.asarray(jc).astype(np.int32))
     assert tc.numpy().any()
+
+
+def _hop_inputs(xyz, valid, r):
+    """The port's sorted structure at wr 7, as the hop loop builds it."""
+    t, v = torch.from_numpy(xyz), torch.from_numpy(valid)
+    cell = sweep.cluster_cell_size(scalar_like(np.float32(r), t),
+                                   torch.where(v[:, None], t.abs(), 0.0).amax())
+    return sweep._sorted_structure(t, v, cell, 7, sweep.SWEEP_TABLE_SIZE)
+
+
+def _propagate_vs_jax(planar, lab, starts, r):
+    """Kernel 16's plain version against the Pallas kernel (interpret mode)
+    and its XLA mirror on the same inputs: labels and flags equal."""
+    nrows = planar.shape[0]
+    r2 = np.float32(r) * np.float32(r)
+    p8 = np.concatenate([planar, lab.reshape(nrows, 1, 128).astype(
+        np.float32), np.full((nrows, 1, 128), r2, np.float32),
+        np.zeros((nrows, 2, 128), np.float32)], axis=1)
+    tl, tc = kernels.cluster_propagate(torch.from_numpy(planar),
+                                       torch.from_numpy(lab),
+                                       torch.from_numpy(starts), r2)
+    for jl, jc in (jprop(jnp.asarray(p8), jnp.asarray(starts), wr=7,
+                         interpret=True),
+                   _cluster_propagate_xla(jnp.asarray(p8),
+                                          jnp.asarray(starts), wr=7)):
+        np.testing.assert_array_equal(tl.numpy(),
+                                      np.asarray(jl).astype(np.int32))
+        np.testing.assert_array_equal(tc.numpy(),
+                                      np.asarray(jc).astype(np.int32))
+    return tl.numpy(), tc.numpy()
+
+
+PROPAGATE_SCENES = {"long_chain": _long_chain, "exact_r": _exact_r,
+                    "dead_block": _long_chain, "frontier": _frontier}
+
+
+@pytest.mark.parametrize("scene", sorted(PROPAGATE_SCENES))
+def test_cluster_propagate_scenes_match_jax(scene):
+    """The hop loop's first hop (own positions) on the new scenes: the long
+    chain through 9 blocks; pairs at exactly d2 == r2 (inclusive); the
+    chain with block 4's row invalid (a block with no valid query, a
+    candidate row of 128 invalid candidates); the blob beside the chain
+    with every other block inactive."""
+    xyz, valid, r = PROPAGATE_SCENES[scene]()
+    s = _hop_inputs(xyz, valid, r)
+    planar = s["planar"].numpy().copy()
+    nb, nrows = s["nb"], s["nrows"]
+    act = np.ones(nb, np.int32)
+    if scene == "frontier":
+        act[1::2] = 0
+    starts = np.concatenate([s["starts_skip"].numpy(), act[:, None]], axis=1)
+    if scene == "dead_block":
+        assert planar[4, 3].all() and starts[4, 27] != 0
+        planar[4, 3] = 0.0
+        starts[4, 27] = 0
+    lab = np.arange(nrows * 128, dtype=np.int32)
+    tl, tc = _propagate_vs_jax(planar, lab, starts, r)
+    assert tc.any()
+    if scene == "dead_block":  # passed through, unchanged
+        assert (tl[512:640] == lab[512:640]).all() and not tc[512:640].any()
 
 
 @pytest.mark.parametrize("scene", sorted(SCENES))

@@ -630,6 +630,119 @@ def test_hop_loop_gpu_equals_cpu(dev, monkeypatch):
     assert torch.equal(lab_g.cpu(), lab_c)
 
 
+def _propagate_case(case):
+    """Kernel 16's inputs (planar, labels, starts, r2) on the CPU: a
+    uniform cloud at wr 7 with every block active ("all"), none active,
+    one valid query in block 2, 400 duplicates of one point, a 0.5 m
+    lattice at r 0.5 (duplicates and pairs at exactly d2 == r2), or random
+    windows of 12 rows each (108 rows a block: ragged row slices) for 40
+    blocks over 200 planar rows (nb < nr)."""
+    rng = np.random.default_rng(17)
+    if case == "windows108":
+        nr, nb, r = 200, 40, 0.3
+        planar = _planar(rng, nr, scale=2.0)
+        starts = np.concatenate([
+            rng.integers(0, nr - 12, (nb, 9)), rng.integers(0, 4, (nb, 9)),
+            np.full((nb, 9), 12), np.ones((nb, 2))], axis=1)
+        starts = torch.from_numpy(starts.astype(np.int32))
+    else:
+        xyz = (rng.random((3000, 3)) * 6).astype(np.float32)
+        r = 0.4
+        if case == "lattice":
+            xyz, r = np.round(xyz * 2.0) / np.float32(2.0), 0.5
+        if case == "dups":
+            xyz[:400] = xyz[0]
+        t = torch.from_numpy(xyz)
+        cell = sweep.cluster_cell_size(torch.tensor(np.float32(r)),
+                                       t.abs().amax())
+        s = sweep._sorted_structure(t, torch.ones(3000, dtype=torch.bool),
+                                    cell, 7, sweep.SWEEP_TABLE_SIZE)
+        nb, nr = s["nb"], s["nrows"]
+        planar = s["planar"].clone()
+        if case == "one_valid":
+            planar[2, 3, 1:] = 0.0
+        act = torch.zeros(nb, dtype=torch.int32) if case == "none" else \
+            torch.ones(nb, dtype=torch.int32)
+        starts = torch.cat([s["starts_skip"], act[:, None]], dim=1)
+    lab = torch.arange(nr * 128, dtype=torch.int32)
+    lab[rng.random(lab.shape[0]) < 0.3] //= 3
+    return planar, lab, starts.contiguous(), float(np.float32(r) ** 2)
+
+
+@pytest.mark.parametrize("case", ["none", "one_valid", "dups", "lattice",
+                                  "windows108"])
+def test_cluster_propagate_cases(dev, case):
+    """Kernel 16 bitwise against its plain version (labels and changed)."""
+    planar, lab, starts, r2 = _propagate_case(case)
+    args = [a.to(dev) for a in (planar, lab, starts)]
+    got = _count_launch("cluster_propagate",
+                        lambda: kernels.cluster_propagate(*args, r2))
+    want = kernels.cluster_propagate_plain(*args, r2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[1].any() == (case != "none")
+
+
+def _serpentine(r, lanes=10, per=110):
+    """A chain of points 0.9 r apart: ``lanes`` rows of ``per`` points along
+    x, 1.8 r apart in y, joined at alternate ends by one point each."""
+    s = np.float32(0.9) * np.float32(r)
+    pts = []
+    for i in range(lanes):
+        xs = np.arange(per) * s
+        if i % 2:
+            xs = xs[::-1]
+        pts += [(x, 2 * i * s) for x in xs]
+        if i < lanes - 1:
+            pts.append((xs[-1], (2 * i + 1) * s))
+    return np.column_stack([np.array(pts), np.zeros(len(pts))]).astype(
+        np.float32)
+
+
+def test_cluster_multisweep_windows_rounds(dev):
+    """Kernel 8 on a chain through 9 blocks that needs more rounds than a
+    read batch, beside a blob that settles in its first: converged labels
+    equal to the plain version's, the launch count equal to the rounds
+    run, one host read a batch, fewer pairs walked than every window row
+    every round (the frontier and the row prune); a run cut by max_rounds
+    reports it, and its resume reaches the fixpoint."""
+    rng = np.random.default_rng(5)
+    pts = np.vstack([rng.normal([60.0, 60.0, 0.0], 0.05, (100, 3)),
+                     _serpentine(0.5)]).astype(np.float32)
+    xyz = np.zeros((1280, 3), np.float32)
+    xyz[:len(pts)] = pts
+    valid = np.arange(1280) < len(pts)
+    t = torch.from_numpy(xyz).to(dev)
+    cell = sweep.cluster_cell_size(torch.tensor(np.float32(0.5), device=dev),
+                                   t.abs().amax())
+    s = sweep._sorted_structure(t, torch.from_numpy(valid).to(dev), cell, 12,
+                                sweep.SWEEP_TABLE_SIZE)
+    planar, starts = s["planar"], s["starts_skip"]
+    r2 = float(np.float32(0.5) ** 2)
+    want = kernels.cluster_multisweep_windows_plain(planar, starts, r2,
+                                                    max_rounds=64)
+    before = kernels.LAUNCHES["cluster_multisweep_windows"]
+    got = kernels.cluster_multisweep_windows(planar, starts, r2,
+                                             max_rounds=64)
+    rounds = got[2]
+    assert kernels.LAUNCHES["cluster_multisweep_windows"] - before == rounds
+    assert rounds > kernels.WINDOW_ROUND_BATCH
+    assert not got[1].any() and not want[1].any()
+    assert torch.equal(got[0], want[0])
+    batch = kernels.WINDOW_ROUND_BATCH
+    assert kernels.WINDOW_ROUNDS["host_reads"] == -(-rounds // batch)
+    rows = (starts[:, 18:27] - starts[:, 9:18]).clamp(min=0).sum(1)
+    full = 128 * 128 * int((rows * (starts[:, 27] != 0)).sum()) * rounds
+    assert 0 < kernels.WINDOW_ROUNDS["pairs_visited"] < full
+    cut = kernels.cluster_multisweep_windows(planar, starts, r2,
+                                             max_rounds=2)
+    assert cut[2] == 2 and cut[1].any()
+    resumed = kernels.cluster_multisweep_windows(planar, starts, r2,
+                                                 max_rounds=64,
+                                                 labels0=cut[0])
+    assert not resumed[1].any() and torch.equal(resumed[0], want[0])
+
+
 @pytest.mark.parametrize("m,k", [(56, 20), (8, 3), (200, 31)])
 def test_sor_select(dev, m, k):
     rng = np.random.default_rng(m)
