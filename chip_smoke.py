@@ -25,7 +25,9 @@ Phases:
    groups a block walks); `sweep_moments` and `rescue_knn_idx` also at
    the normals op's inputs on phase 6's 100K cloud, `brute_knn_idx` also
    at the overflow SOR op's (4,096 live queries) and at the clean 100K
-   SOR op's (no live block) (phase2.json);
+   SOR op's (no live block), `segmented_scan_sums` also at the 1M voxel
+   op's (16 tiles), with its device time and device launches a call at
+   both (phase2.json);
 3. KITTI end to end with RANSAC seeds 0-4: every KITTI kernel launched, no
    overflow flag, sor_certified, >= 3 clusters, cluster sets equal to the
    port's own CPU run of the same frame and seed; per-stage times and the
@@ -73,7 +75,9 @@ Phases:
    residency gate, so the hop loop runs) in a 63 m cube at r 0.5, with
    `torch.topk` of the work rows as kernel 18's yardstick (kernel 18 at
    both of its "xla" frame callers, `point_sor_mean_dists` and
-   `cell_knn_subset`); the bench frame
+   `cell_knn_subset`; kernel 17 with its device time and two byte
+   bounds: the bytes any implementation must move, by which its row is
+   judged, and every input read once); the bench frame
    through both backends for RANSAC seeds 0-4 (launches, grid flags,
    sor_certified and clusters reported, not gated; seed 0 equal to the
    port's CPU run: centroids, keep mask, plane, clusters; stage times and
@@ -97,15 +101,18 @@ noisy 100K cloud, the aerial bench frame (seed 0: `sweep_moments` and
 `cluster_multisweep_windows`; with normals_rescue for `rescue_knn_idx`),
 the 1.2M-point clustering's first hop (`cluster_propagate`), the normals
 op on the 100K cloud, the KITTI "xla" frame (`segmented_select` at both
-callers) and the SOR op on the overflow and the clean 100K clouds
-(`brute_knn_idx`) give their
+callers), the SOR op on the overflow and the clean 100K clouds
+(`brute_knn_idx`), the KITTI "pallas" frame (`sor_select`) and the 1M
+voxel op (`segmented_scan_sums`) give their
 kernels, then runs the trees in the order DIR..., this, this, ...DIR (so
 that drift on the card shows), each in a fresh process that builds its
 own kernels: each kernel against its plain version at the captured
-inputs (as phase 2) and timed with CUDA events and torch.profiler, the
-KITTI frame p50 and
+inputs (as phase 2) and timed with CUDA events and torch.profiler (with
+its device launches a call), the KITTI frame p50 and
 stage medians (as phase 3), the noisy and overflow SOR op p50s, the KITTI
-"xla" frame p50 and stage medians (as phase 8), the aerial frame p50 and
+"xla" and "pallas" frame p50s and stage medians (as phase 8) and the
+"pallas" frame's device time, the 1M voxel op's p50 and device time, the
+aerial frame p50 and
 stage medians (as phase 4), the normals and `knn` 100K op p50s and the
 1.2M `euclidean_cluster` p50, and the device time (torch.profiler) of an
 aerial frame and of the 1.2M call. Each
@@ -473,8 +480,16 @@ def kernel_row(name, args, kwargs, K, card_line, library=None, label=""):
     line."""
     _, src, line = KERNELS[name]
     err, tol, ms, plain_ms = check_kernel(name, args, kwargs, K)
-    nbytes, ops = work(name, args, kwargs, getattr(K, name)(*args, **kwargs))
+    out = getattr(K, name)(*args, **kwargs)
+    nbytes, ops = work(name, args, kwargs, out)
     bms, by = bound_ms(nbytes, ops)
+    extra = {}
+    if name == "sor_select":
+        # Also "every input read once", the bound before the compaction.
+        extra["bound_read_once_ms"] = bound_ms(_nbytes(*args, *out), ops)[0]
+        log(f"kernel sor_select: bound {bms:.5f} ms moving the "
+            f"{nbytes} B any implementation must; every input read once "
+            f"{extra['bound_read_once_ms']:.5f} ms [{card_line}]")
     lib_ms = None if library is None else cuda_ms(library, 20)
     shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
     live = {n: int((args[0 if n.startswith("brute") else 1][:, 3, :]
@@ -491,7 +506,7 @@ def kernel_row(name, args, kwargs, K, card_line, library=None, label=""):
                 source=f"pointclouds_tpu_torch/spatial/csrc/{src}",
                 replaces=f"{PALLAS}:{line}", max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, **extra)
 
 
 def stage_timer(mod, stages):
@@ -628,13 +643,41 @@ def work(name, args, kwargs, out):
         rows = int((starts[:, 18:27].sum(1) * run).sum())
         return nbytes, PAIR_OPS * pair * rows
     if name == "sor_select":
-        # Valid queries x valid candidates of each cell (empty cells none).
+        # Valid queries x valid candidates of each cell (empty cells none);
+        # the bytes any implementation must move (`sor_must_move`).
         q, qm, cand, cv = args
         pairs = int((qm.sum(1) * cv.sum(1)).sum())
-        return nbytes, PAIR_OPS * pairs
+        return sor_must_move(q, qm, cand, cv, outs), PAIR_OPS * pairs
     if name == "segmented_select":
         return nbytes, args[0].numel()  # one compare per element
     raise KeyError(name)
+
+
+def _sectors(mask, offsets, width) -> int:
+    """32-byte sectors holding the ``width`` bytes at each byte offset where
+    ``mask`` is set (the tensors start on 512-byte boundaries)."""
+    first = offsets[mask] // 32
+    last = (offsets[mask] + width - 1) // 32
+    return int(torch.unique(torch.cat([first, last])).numel()) * 32
+
+
+def sor_must_move(q, qm, cand, cv, outs) -> int:
+    """Kernel 17's bytes that any implementation must move: the qm and cv
+    masks whole, the 32-byte sectors of q [C, 3, M] and cand [C, CAND, 3]
+    that hold a valid query's or a valid candidate's coordinates, and the
+    outputs. Its "every input read once" count also reads the masked
+    slots' coordinates, which the kernel never loads."""
+    c, _, m = q.shape
+    ncand = cand.shape[1]
+    dev = q.device
+    qoff = ((torch.arange(c, device=dev)[:, None, None] * 3
+             + torch.arange(3, device=dev)[None, :, None]) * m
+            + torch.arange(m, device=dev)[None, None, :]) * 4
+    coff = (torch.arange(c, device=dev)[:, None] * ncand
+            + torch.arange(ncand, device=dev)[None, :]) * 12
+    return (_nbytes(qm, cv, *outs)
+            + _sectors(qm[:, None, :].expand(c, 3, m), qoff, 4)
+            + _sectors(cv, coff, 12))
 
 
 def bound_ms(nbytes, ops):
@@ -797,18 +840,80 @@ def profile_op(fn, reps=5):
 def device_ms(fn, reps=20):
     """Device time of the kernels one call of ``fn`` launches, from
     torch.profiler over ``reps`` calls: a small kernel's CUDA-event time
-    (`cuda_ms`) is its wrapper's host time when that is the longer."""
+    (`cuda_ms`) is its wrapper's host time when that is the longer. The
+    profiler now and then records no device event for a window; such a
+    window is taken again, and after three None is returned (not
+    measured), never 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if us:
+            return sum(us) / reps / 1e3
+    return None
+
+
+def ms_text(ms, digits=4) -> str:
+    """A device time for the log: "not measured" where it is None."""
+    return "not measured" if ms is None else f"{ms:.{digits}f}"
+
+
+def device_kernels(fn) -> list:
+    """Names of the device kernels one call of ``fn`` launches
+    (torch.profiler, after a warm-up call)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def kernel_resources(fn) -> dict:
+    """Registers a thread and shared memory a block (static and dynamic,
+    bytes) of each device kernel one call of ``fn`` launches, as
+    torch.profiler's trace records them (None where it does not)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    OUT_DIR.mkdir(exist_ok=True)
+    path = OUT_DIR / "resources_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    path.unlink()
+    return {e.get("name", "")[:48]: (e.get("args", {}).get("registers per thread"),
+                                     e.get("args", {}).get("shared memory"))
+            for e in events if e.get("cat") == "kernel"}
+
+
+def scan_device(args, kwargs, K, card_line, label) -> dict:
+    """Kernel 1's device time, device launches and resources a call at a
+    capture."""
+    fn = lambda: K.segmented_scan_sums(*args, **kwargs)  # noqa: E731
+    names = device_kernels(fn)
+    res = dict(device_ms=device_ms(fn), device_launches=len(names),
+               device_kernels=sorted(set(names)),
+               resources=kernel_resources(fn))
+    log(f"kernel segmented_scan_sums ({label}): n {args[0].numel()}, device "
+        f"{ms_text(res['device_ms'])} ms a call (torch.profiler), "
+        f"{res['device_launches']} device launches a call "
+        f"{res['device_kernels']}; (registers a thread, shared memory "
+        f"bytes) {res['resources']} [{card_line}]")
+    return res
 
 
 def row_index(pts, out_pts):
@@ -1322,10 +1427,30 @@ def phase8_kernels(card_line, K, pc, kdata, api, large):
         rows.append(kernel_row(name, args, kwargs, K, card_line,
                                seg_topk(args, kwargs) if is_seg else None,
                                first if is_seg else ""))
+        if name == "sor_select":
+            call = lambda: K.sor_select(*args, **kwargs)  # noqa: E731
+            rows[-1]["device_ms"] = device_ms(call)
+            log(f"kernel sor_select: device {ms_text(rows[-1]['device_ms'])} ms "
+                f"a call (torch.profiler), {select_cells(*args)}; (registers "
+                f"a thread, shared memory bytes) {kernel_resources(call)} "
+                f"[{card_line}]")
     args, kwargs = seg[second]["segmented_select"]
     extra = kernel_row("segmented_select", args, kwargs, K, card_line,
                        seg_topk(args, kwargs), second)
     return rows, extra
+
+
+def select_cells(q, qm, cand, cv) -> str:
+    """What kernel 17 sees: cells with a valid query, valid queries and
+    valid candidate slots a cell."""
+    live = qm.any(1)
+    nv = cv.sum(1)[live].float()
+    if not nv.numel():
+        return "no live cell"
+    return (f"{int(live.sum())} of {qm.shape[0]} cells live, "
+            f"{int(qm.sum())} valid queries (max {int(qm.sum(1).max())} a "
+            f"cell), valid slots a live cell mean {float(nv.mean()):.2f} max "
+            f"{int(nv.max())} of {cv.shape[1]}")
 
 
 def kitti_summary(pc, out) -> dict:
@@ -1443,6 +1568,13 @@ def ab_capture(path: Path) -> None:
             lambda c=c: api.statistical_outlier_removal(c, 10, 2.0),
             ["brute_knn_idx"])
            for label, c in brute_captures(overflow, u100k)},
+        "kitti pallas": capture_inputs(
+            lambda: run_kitti(pc, kdata, 0, "cuda", sor_backend="pallas"),
+            ["sor_select"]),
+        "voxel 1M": capture_inputs(
+            lambda: api.voxel_downsample(
+                api.PointCloud.from_numpy(bench_cloud(1_000_000)), 0.5),
+            ["segmented_scan_sums"]),
     }
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(sets, path)
@@ -1471,12 +1603,15 @@ def ab_child(tree: Path, inputs: Path) -> dict:
         if any(w in line for w in ("entry function", "registers", "spill"))],
         kernels={})
     res["device_ms"] = {}
+    res["device_launches"] = {}
     for label, captured in torch.load(inputs, weights_only=False).items():
         for name, (args, kwargs) in captured.items():
             res["kernels"][f"{name} {label}"] = check_kernel(
                 name, args, kwargs, K)[2]
-            res["device_ms"][f"{name} {label}"] = device_ms(
-                lambda: getattr(K, name)(*args, **kwargs), 5)
+            call = lambda: getattr(K, name)(*args, **kwargs)  # noqa: E731
+            res["device_ms"][f"{name} {label}"] = device_ms(call, 5)
+            res["device_launches"][f"{name} {label}"] = len(
+                device_kernels(call))
             if name == "cluster_multisweep_windows":
                 res["window_rounds"] = select_work(name, args, kwargs)
     kdata = velodyne_scene(seed=0, n_points=KITTI_POINTS)
@@ -1496,6 +1631,17 @@ def ab_child(tree: Path, inputs: Path) -> dict:
         lambda f: run_kitti(pc, kdata, f % len(SEEDS), cloud=kcloud,
                             sor_backend="xla"), len(SEEDS), kitti_mod,
         CELLGRID_STAGES, card_line, "kitti xla")
+    pallas = lambda f: run_kitti(pc, kdata, f % len(SEEDS),  # noqa: E731
+                                 cloud=kcloud, sor_backend="pallas")
+    pallas(0)
+    res["pallas_stages"], res["pallas_p50_ms"] = timed_frames(
+        pallas, len(SEEDS), kitti_mod, CELLGRID_STAGES, card_line,
+        "kitti pallas")
+    res["pallas_device_ms"] = device_ms(lambda: pallas(0), 3)
+    u1m = api.PointCloud.from_numpy(bench_cloud(1_000_000))
+    vox = lambda: api.voxel_downsample(u1m, 0.5)  # noqa: E731
+    res["voxel_1m_p50_ms"] = p50_ms(vox)[0]
+    res["voxel_1m_device_ms"] = device_ms(vox, 5)
     adata = aerial_scene(seed=42, scale=1.0)
     acloud = pc.make_cloud_arrays(adata, device="cuda")
     run_aerial(pc, adata, 0, cloud=acloud)
@@ -1540,16 +1686,25 @@ def ab_main(others) -> int:
             f"{r['xla_stages']['point_sor_mean_dists']:.3f} ms, "
             f"cell_knn_subset {r['xla_stages']['cell_knn_subset']:.3f} ms, "
             f"KITTI xla frame p50 {r['xla_p50_ms']:.3f} ms, "
+            f"cell_sor_mean_dists "
+            f"{r['pallas_stages']['cell_sor_mean_dists']:.3f} ms, KITTI "
+            f"pallas frame p50 {r['pallas_p50_ms']:.3f} ms (device "
+            f"{ms_text(r['pallas_device_ms'], 3)}), voxel 1M op p50 "
+            f"{r['voxel_1m_p50_ms']:.3f} ms (device "
+            f"{ms_text(r['voxel_1m_device_ms'], 3)}), voxel stage (KITTI) "
+            f"{r['stages']['voxel_downsample_sweep_fused']:.3f} ms, "
+            f"segmented_scan_sums device launches a call "
+            f"{ {k: v for k, v in r['device_launches'].items() if k.startswith('segmented_scan')} }, "
             f"normals_from_moment_rows "
             f"{r['aerial_stages']['normals_from_moment_rows']:.3f} ms, "
             f"sweep_cluster_labels (aerial) "
             f"{r['aerial_stages']['sweep_cluster_labels']:.3f} ms, "
             f"aerial frame p50 {r['aerial_p50_ms']:.3f} ms (device "
-            f"{r['aerial_device_ms']:.3f}), normals 100K op "
+            f"{ms_text(r['aerial_device_ms'], 3)}), normals 100K op "
             f"p50 {r['normals_op_p50_ms']:.3f} ms, knn 100K op p50 "
             f"{r['knn_op_p50_ms']:.3f} ms, euclidean_cluster 1.2M p50 "
             f"{r['cluster_large_p50_ms']:.3f} ms (device "
-            f"{r['cluster_large_device_ms']:.3f})"
+            f"{ms_text(r['cluster_large_device_ms'], 3)})"
             f"{'; ' + r['window_rounds'] if r.get('window_rounds') else ''}"
             f" [{card_line}]")
     OUT_DIR.mkdir(exist_ok=True)
@@ -1661,17 +1816,29 @@ def main() -> int:
         row = kernel_row("brute_knn_idx", args, kwargs, K, card_line,
                          label=label)
         row["device_ms"] = device_ms(lambda: K.brute_knn_idx(*args, **kwargs))
-        log(f"kernel brute_knn_idx ({label}): device {row['device_ms']:.4f} "
+        log(f"kernel brute_knn_idx ({label}): device {ms_text(row['device_ms'])} "
             f"ms a call (torch.profiler) [{card_line}]")
         brute_rows.append(row)
+    # Kernel 1 also at the 1M voxel op (16 tiles), beside the KITTI frame
+    # (2 tiles); at both, its device time and device launches a call.
+    scan_row = next(r for r in rows if r["name"] == "segmented_scan_sums")
+    scan_row.update(scan_device(*captured["segmented_scan_sums"], K,
+                                card_line, "kitti"))
+    u1m = api.PointCloud.from_numpy(bench_cloud(1_000_000))
+    args, kwargs = capture_inputs(lambda: api.voxel_downsample(u1m, 0.5),
+                                  ["segmented_scan_sums"])[
+        "segmented_scan_sums"]
+    scan_1m = dict(kernel_row("segmented_scan_sums", args, kwargs, K,
+                              card_line, label="voxel 1M"),
+                   **scan_device(args, kwargs, K, card_line, "voxel 1M"))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "phase2.json").write_text(json.dumps(dict(
         card=card_line, kernels=rows, normals_100k=[
             dict(kernel_row(name, *normals[name], K, card_line,
                             label="normals 100K"),
                  work=select_work(name, *normals[name]))
-            for name in NORMALS_KERNELS], brute_knn_idx=brute_rows),
-        indent=1))
+            for name in NORMALS_KERNELS], brute_knn_idx=brute_rows,
+        segmented_scan_sums_1m=scan_1m), indent=1))
     launches_total = {name: 0 for name in KERNELS}
 
     def add(launches):

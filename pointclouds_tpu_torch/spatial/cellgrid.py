@@ -219,16 +219,16 @@ def cert_cell2(grid: CellGrid):
 
 
 def gather_neighbor_blocks(grid: CellGrid, slots):
-    """[..., M, 3] coordinates, [..., M] mask and [..., M] row ids of the
-    neighbour blocks ``slots`` (absent slots, >= C, masked out)."""
+    """[..., M, 3] coordinates and [..., M] mask of the neighbour blocks
+    ``slots`` (absent slots, >= C, masked out). The reference also gathers
+    the blocks' row ids; no caller here reads them."""
     cap, m, _ = grid.cell_xyz.shape
     flat = torch.clamp(slots, 0, cap - 1).reshape(-1).long()
     absent = slots >= cap
     nb_xyz = grid.cell_xyz[flat].reshape(slots.shape + (m, 3))
     nb_mask = (grid.cell_mask[flat].reshape(slots.shape + (m,))
                & ~absent[..., None])
-    nb_idx = grid.cell_idx[flat].reshape(slots.shape + (m,))
-    return nb_xyz, nb_mask, nb_idx
+    return nb_xyz, nb_mask
 
 
 def gather_neighbor_xyzw(grid: CellGrid, slots):
@@ -300,7 +300,7 @@ def cell_sor_mean_dists(grid: CellGrid, *, k: int, chunk: int = CELL_CHUNK,
     caps, m, _ = grid.cell_xyz.shape
     qm = grid.cell_mask
     if backend in ("pallas", "pallas_interpret"):
-        nb_xyz, nb_mask, _ = gather_neighbor_blocks(grid, grid.neighbor_slots)
+        nb_xyz, nb_mask = gather_neighbor_blocks(grid, grid.neighbor_slots)
         total, count, kth = sor_select(
             grid.cell_xyz.permute(0, 2, 1).contiguous(), qm.contiguous(),
             nb_xyz.reshape(caps, -1, 3).contiguous(),
@@ -318,7 +318,7 @@ def cell_sor_mean_dists(grid: CellGrid, *, k: int, chunk: int = CELL_CHUNK,
         step = _cell_rows(m * km)
         for s in range(0, min(caps, occupied), step):
             sl = slice(s, min(s + step, caps))
-            nb_xyz, nb_mask, _ = gather_neighbor_blocks(
+            nb_xyz, nb_mask = gather_neighbor_blocks(
                 grid, grid.neighbor_slots[sl])
             c = nb_xyz.shape[0]
             nbf = nb_xyz.reshape(c, km, 3)

@@ -1,5 +1,5 @@
 // Per-thread exact top-k (k <= 32) in registers, shared by the kernels that
-// keep one thread per query (sweep_select, sweep_knn_select, sor_select).
+// keep one thread per query (sweep_select, sweep_knn_select).
 // Each thread owns one query; candidate rows of 128 points are staged in
 // shared memory by the whole block (`stage_row`). The warp-cooperative
 // kernels build on warpselect.cuh.

@@ -158,13 +158,13 @@ def segmented_scan_sums(first, x, y, z, c):
         return segmented_scan_sums_plain(first, x, y, z, c)
     t, tl = _segscan_layout(n)
     total = t * tl
-    ins = [torch.nn.functional.pad(a, (0, total - n)).contiguous()
+    ins = [a if total == n else torch.nn.functional.pad(a, (0, total - n))
            for a in (first, x, y, z, c)]
-    scratch = torch.empty((2, 5, total), dtype=torch.float32,
-                          device=first.device)
-    out = torch.empty((4, total), dtype=torch.float32, device=first.device)
+    # One allocation: the four sums, then the kernel's 5-channel scratch
+    # (held until the returned views are freed).
+    out = torch.empty((9, total), dtype=torch.float32, device=first.device)
     _lib().call("pc_segscan5", *[a.data_ptr() for a in ins],
-                scratch.data_ptr(), out.data_ptr(), total, tl, _stream())
+                out[4].data_ptr(), out.data_ptr(), total, tl, _stream())
     LAUNCHES["segmented_scan_sums"] += 1
     return tuple(out[i, :n] for i in range(4))
 
@@ -1351,6 +1351,9 @@ def sor_select(q, qm, cand, cv, *, k: int):
     if not _on_cuda(q):
         return sor_select_plain(q, qm, cand, cv, k=k)
     _check_k(k + 1)
+    if ncand >= 1 << 16:
+        raise ValueError(f"sor_select: {ncand} candidate slots a cell; the "
+                         "kernel indexes at most 65,535")
     total = torch.empty((c, m), dtype=torch.float32, device=dev)
     count = torch.empty((c, m), dtype=torch.int32, device=dev)
     kth = torch.empty((c, m), dtype=torch.float32, device=dev)

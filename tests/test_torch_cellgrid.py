@@ -109,6 +109,50 @@ def test_sor_select_matches_pallas_interpret():
         np.testing.assert_array_equal(_bits(t.numpy()), _bits(j))
 
 
+def _sor_case(case, rng, c=12, m=8):
+    """Kernel 17's inputs [C, 3, M], [C, M], [C, 27 M, 3], [C, 27 M]:
+    every slot valid ("dense"); valid queries with fewer than k + 1 valid
+    candidates ("few"); coordinates on a 0.5 lattice, so that d2 ties at
+    the kth value ("ties"); random masks ("random", also at k 31); a few
+    valid slots at the front of each neighbour block ("sparse", the KITTI
+    frame's ~4%)."""
+    ncand = 27 * m
+    q = (rng.random((c, 3, m)) * 2.0).astype(np.float32)
+    cand = (rng.random((c, ncand, 3)) * 2.0).astype(np.float32)
+    qm = rng.random((c, m)) < 0.7
+    cv = rng.random((c, ncand)) < 0.5
+    if case == "dense":
+        cv[:] = True
+    if case == "few":
+        cv = np.arange(ncand) < rng.integers(0, 5, (c, 1))
+    if case == "ties":
+        q, cand = np.round(q * 2.0) / 2.0, np.round(cand * 2.0) / 2.0
+    if case == "sparse":
+        fill = rng.integers(0, 3, (c, 27))
+        cv = np.arange(ncand) % m < np.repeat(fill, m, 1)
+    qm[-2:] = False  # cells with no valid query
+    return q, qm, cand, cv
+
+
+@pytest.mark.parametrize("case,k", [("dense", 5), ("few", 5), ("ties", 6),
+                                    ("random", 31), ("sparse", 4)])
+def test_sor_select_cases_match_pallas_interpret(case, k):
+    """Kernel 17 (plain version) bitwise against the Pallas kernel in
+    interpret mode on the inputs the compacting kernel must get right."""
+    from pointclouds_tpu.spatial.pallas_kernels import sor_select as jsel
+
+    args = _sor_case(case, np.random.default_rng(len(case) + k))
+    jt, jc, jk = jsel(*(jnp.asarray(a) for a in args), k=k, interpret=True)
+    tt, tc, tk = kernels.sor_select(*(to_torch(a) for a in args), k=k)
+    assert tc.dtype == kernels.torch.int32
+    if case == "few":
+        assert (np.asarray(jc)[args[1]] < k + 1).any()
+    if case == "dense":
+        assert (np.asarray(jc)[args[1]] == k + 1).all()
+    for t, j in ((tt, jt), (tc, jc), (tk, jk)):
+        np.testing.assert_array_equal(_bits(t.numpy()), _bits(j))
+
+
 def test_point_sor_mean_dists_matches_jax():
     data = _scene(21, 1500, 5.0, extra=[[np.nan, 0, 0], [80, 80, 80]])
     a, t, jg, tg = _grids(data, 0.9, m_per_cell=32, cell_cap=2048)

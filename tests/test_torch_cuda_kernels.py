@@ -34,16 +34,28 @@ def _planar(rng, nr, frac_valid=0.9, scale=5.0):
     return torch.from_numpy(p)
 
 
-@pytest.mark.parametrize("n", [128, 640, 2 * 512 * 128 + 384])
-def test_segmented_scan_sums(dev, n):
+@pytest.mark.parametrize("n,starts", [
+    (128, "random"), (640, "random"), (2 * 512 * 128 + 384, "random"),
+    (10_112, "random"), (1 << 20, "random"), (1 << 20, "one"),
+    (3 * 512 * 128 + 77, "every")])
+def test_segmented_scan_sums(dev, n, starts):
+    """Bitwise against the plain version: one tile of 79 rows (10,112, not
+    a power of two), a tile shorter than the pass-A span (640), 16 tiles
+    (1M), a segment spanning every tile ("one": a start at 0 only), and a
+    start at every element."""
     rng = np.random.default_rng(n)
     first = (rng.random(n) < 0.3).astype(np.float32)
+    if starts == "one":
+        first[:] = 0.0
+    if starts == "every":
+        first[:] = 1.0
     first[0] = 1.0
     vals = [rng.normal(size=n).astype(np.float32) for _ in range(3)]
     vals[0][rng.random(n) < 0.05] = -0.0
     args = [torch.from_numpy(a).to(dev) for a in
             (first, *vals, np.ones(n, np.float32))]
-    got = kernels.segmented_scan_sums(*args)
+    got = _count_launch("segmented_scan_sums",
+                        lambda: kernels.segmented_scan_sums(*args))
     want = kernels.segmented_scan_sums_plain(*args)
     for g, w in zip(got, want):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
@@ -743,16 +755,53 @@ def test_cluster_multisweep_windows_rounds(dev):
     assert not resumed[1].any() and torch.equal(resumed[0], want[0])
 
 
-@pytest.mark.parametrize("m,k", [(56, 20), (8, 3), (200, 31)])
-def test_sor_select(dev, m, k):
-    rng = np.random.default_rng(m)
-    c, ncand = 40, 27 * min(m, 40)
-    q = torch.from_numpy((rng.random((c, 3, m)) * 3).astype(np.float32))
-    qm = torch.from_numpy(rng.random((c, m)) < 0.7)
+def _sor_inputs(rng, c, m, ncand, case):
+    """Kernel 17's inputs: random masks, or every slot valid ("dense"),
+    none ("empty"), one valid query a cell ("one_query"), coordinates on a
+    0.5 lattice so that d2 ties at the kth value ("ties"), or a few valid
+    slots at the front of each of the 27 neighbour blocks ("sparse", the
+    KITTI frame's ~4%; "thin", about half that: cells of one to three
+    rows of 32)."""
+    scale = 3.0 if case != "ties" else 1.0
+    q = (rng.random((c, 3, m)) * scale).astype(np.float32)
+    cand = (rng.random((c, ncand, 3)) * scale).astype(np.float32)
+    if case == "ties":
+        q = np.round(q * 2.0) / 2.0
+        cand = np.round(cand * 2.0) / 2.0
+    qm = rng.random((c, m)) < 0.7
+    cv = rng.random((c, ncand)) < 0.5
+    if case == "dense":
+        cv[:] = True
+    if case == "empty":
+        cv[:] = False
+        qm[: c // 2] = False
+    if case == "one_query":
+        qm[:] = False
+        qm[np.arange(c), rng.integers(0, m, c)] = True
+    if case in ("sparse", "thin"):
+        blk = ncand // 27
+        fill = rng.integers(0, 6 if case == "sparse" else 3, (c, 27))
+        cv = (np.arange(ncand) % blk < np.repeat(fill, blk, 1)) & (
+            np.arange(ncand) < 27 * blk)
+        qm = np.arange(m) < rng.integers(0, 8, (c, 1))
     qm[c - 5:] = False  # cells past num_cells
-    cand = torch.from_numpy((rng.random((c, ncand, 3)) * 3).astype(np.float32))
-    cv = torch.from_numpy(rng.random((c, ncand)) < 0.5)
-    args = [a.to(dev) for a in (q, qm, cand, cv)]
+    return [torch.from_numpy(a) for a in (q, qm, cand, cv)]
+
+
+@pytest.mark.parametrize("m,k,ncand,case", [
+    (56, 20, 27 * 40, "random"), (8, 3, 27 * 8, "random"),
+    (200, 31, 27 * 40, "random"), (56, 20, 1512, "dense"),
+    (56, 20, 1512, "empty"), (56, 20, 1512, "one_query"),
+    (56, 20, 1512, "ties"), (56, 31, 1512, "random"),
+    (56, 20, 1512, "sparse"), (57, 20, 27 * 57, "sparse"),
+    (56, 20, 1512, "thin"),
+    (7, 5, 27 * 7, "random")])
+def test_sor_select(dev, m, k, ncand, case):
+    """Bitwise against the plain version. The dense cells (1,512 valid
+    slots) and the 200-query cells walk the stage in chunks; ncand 1,539
+    and 189 give rows that are not 8-byte aligned."""
+    rng = np.random.default_rng(m + k + ncand)
+    args = [a.to(dev) for a in _sor_inputs(rng, 40, m, ncand, case)]
     got = _count_launch("sor_select", lambda: kernels.sor_select(*args, k=k))
     want = kernels.sor_select_plain(*args, k=k)
     for g, w in zip(got, want):
