@@ -22,7 +22,10 @@ Phases:
    the port's own upstream stages): the CUDA kernel against its plain
    torch version on the card, and both timed with CUDA events, with the
    work the warp-select kernels see (live blocks, valid queries, rows or
-   groups a block walks); `sweep_moments` and `rescue_knn_idx` also at
+   groups a block walks), the cluster loops' rounds beside the plain
+   version's (kernel 4's bound counts the plain version's Jacobi rounds,
+   a yardstick that does not move with the kernel's design);
+   `sweep_moments` and `rescue_knn_idx` also at
    the normals op's inputs on phase 6's 100K cloud, `brute_knn_idx` also
    at the overflow SOR op's (4,096 live queries) and at the clean 100K
    SOR op's (no live block), `segmented_scan_sums` also at the 1M voxel
@@ -96,7 +99,10 @@ chiprun_out/.
 
 compares this checkout with others (each DIR an unpacked checkout, e.g.
 `git archive` of an earlier commit) on the same card instead: it captures
-the inputs that the KITTI sweep frame (RANSAC seed 0), the SOR op on the
+the inputs that the KITTI sweep frame (RANSAC seed 0; with
+`cluster_multisweep`), the `knn` op over the 100K cloud's own points and
+for 100K other queries (`sweep_knn_select`), `euclidean_cluster` on the
+100K slab at r 0.5 (`cluster_multisweep`), the SOR op on the
 noisy 100K cloud, the aerial bench frame (seed 0: `sweep_moments` and
 `cluster_multisweep_windows`; with normals_rescue for `rescue_knn_idx`),
 the 1.2M-point clustering's first hop (`cluster_propagate`), the normals
@@ -108,12 +114,14 @@ kernels, then runs the trees in the order DIR..., this, this, ...DIR (so
 that drift on the card shows), each in a fresh process that builds its
 own kernels: each kernel against its plain version at the captured
 inputs (as phase 2) and timed with CUDA events and torch.profiler (with
-its device launches a call), the KITTI frame p50 and
-stage medians (as phase 3), the noisy and overflow SOR op p50s, the KITTI
+its device launches a call, registers and shared memory; the cluster
+loops' rounds, host reads and walked pairs), the KITTI frame p50,
+device time and stage medians (as phase 3), the noisy and overflow SOR op p50s, the KITTI
 "xla" and "pallas" frame p50s and stage medians (as phase 8) and the
 "pallas" frame's device time, the 1M voxel op's p50 and device time, the
 aerial frame p50 and
-stage medians (as phase 4), the normals and `knn` 100K op p50s and the
+stage medians (as phase 4), the normals and `knn` (same-cloud and
+cross-cloud) 100K op p50s, the `knn` calls' device times and the
 1.2M `euclidean_cluster` p50, and the device time (torch.profiler) of an
 aerial frame and of the 1.2M call. Each
 tree's ptxas log and numbers go to chiprun_out/ab.json.
@@ -382,7 +390,7 @@ def check_kernel(name, args, kwargs, K):
         if not torch.equal(got[0], want[0]):
             raise AssertionError(f"{name}: labels differ")
         err = float((got[0] - want[0]).abs().max())
-        tol = f"labels equal, {got[2]} rounds"
+        tol = f"labels equal, {got[2]} rounds (plain {want[2]})"
     else:
         # Exact top-k in the same order: count, kth and the ascending sum
         # are bitwise equal.
@@ -428,9 +436,11 @@ def select_work(name, args, kwargs) -> str:
                 f"{int(rows.sum())})")
     if name == "cluster_propagate":
         return propagate_work(*args[:3])
-    if name == "cluster_multisweep_windows":
+    if name in ("cluster_multisweep", "cluster_multisweep_windows"):
         w = getattr(importlib.import_module(
-            "pointclouds_tpu_torch.spatial.kernels"), "WINDOW_ROUNDS", None)
+            "pointclouds_tpu_torch.spatial.kernels"),
+            "WINDOW_ROUNDS" if name.endswith("windows") else "LIST_ROUNDS",
+            None)
         return "" if w is None else (
             f"last call: {w['host_reads']} host reads, "
             f"{w['pairs_visited']} pairs walked (frontier and row prune), "
@@ -610,9 +620,15 @@ def work(name, args, kwargs, out):
         return nbytes, PAIR_OPS * pair * _group_rows(
             args[1], args[2], kwargs.get("gr", 8), 0.0)
     if name == "cluster_multisweep":
+        # Every listed row a round, for the plain version's Jacobi rounds:
+        # the kernel's own rounds fold the jumps into the next round, and a
+        # yardstick must not move with its design.
         rl, cap = args[1], kwargs["cap"]
         rows = (rl[:, cap + 1].clamp(max=cap) * (rl[:, cap] != 0)).sum()
-        return nbytes, PAIR_OPS * pair * int(rows) * out[2]
+        rounds = importlib.import_module(
+            "pointclouds_tpu_torch.spatial.kernels").cluster_multisweep_plain(
+                *args, **kwargs)[2]
+        return nbytes, PAIR_OPS * pair * int(rows) * rounds
     if name == "cluster_multisweep_windows":
         return nbytes, PAIR_OPS * pair * _window_rows(args[1]) * out[2]
     if name in ("sweep_moments", "sweep_select", "count_within"):
@@ -1545,9 +1561,19 @@ def ab_capture(path: Path) -> None:
     noisy = api.PointCloud.from_numpy(noisy_cloud(NOISY_BOX))
     overflow = api.PointCloud.from_numpy(noisy_cloud(OVERFLOW_BOX))
     u100k = api.PointCloud.from_numpy(bench_cloud(100_000))
+    slab = api.PointCloud.from_numpy(slab_cloud())
     sets = {
         "kitti": capture_inputs(lambda: run_kitti(pc, kdata, 0, "cuda"),
                                 PATHS["kitti"]),
+        "knn 100K": capture_inputs(
+            lambda: api.knn(u100k, bench_cloud(100_000), 10),
+            ["sweep_knn_select"]),
+        "knn cross 100K": capture_inputs(
+            lambda: api.knn(u100k, bench_cloud(100_000, seed=1), 10),
+            ["sweep_knn_select"]),
+        "slab cluster": capture_inputs(
+            lambda: api.euclidean_cluster(slab, 0.5, *CLUSTER_SIZES),
+            ["cluster_multisweep"]),
         "sor noisy 100K": capture_inputs(
             lambda: api.statistical_outlier_removal(noisy, 10, 2.0),
             PATHS["sor"]),
@@ -1604,22 +1630,27 @@ def ab_child(tree: Path, inputs: Path) -> dict:
         kernels={})
     res["device_ms"] = {}
     res["device_launches"] = {}
+    res["resources"] = {}
+    res["rounds"] = {}
     for label, captured in torch.load(inputs, weights_only=False).items():
         for name, (args, kwargs) in captured.items():
-            res["kernels"][f"{name} {label}"] = check_kernel(
-                name, args, kwargs, K)[2]
+            key = f"{name} {label}"
+            res["kernels"][key] = check_kernel(name, args, kwargs, K)[2]
             call = lambda: getattr(K, name)(*args, **kwargs)  # noqa: E731
-            res["device_ms"][f"{name} {label}"] = device_ms(call, 5)
-            res["device_launches"][f"{name} {label}"] = len(
-                device_kernels(call))
-            if name == "cluster_multisweep_windows":
-                res["window_rounds"] = select_work(name, args, kwargs)
+            res["device_ms"][key] = device_ms(call, 5)
+            res["device_launches"][key] = len(device_kernels(call))
+            res["resources"][key] = kernel_resources(call)
+            if name.startswith("cluster_multisweep"):
+                res["rounds"][key] = (f"{call()[2]} rounds; "
+                                      f"{select_work(name, args, kwargs)}")
     kdata = velodyne_scene(seed=0, n_points=KITTI_POINTS)
     kcloud = pc.make_cloud_arrays(kdata, device="cuda")
     run_kitti(pc, kdata, 0, cloud=kcloud)
     res["stages"], res["frame_p50_ms"] = timed_frames(
         lambda f: run_kitti(pc, kdata, f, cloud=kcloud), KITTI_FRAMES,
         kitti_mod, KITTI_STAGES, card_line, "kitti")
+    res["kitti_device_ms"] = device_ms(
+        lambda: run_kitti(pc, kdata, 0, cloud=kcloud), 3)
     noisy = api.PointCloud.from_numpy(noisy_cloud(NOISY_BOX))
     res["sor_op_p50_ms"] = p50_ms(
         lambda: api.statistical_outlier_removal(noisy, 10, 2.0))[0]
@@ -1654,7 +1685,12 @@ def ab_child(tree: Path, inputs: Path) -> dict:
     cloud = api.PointCloud.from_numpy(u100k)
     res["normals_op_p50_ms"] = p50_ms(
         lambda: api.estimate_normals(cloud, 10))[0]
+    q100k = bench_cloud(100_000, seed=1)
     res["knn_op_p50_ms"] = p50_ms(lambda: api.knn(cloud, u100k, 10))[0]
+    res["knn_cross_op_p50_ms"] = p50_ms(lambda: api.knn(cloud, q100k, 10))[0]
+    res["knn_device_ms"] = device_ms(lambda: api.knn(cloud, u100k, 10), 3)
+    res["knn_cross_device_ms"] = device_ms(
+        lambda: api.knn(cloud, q100k, 10), 3)
     large = large_cloud(api)
     call = lambda: api.euclidean_cluster(large, LARGE_R,  # noqa: E731
                                          *CLUSTER_SIZES)
@@ -1680,7 +1716,10 @@ def ab_main(others) -> int:
         log(f"ab {tree}: build {r['build_s']:.1f} s; " + ", ".join(
             f"{k} {v:.4f}" for k, v in r["kernels"].items()) + " ms; "
             f"sweep_sor_two_pass {r['stages']['sweep_sor_two_pass']:.3f} ms, "
-            f"KITTI frame p50 {r['frame_p50_ms']:.3f} ms, SOR noisy 100K op "
+            f"sweep_cluster_labels (KITTI) "
+            f"{r['stages']['sweep_cluster_labels']:.3f} ms, "
+            f"KITTI frame p50 {r['frame_p50_ms']:.3f} ms (device "
+            f"{ms_text(r.get('kitti_device_ms'), 3)}), SOR noisy 100K op "
             f"p50 {r['sor_op_p50_ms']:.3f} ms, SOR overflow op p50 "
             f"{r['sor_overflow_op_p50_ms']:.3f} ms, point_sor_mean_dists "
             f"{r['xla_stages']['point_sor_mean_dists']:.3f} ms, "
@@ -1702,10 +1741,18 @@ def ab_main(others) -> int:
             f"aerial frame p50 {r['aerial_p50_ms']:.3f} ms (device "
             f"{ms_text(r['aerial_device_ms'], 3)}), normals 100K op "
             f"p50 {r['normals_op_p50_ms']:.3f} ms, knn 100K op p50 "
-            f"{r['knn_op_p50_ms']:.3f} ms, euclidean_cluster 1.2M p50 "
+            f"{r['knn_op_p50_ms']:.3f} ms (device "
+            f"{ms_text(r.get('knn_device_ms'), 3)}), knn cross 100K op p50 "
+            f"{r['knn_cross_op_p50_ms']:.3f} ms (device "
+            f"{ms_text(r.get('knn_cross_device_ms'), 3)}), "
+            f"euclidean_cluster 1.2M p50 "
             f"{r['cluster_large_p50_ms']:.3f} ms (device "
-            f"{ms_text(r['cluster_large_device_ms'], 3)})"
-            f"{'; ' + r['window_rounds'] if r.get('window_rounds') else ''}"
+            f"{ms_text(r['cluster_large_device_ms'], 3)}); device ms a call "
+            + ", ".join(f"{k} {ms_text(v)}" for k, v in r["device_ms"].items())
+            + "; device launches a call " + ", ".join(
+                f"{k} {v}" for k, v in r["device_launches"].items()
+                if k.startswith(("sweep_knn", "cluster_multisweep ")))
+            + "".join(f"; {k}: {v}" for k, v in r["rounds"].items()) +
             f" [{card_line}]")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "ab.json").write_text(json.dumps(

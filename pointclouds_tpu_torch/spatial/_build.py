@@ -36,8 +36,8 @@ _SIGNATURES = {
                     _I),
     "pc_sweep_select_rows": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "pc_rescue_select": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "pc_cluster_round": ([_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P],
-                         _I),
+    "pc_cluster_rounds_lists": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 ctypes.c_float, _I, _I, _P], _I),
     "pc_ransac_score_counts": ([_P, _P, _P, _P, _I, _I, _P], _I),
     "pc_sweep_moments": ([_P, _P, _P, _I, _I, ctypes.c_float,
                           ctypes.c_float, _P], _I),

@@ -11,54 +11,84 @@
 // f32, -1 pad), the count, the kth d2 (0 if none) and a certificate. The
 // TPU kernel keeps `per_seg` finalists per lane (ties keep the earlier-seen
 // register), extracts the k smallest over a register-major stack and
-// certifies the segments; here each thread keeps an exact top-k of (d2,
-// position) pairs in lexicographic order, so the certificate is always 1
-// and ties at equal d2 go to the smaller position, whatever the walk order.
+// certifies the segments; here the selection keeps the k smallest (d2,
+// position) keys, so the certificate is always 1 and ties at equal d2 go to
+// the smaller position, whatever the walk order or the split of the rows.
 //
-// Design: sweep_select's (select.cu) one block of 128 threads per query
-// block, each candidate row (2 KB) staged in shared memory once and scanned
-// by all 128 queries. At 100K points there are ~780 query blocks, each
-// walking a few window rows: enough blocks to fill the card. Bound on
-// Hopper: the per-pair d2 + compare work (each staged row is reused 128
-// times); the insertion network runs only for candidates below the current
-// kth.
-#include "topk.cuh"
+// Bound on Hopper: the per-pair d2 + compare work over the window rows
+// (operations), not memory: each staged row is reused by 128 queries.
+//
+// Design: rescue_knn_idx's (knn.cu) on the warp-select core
+// (warpselect.cuh) with 64-bit (d2, position) keys, over the rows of the
+// block's windows (WindowRows) as sweep_moments (moments.cu) walks them. S
+// warps per query (each walking every S-th row of each tile, their lists
+// merged in shared memory at the end), W warps per CTA = W / S queries of
+// one block, sharing a cp.async ring of 8-row tiles. The windows arrive in
+// sorted-cell order, so a first walk bounds the kth d2 from each lane's two
+// smallest and the second offers only what lies at or below it (one vote a
+// row; a d2 equal to tau's passes it and the key decides).
+#include "warpselect.cuh"
 
 namespace {
 
+// The windows' prefix sums and bases (WindowRows) live past the ring, 48 KB
+// and 80 bytes, above the static limit: dynamic shared memory.
+constexpr int kRingBytes = kStages * kTileFloats * sizeof(float);
+constexpr int kSweepKnnSmem = kRingBytes + 2 * 10 * sizeof(int);
+
 // pts: [nr, 4, 128] candidate rows; qpl: [>= nb, 4, 128] query rows;
-// starts: [nb, 28] (the window pack); out: [2k + 3, nb * 128].
-__global__ void sweep_knn_kernel(const float* __restrict__ pts,
-                                 const float* __restrict__ qpl,
-                                 const int* __restrict__ starts,
-                                 float* __restrict__ out, int nb, int k) {
-  __shared__ float sh[kRowFloats];
-  const int b = blockIdx.x;
-  const int l = threadIdx.x;
+// starts: [nb, 28] (the window pack); out: [2k + 3, nb * 128]. CTA i
+// serves queries (i % kPer) * (W / S) + warp / S of block i / kPer.
+template <int W, int S, bool kBoundWalk>
+__global__ void __launch_bounds__(W * 32)
+    sweep_knn_kernel(const float* __restrict__ pts,
+                     const float* __restrict__ qpl,
+                     const int* __restrict__ starts, float* __restrict__ out,
+                     int nb, int k) {
+  extern __shared__ __align__(16) float sh[];  // kSweepKnnSmem bytes
+  int* pre = reinterpret_cast<int*>(sh + kStages * kTileFloats);
+  int* base = pre + kShifts + 1;
+  constexpr int kPer = ctas_per_block(W, S);
+  const int b = blockIdx.x / kPer;
+  const int warp = threadIdx.x / 32;
+  const int qi = (blockIdx.x % kPer) * (W / S) + warp / S;
   const int* ss = starts + (long long)b * kStartsCols;
+  if (threadIdx.x == 0) WindowRows::fill<true>(ss, pre, base);
+  __syncthreads();
+  // A block with no valid query walks nothing: the empty fill.
+  const int nrows = ss[3 * kShifts] != 0 ? pre[kShifts] : 0;
   const float* q = qpl + (long long)b * kRowFloats;
-  const float qx = q[l], qy = q[kLanes + l], qz = q[2 * kLanes + l];
-  const bool qv = q[3 * kLanes + l] > 0.5f;
-  TopKIdx tk;
-  tk.init();
-  if (ss[3 * kShifts] != 0) {  // block-uniform: barriers below are safe
-    for (int j = 0; j < kShifts; ++j) {
-      const int st = ss[j], ln = ss[2 * kShifts + j];
-      for (int r = ss[kShifts + j]; r < ln; ++r)
-        visit_row_idx(pts, st + r, sh, qx, qy, qz, qv, tk, k);
-    }
+  const bool live = q[3 * kLanes + qi] > 0.5f;
+  WarpKSmallest<Key> sel;
+  sel.init(k, threadIdx.x & 31);
+  if (__syncthreads_or(live && nrows > 0)) {
+    select_rows<W * 32, S, kBoundWalk>(
+        pts, WindowRows{pre, base}, nrows, sh, q[qi], q[kLanes + qi],
+        q[2 * kLanes + qi], live, warp % S, sel);
+    merge_slices<S>(sh, sel);
   }
-  store_knn_idx(tk, out, (long long)nb * kLanes, (long long)b * kLanes + l,
-                k);
+  if (warp % S == 0)
+    sel.store_knn(out, (long long)nb * kLanes, (long long)b * kLanes + qi);
 }
+
+// (warps per CTA, warps per query, bound walk), measured on the H100 at the
+// `knn` 100K op's same-cloud and cross-cloud inputs (PERF.md).
+constexpr int kSweepKnnWarps = 16, kSweepKnnSlices = 1;
+constexpr bool kSweepKnnBoundWalk = true;
 
 }  // namespace
 
 extern "C" int pc_sweep_knn_select(const float* pts, const float* q,
                                    const int* starts, float* out, int nb,
                                    int k, void* stream) {
-  if (nb > 0)
-    sweep_knn_kernel<<<nb, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-        pts, q, starts, out, nb, k);
+  if (nb == 0) return 0;
+  auto kernel =
+      sweep_knn_kernel<kSweepKnnWarps, kSweepKnnSlices, kSweepKnnBoundWalk>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSweepKnnSmem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<nb * ctas_per_block(kSweepKnnWarps, kSweepKnnSlices),
+           kSweepKnnWarps * 32, kSweepKnnSmem,
+           static_cast<cudaStream_t>(stream)>>>(pts, q, starts, out, nb, k);
   return (int)cudaGetLastError();
 }

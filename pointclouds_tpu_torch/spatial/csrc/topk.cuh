@@ -1,7 +1,8 @@
-// Per-thread exact top-k (k <= 32) in registers, shared by the kernels that
-// keep one thread per query (sweep_select, sweep_knn_select).
-// Each thread owns one query; candidate rows of 128 points are staged in
-// shared memory by the whole block (`stage_row`). The warp-cooperative
+// Per-thread exact top-k (k <= 32) in registers (sweep_select), and the row
+// staging of the kernels that keep one thread per query (sweep_select, the
+// radius counts, brute_radius_count, nn_argmin): each thread owns one query;
+// candidate rows of 128 points are staged in shared memory by the whole
+// block (`stage_row`). The warp-cooperative
 // kernels build on warpselect.cuh.
 #pragma once
 #include "common.cuh"
@@ -50,46 +51,6 @@ struct TopK {
   }
 };
 
-// The k smallest (value, position) pairs in lexicographic order: ties at
-// equal value go to the smaller position, so the result does not depend on
-// the order the candidates arrive in.
-struct TopKIdx {
-  float r[kMaxK];
-  int p[kMaxK];
-
-  __device__ void init() {
-#pragma unroll
-    for (int i = 0; i < kMaxK; ++i) {
-      r[i] = kInf;
-      p[i] = 0x7fffffff;
-    }
-  }
-
-  __device__ void push(float d2, int pos, int k) {
-    float tv = r[0];
-    int tp = p[0];
-#pragma unroll
-    for (int i = 0; i < kMaxK; ++i)
-      if (i == k - 1) {
-        tv = r[i];
-        tp = p[i];
-      }
-    if (!(d2 < tv || (d2 == tv && pos < tp))) return;
-    float cv = d2;
-    int cp = pos;
-#pragma unroll
-    for (int i = 0; i < kMaxK; ++i) {
-      bool before = cv < r[i] || (cv == r[i] && cp < p[i]);
-      float nv = before ? cv : r[i];
-      int np = before ? cp : p[i];
-      cv = before ? r[i] : cv;
-      cp = before ? p[i] : cp;
-      r[i] = nv;
-      p[i] = np;
-    }
-  }
-};
-
 // Stage planar row `row` of `pts` into shared memory `sh` (all threads of
 // a 128-thread block take part; the caller reads sh after this returns).
 __device__ __forceinline__ void stage_row(const float* __restrict__ pts,
@@ -115,46 +76,6 @@ __device__ __forceinline__ void visit_row(const float* __restrict__ pts,
     if (sh[3 * kLanes + j] > 0.5f)
       tk.push(d2_rn(qx, qy, qz, sh[j], sh[kLanes + j], sh[2 * kLanes + j]), k);
   }
-}
-
-// Stage a row, then fold its valid candidates' (d2, position) pairs into
-// this thread's top-k; a candidate's position is row * 128 + lane.
-__device__ __forceinline__ void visit_row_idx(const float* __restrict__ pts,
-                                              long long row, float* sh,
-                                              float qx, float qy, float qz,
-                                              bool qv, TopKIdx& tk, int k) {
-  stage_row(pts, row, sh);
-  if (!qv) return;
-  const int pos0 = (int)(row * kLanes);
-  for (int j = 0; j < kLanes; ++j) {
-    if (sh[3 * kLanes + j] > 0.5f)
-      tk.push(d2_rn(qx, qy, qz, sh[j], sh[kLanes + j], sh[2 * kLanes + j]),
-              pos0 + j, k);
-  }
-}
-
-// The kNN output rows of query qi (of nq): [0, k) sqrt d2 ascending (+inf
-// pad), [k, 2k) positions (-1 pad), then count, kth d2 (0 if none) and the
-// certificate, always 1 (the selection is exact).
-__device__ __forceinline__ void store_knn_idx(const TopKIdx& tk, float* out,
-                                              long long nq, long long qi,
-                                              int k) {
-  float count = 0.0f, kth = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kMaxK; ++i) {
-    if (i < k) {
-      const bool found = tk.r[i] < kInf;
-      out[i * nq + qi] = found ? sqrtf(fmaxf(tk.r[i], 0.0f)) : kInf;
-      out[(k + i) * nq + qi] = found ? (float)tk.p[i] : -1.0f;
-      if (found) {
-        count = __fadd_rn(count, 1.0f);
-        kth = tk.r[i];
-      }
-    }
-  }
-  out[2 * k * nq + qi] = count;
-  out[(2 * k + 1) * nq + qi] = kth;
-  out[(2 * k + 2) * nq + qi] = 1.0f;
 }
 
 // Every thread of a 128-thread block learns whether any thread's `mine`

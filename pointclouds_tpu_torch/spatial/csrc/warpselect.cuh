@@ -222,10 +222,10 @@ struct WarpKSmallest {
     }
   }
 
-  // The kNN output rows of query `col` of out [2k + 3, nq] (`store_knn_idx`
-  // in topk.cuh): lane i < k writes its entry's sqrt d2 (+inf pad) and
-  // position (-1 pad), lane 0 the count, the kth d2 (0 if none) and the
-  // certificate, always 1 (the selection is exact). Without `stats`, out is
+  // The kNN output rows of query `col` of out [2k + 3, nq]: lane i < k
+  // writes its entry's sqrt d2 (+inf pad) and position (-1 pad), lane 0 the
+  // count, the kth d2 (0 if none) and the certificate, always 1 (the
+  // selection is exact). Without `stats`, out is
   // [2k + 1, nq]: the count is its last row.
   __device__ void store_knn(float* out, long long nq, long long col,
                             bool stats = true) const {

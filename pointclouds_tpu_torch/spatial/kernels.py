@@ -328,8 +328,8 @@ def sweep_select_rows_plain(pts_padded, rowlist, *, k: int, cap: int):
 
 
 def _check_aligned16(name: str, t: torch.Tensor):
-    """The warp-select kernels (2, 3, 6, 7, 13) and the min-label walk (8,
-    16) stage rows with 16-byte cp.async copies."""
+    """The warp-select kernels (2, 3, 6, 7, 10, 13) and the min-label walk
+    (4, 8, 16) stage rows with 16-byte cp.async copies."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data must start on a 16-byte boundary")
 
@@ -404,6 +404,12 @@ def rescue_select(cand_planar, q_planar, active, *, k: int, gr: int = 8):
 
 
 # ── 4. Cluster min-label propagation ────────────────────────────────────────
+
+# Rounds `cluster_multisweep` launches between host reads of its per-round
+# change counts, and what its last CUDA call took (as kernel 8's
+# `WINDOW_ROUND_BATCH` and `WINDOW_ROUNDS`).
+LIST_ROUND_BATCH = 4
+LIST_ROUNDS = {"host_reads": 0, "pairs_visited": 0, "lowered": []}
 
 
 def _cluster_pad(pts_planar):
@@ -484,6 +490,12 @@ def cluster_multisweep(pts_planar, rowlist, r2, *, cap: int,
     its component, invalid rows their own; changed i32[NB*128], the last
     round's flags -- all zero iff converged; rounds run).
 
+    The CUDA path launches rounds in batches of `LIST_ROUND_BATCH` and
+    reads their change counts once a batch (as
+    `cluster_multisweep_windows`); its rounds fold the pointer jumps into
+    the next round, so ``rounds`` (up to and including the first that
+    changed nothing) may differ from the plain version's Jacobi rounds.
+
     Replaces `pallas_kernels.cluster_multisweep` (csrc/cluster.cu)."""
     nr = pts_planar.shape[0]
     nb = rowlist.shape[0]
@@ -497,29 +509,52 @@ def cluster_multisweep(pts_planar, rowlist, r2, *, cap: int,
     if not _on_cuda(pts_planar):
         return cluster_multisweep_plain(pts_planar, rowlist, r2, cap=cap,
                                         max_rounds=max_rounds)
-    return _cluster_rounds_cuda(pts_planar, rowlist, cap, r2, nb, max_rounds)
+    _check_aligned16("cluster_multisweep.pts", pts_planar)
+
+    def launch(state, first, count):
+        _lib().call("pc_cluster_rounds_lists", pts_planar.data_ptr(),
+                    rowlist.data_ptr(), *state, nb, nr, cap,
+                    max_rounds + 1, r2, first, count, _stream())
+
+    return _label_rounds_cuda("cluster_multisweep", launch, LIST_ROUND_BATCH,
+                              LIST_ROUNDS, nb, nr, max_rounds, dev)
 
 
-def _cluster_rounds_cuda(pts_planar, rowlist, cap: int, r2: float, nb: int,
-                         max_rounds: int):
-    """Launch row-list rounds until one changes nothing (a host read of the
-    change counter after each round), at most ``max_rounds``."""
-    dev = pts_planar.device
-    pts = _cluster_pad(pts_planar)
-    lab = _initial_labels(pts_planar.shape[0], nb, None, dev)
-    changed = torch.zeros(nb * 128, dtype=torch.int32, device=dev)
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
-    lib = _lib()
-    rounds = 0
-    while rounds < max_rounds:
-        lib.call("pc_cluster_round", pts.data_ptr(), rowlist.data_ptr(),
-                 lab.data_ptr(), changed.data_ptr(), counter.data_ptr(), nb,
-                 cap, r2, _stream())
-        LAUNCHES["cluster_multisweep"] += 1
-        rounds += 1
-        if int(counter.item()) == 0:  # host sync: convergence test
+def _label_rounds_cuda(name, launch, batch: int, stats: dict, nb: int,
+                       nr: int, max_rounds: int, dev):
+    """Drive kernel ``name``'s one-launch rounds (csrc/cluster.cu) in
+    batches of ``batch``, one ``launch(state pointers, first round,
+    rounds)`` and one host read of the counts a batch, until a round
+    changed nothing or ``max_rounds`` ran; the first launch also sets the
+    state up (labels, round stamps per row and per query, per-round change
+    counts after the walked-pairs count). Records the call's host reads,
+    walked pairs and labels lowered per round in ``stats``."""
+    nq = nb * 128
+    lab = torch.empty(nr * 128, dtype=torch.int32, device=dev)
+    stamp = torch.empty(nr, dtype=torch.int32, device=dev)
+    last = torch.empty(nq, dtype=torch.int32, device=dev)
+    counts = torch.empty(1 + max_rounds, dtype=torch.int64, device=dev)
+    state = [lab.data_ptr(), stamp.data_ptr(), last.data_ptr(),
+             counts.data_ptr()]
+    launched, reads, rounds = 0, 0, max_rounds
+    while True:  # the first launch sets the state up, even for no round
+        n = min(batch, max_rounds - launched)
+        launch(state, launched + 1, n)
+        launched += n
+        got = counts[: launched + 1].tolist()  # host read: once a batch
+        reads += 1
+        if 0 in got[1:]:
+            rounds = got.index(0, 1)
             break
-    return lab[: nb * 128], changed, rounds
+        if launched >= max_rounds:
+            break
+    LAUNCHES[name] += rounds
+    stats.update(host_reads=reads, pairs_visited=128 * got[0],
+                 lowered=got[1:rounds + 1])
+    # Lowered in the last round (none if it converged); all zero (`last`)
+    # when no round ran.
+    changed = last == rounds if rounds else last
+    return lab[:nq], changed.to(torch.int32), rounds
 
 
 # ── 5. RANSAC inlier counts ─────────────────────────────────────────────────
@@ -812,38 +847,16 @@ def cluster_multisweep_windows(pts_planar, starts, r2, *,
         return cluster_multisweep_windows_plain(
             pts_planar, starts, r2, max_rounds=max_rounds, labels0=labels0)
     _check_aligned16("cluster_multisweep_windows.pts", pts_planar)
-    nq = nb * 128
-    # Set up by the first launch: labels, round stamps per row and per
-    # query, per-round change counts after the walked-pairs count.
-    lab = torch.empty(nr * 128, dtype=torch.int32, device=dev)
-    stamp = torch.empty(nr, dtype=torch.int32, device=dev)
-    last = torch.empty(nq, dtype=torch.int32, device=dev)
-    counts = torch.empty(1 + max_rounds, dtype=torch.int64, device=dev)
-    lib = _lib()
-    launched, reads, rounds = 0, 0, max_rounds
-    while True:  # the first launch sets the state up, even for no round
-        n = min(WINDOW_ROUND_BATCH, max_rounds - launched)
-        lib.call("pc_cluster_rounds_windows", pts_planar.data_ptr(),
-                 starts.data_ptr(),
-                 None if labels0 is None else labels0.data_ptr(),
-                 lab.data_ptr(), stamp.data_ptr(), last.data_ptr(),
-                 counts.data_ptr(), nb, nr, counts.numel(), r2, launched + 1,
-                 n, _stream())
-        launched += n
-        got = counts[: launched + 1].tolist()  # host read: once a batch
-        reads += 1
-        if 0 in got[1:]:
-            rounds = got.index(0, 1)
-            break
-        if launched >= max_rounds:
-            break
-    LAUNCHES["cluster_multisweep_windows"] += rounds
-    WINDOW_ROUNDS.update(host_reads=reads, pairs_visited=128 * got[0],
-                         lowered=got[1:rounds + 1])
-    # Lowered in the last round (none if it converged); all zero (`last`)
-    # when no round ran.
-    changed = last == rounds if rounds else last
-    return lab[:nq], changed.to(torch.int32), rounds
+    labels0_ptr = None if labels0 is None else labels0.data_ptr()
+
+    def launch(state, first, count):
+        _lib().call("pc_cluster_rounds_windows", pts_planar.data_ptr(),
+                    starts.data_ptr(), labels0_ptr, *state, nb, nr,
+                    max_rounds + 1, r2, first, count, _stream())
+
+    return _label_rounds_cuda("cluster_multisweep_windows", launch,
+                              WINDOW_ROUND_BATCH, WINDOW_ROUNDS, nb, nr,
+                              max_rounds, dev)
 
 
 # ── 9. Exact k-smallest selection over the windows (SOR, no row cap) ───────
@@ -1144,6 +1157,7 @@ def sweep_knn_select(pts_planar, starts, *, k: int, q_planar=None):
     if not _on_cuda(pts_planar):
         return sweep_knn_select_plain(pts_planar, starts, k=k,
                                       q_planar=q_planar)
+    _check_aligned16("sweep_knn_select.pts", pts_planar)
     out = torch.empty((2 * k + 3, nb * 128), dtype=torch.float32, device=dev)
     _lib().call("pc_sweep_knn_select", pts_planar.data_ptr(), q.data_ptr(),
                 starts.data_ptr(), out.data_ptr(), nb, k, _stream())

@@ -187,6 +187,108 @@ def test_cluster_round_cap_reports_not_exact():
     assert not bool(exact)
 
 
+def _list_inputs(xyz, valid, r, cap):
+    """Kernel 4's inputs as `sweep_cluster_labels` builds them (wr 12):
+    (planar, rowlist, r2)."""
+    t = torch.from_numpy(xyz)
+    use = torch.from_numpy(valid) & torch.isfinite(t).all(dim=1)
+    hi = torch.where(use[:, None], t.abs(), 0.0).amax()
+    r32 = np.float32(r)
+    cell = sweep.cluster_cell_size(torch.tensor(r32), hi)
+    s = sweep._sorted_structure(t, torch.from_numpy(valid), cell, 12,
+                                sweep.SWEEP_TABLE_SIZE)
+    rowlist, _ = sweep._window_row_lists(s["starts_skip"], cap, s["nrows"])
+    return s["planar"], rowlist, float(r32 * r32)
+
+
+def _one_launch_rounds(planar, rowlist, cap, r2, max_rounds, *, seed,
+                       split, jumps=4):
+    """The CUDA path's list rounds (csrc/cluster.cu `label_round`) in
+    torch, the CTAs of a round run one after another in a random order
+    (one of the orders the card may run them in, each reading the labels
+    as those before it left them). Round k: CTA 0 of each live block
+    jumps its queries' labels ``jumps`` steps; the block skips its hop
+    unless its own row or a listed row has a stamp >= k - 1 (a jump that
+    lowered a label stamps its own row); CTA p hops over the p-th of
+    ``split`` shares of the list and hooks from its minima. Stops after
+    the first round that lowered no label, or after ``max_rounds``.
+    Returns (labels i32[NB*128], changed, rounds)."""
+    nr, nb = planar.shape[0], rowlist.shape[0]
+    lab = torch.arange(nr * 128)
+    stamp = torch.zeros(nr, dtype=torch.long)
+    last = torch.zeros(nb * 128, dtype=torch.long)
+    valid = planar[:, 3] > 0.5
+    big = torch.iinfo(torch.int32).max
+    order = np.random.default_rng(seed)
+
+    def lower(idx, vals, k):
+        """atomicMins of ``vals`` into the labels at ``idx`` (in any order:
+        the same minima); stamps the labels they lowered and returns how
+        many there are."""
+        before = lab[idx]
+        lab.scatter_reduce_(0, idx, vals, reduce="amin")
+        hit = idx[lab[idx] < before]
+        stamp[hit // 128] = k
+        last[hit] = k
+        return len(hit)
+
+    for k in range(1, max_rounds + 1):
+        n = 0
+        for c in order.permutation(nb * split).tolist():
+            b, part = divmod(c, split)
+            if rowlist[b, cap] == 0:
+                continue
+            own = torch.arange(b * 128, (b + 1) * 128)
+            if part == 0:
+                to = lab[own]
+                for _ in range(jumps):
+                    to = lab[to]
+                n += lower(own, to, k)
+            rows = rowlist[b, :min(int(rowlist[b, cap + 1]), cap)].long()
+            if k > 1 and not (stamp[b] >= k - 1 or
+                              bool((stamp[rows] >= k - 1).any())):
+                continue
+            share = rows[len(rows) * part // split:
+                         len(rows) * (part + 1) // split]
+            start = torch.where(valid[b], lab[own], big)
+            m = start
+            if len(share):
+                cand = planar[share].permute(1, 0, 2).reshape(4, -1)
+                near = kernels._within_r2(planar[b][None], cand[None], r2)[0]
+                clab = lab[(share[:, None] * 128
+                            + torch.arange(128)).reshape(-1)]
+                m = torch.minimum(m, torch.where(near & (cand[3] > 0.5),
+                                                 clab, big).amin(1))
+            hop = valid[b] & (m < start)
+            n += lower(own[hop], m[hop], k)
+            n += lower(start[hop], m[hop], k)  # hook the old roots
+        if n == 0:
+            break
+    changed = (last == k).to(torch.int32)
+    return lab[:nb * 128].to(torch.int32), changed, k
+
+
+@pytest.mark.parametrize("split", [1, 2])
+@pytest.mark.parametrize("scene", ["blobs", "cars", "exact_r", "frontier"])
+def test_one_launch_list_rounds_reach_the_plain_fixpoint(scene, split):
+    """The CUDA path's round schedule (jumps folded into the next round,
+    the frontier of round stamps, a block's list split over CTAs) reaches
+    the plain version's fixpoint in any block order; a run cut after one
+    round reports a change."""
+    xyz, valid, r = SCENES[scene]()
+    planar, rowlist, r2 = _list_inputs(xyz, valid, r, 16)
+    want, wch, _ = kernels.cluster_multisweep_plain(planar, rowlist, r2,
+                                                    cap=16, max_rounds=64)
+    assert not wch.any()
+    for seed in range(2):
+        got, ch, rounds = _one_launch_rounds(planar, rowlist, 16, r2, 64,
+                                             seed=seed, split=split)
+        assert not ch.any() and rounds < 64
+        assert torch.equal(got, want)
+    cut = _one_launch_rounds(planar, rowlist, 16, r2, 1, seed=0, split=split)
+    assert cut[2] == 1 and cut[1].any()
+
+
 def _slab():
     """The dense slab of tests/test_sweep_cluster.py: per-block candidate
     rows overflow any practical flat row list."""

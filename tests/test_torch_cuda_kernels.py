@@ -545,29 +545,65 @@ def test_api_gpu_equals_cpu(dev):
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("k", [1, 10, 24])
-def test_sweep_knn_select(dev, k):
-    s = _structure(dev, seed=9, wr=6, cell=0.9)
-    s["planar"][2, :3, :64] = s["planar"][2, :3, 64:]  # ties at equal d2
+def _knn_windows_case(case):
+    """Kernel 10's inputs (planar, starts) on the CPU: the sorted structure
+    of a uniform cloud (dedup skips from the structure) with one row's
+    halves equal (ties at equal d2), or "windows": random rows on a 0.5 m
+    lattice (duplicates: ties at d2 0) under random, overlapping windows
+    with nonzero skips, a block whose flag is 0 (the last) and a block
+    with its flag set but no valid query (block 1); ~10% of the queries of
+    every other block are invalid."""
+    if case == "structure":
+        s = _structure(torch.device("cpu"), seed=9, wr=6, cell=0.9)
+        planar = s["planar"].clone()
+        planar[2, :3, :64] = planar[2, :3, 64:]
+        return planar, s["starts_skip"]
+    rng = np.random.default_rng(12)
+    nb, nr = 12, 40
+    planar = _select_planar(rng, nr, "dup")
+    planar[1, 3] = 0.0
+    starts = _window_starts(rng, nb, nr)
+    assert (starts[:, 9:18] > 0).any()
+    return planar, torch.from_numpy(starts)
+
+
+@pytest.mark.parametrize("case", ["structure", "windows"])
+@pytest.mark.parametrize("k", [1, 10, 24, 32])
+def test_sweep_knn_select(dev, k, case):
+    planar, starts = (a.to(dev) for a in _knn_windows_case(case))
     got = _count_launch("sweep_knn_select", lambda: kernels.sweep_knn_select(
-        s["planar"], s["starts_skip"], k=k))
-    want = kernels.sweep_knn_select_plain(s["planar"], s["starts_skip"], k=k)
+        planar, starts, k=k))
+    want = kernels.sweep_knn_select_plain(planar, starts, k=k)
     assert torch.equal(got, want)
     assert (got[2 * k] == k).float().mean() > 0.5
+    assert (got[2 * k + 2] == 1.0).all()
+    if case == "windows":  # the empty fill: no neighbour, count 0, kth 0
+        nb = starts.shape[0]
+        for b in (1, nb - 1):
+            cols = slice(b * 128, (b + 1) * 128)
+            assert (got[:k, cols] == torch.inf).all()
+            assert (got[k:2 * k, cols] == -1.0).all()
+            assert (got[2 * k:2 * k + 2, cols] == 0.0).all()
 
 
-def test_sweep_knn_select_cross(dev):
+@pytest.mark.parametrize("k", [10, 32])
+def test_sweep_knn_select_cross(dev, k):
     """The query-frame form, on a shuffled query frame against the same
-    windows (the positions name candidate rows either way)."""
+    windows (the positions name candidate rows either way): the frame has
+    3 more rows than there are blocks, which the kernel must not read, and
+    a block with no valid query."""
     s = _structure(dev, seed=10, wr=6, cell=0.9)
     nb = s["starts_skip"].shape[0]
     rng = np.random.default_rng(10)
     q = _planar(rng, nb + 3, scale=10.0).to(dev)
+    q[1, 3] = 0.0
     got = _count_launch("sweep_knn_select", lambda: kernels.sweep_knn_select(
-        s["planar"], s["starts_skip"], k=10, q_planar=q))
-    want = kernels.sweep_knn_select_plain(s["planar"], s["starts_skip"], k=10,
+        s["planar"], s["starts_skip"], k=k, q_planar=q))
+    want = kernels.sweep_knn_select_plain(s["planar"], s["starts_skip"], k=k,
                                           q_planar=q)
     assert torch.equal(got, want)
+    assert got.shape[1] == nb * 128
+    assert (got[2 * k, 128:256] == 0).all()
 
 
 @pytest.mark.parametrize("lattice", [False, True])
@@ -753,6 +789,72 @@ def test_cluster_multisweep_windows_rounds(dev):
                                                  max_rounds=64,
                                                  labels0=cut[0])
     assert not resumed[1].any() and torch.equal(resumed[0], want[0])
+
+
+def _list_case(case):
+    """Kernel 4's inputs (planar, rowlist, cap, r2) on the CPU, as
+    `sweep_cluster_labels` builds them (wr 12): "blobs", three Gaussian
+    blobs and scattered points at r 0.5 with cap 16 (KITTI's row cap);
+    "chain", the serpentine chain through 9 blocks, which needs more
+    rounds than a read batch; "overflow", the blobs with cap 3, so lists
+    overflow and are cut at cap; "dead", the blobs with every third block's
+    points invalid and its flag 0 (no valid query); "wide", 40,000 uniform
+    points in a 30 m cube (313 blocks: too many to split a block's list
+    over 2 CTAs). "cap1" is "blobs"."""
+    rng = np.random.default_rng(23)
+    n = 1280
+    if case == "chain":
+        pts = _serpentine(0.5)
+    elif case == "wide":
+        n = 40_064
+        pts = (rng.random((40_000, 3)) * 30.0).astype(np.float32)
+    else:
+        pts = np.vstack([rng.normal(c, 0.3, (300, 3)) for c in
+                         ([0.0, 0.0, 0.0], [4.0, 4.0, 0.0], [8.0, 1.0, 1.0])]
+                        + [rng.random((300, 3)) * 10.0]).astype(np.float32)
+    xyz = np.zeros((n, 3), np.float32)
+    xyz[:len(pts)] = pts
+    t = torch.from_numpy(xyz)
+    cell = sweep.cluster_cell_size(torch.tensor(np.float32(0.5)),
+                                   t.abs().amax())
+    s = sweep._sorted_structure(t, torch.from_numpy(np.arange(n) < len(pts)),
+                                cell, 12, sweep.SWEEP_TABLE_SIZE)
+    cap = 3 if case == "overflow" else 16
+    rowlist, fits = sweep._window_row_lists(s["starts_skip"], cap, s["nrows"])
+    assert bool(fits.all()) == (case != "overflow")
+    planar = s["planar"].clone()
+    if case == "dead":
+        dead = torch.arange(0, rowlist.shape[0], 3)
+        planar[dead, 3] = 0.0
+        rowlist[dead, cap] = 0
+    return planar, rowlist, cap, float(np.float32(0.5) ** 2)
+
+
+@pytest.mark.parametrize("case", ["blobs", "chain", "overflow", "dead",
+                                  "wide", "cap1"])
+def test_cluster_multisweep(dev, case):
+    """Kernel 4: converged labels equal to the plain version's, the launch
+    count equal to the rounds run, one host read a batch; a run cut at one
+    round reports one round and a change."""
+    planar, rowlist, cap, r2 = _list_case(case)
+    planar, rowlist = planar.to(dev), rowlist.to(dev)
+    max_rounds = 1 if case == "cap1" else 64
+    want = kernels.cluster_multisweep_plain(planar, rowlist, r2, cap=cap,
+                                            max_rounds=max_rounds)
+    before = kernels.LAUNCHES["cluster_multisweep"]
+    got = kernels.cluster_multisweep(planar, rowlist, r2, cap=cap,
+                                     max_rounds=max_rounds)
+    rounds = got[2]
+    assert kernels.LAUNCHES["cluster_multisweep"] - before == rounds
+    assert kernels.LIST_ROUNDS["host_reads"] == -(
+        -rounds // kernels.LIST_ROUND_BATCH)
+    if case == "cap1":
+        assert rounds == 1 and got[1].any() and want[1].any()
+        return
+    assert not got[1].any() and not want[1].any()
+    assert torch.equal(got[0], want[0])
+    if case == "chain":
+        assert rounds > kernels.LIST_ROUND_BATCH
 
 
 def _sor_inputs(rng, c, m, ncand, case):
