@@ -28,7 +28,9 @@ Phases:
    `sweep_moments` and `rescue_knn_idx` also at
    the normals op's inputs on phase 6's 100K cloud, `brute_knn_idx` also
    at the overflow SOR op's (4,096 live queries) and at the clean 100K
-   SOR op's (no live block), `segmented_scan_sums` also at the 1M voxel
+   SOR op's (no live block), `brute_radius_count` also at the noisy ROR
+   op's own call (no live block; with its device time and device
+   launches a call), `segmented_scan_sums` also at the 1M voxel
    op's (16 tiles), with its device time and device launches a call at
    both (phase2.json);
 3. KITTI end to end with RANSAC seeds 0-4: every KITTI kernel launched, no
@@ -108,15 +110,22 @@ noisy 100K cloud, the aerial bench frame (seed 0: `sweep_moments` and
 the 1.2M-point clustering's first hop (`cluster_propagate`), the normals
 op on the 100K cloud, the KITTI "xla" frame (`segmented_select` at both
 callers), the SOR op on the overflow and the clean 100K clouds
-(`brute_knn_idx`), the KITTI "pallas" frame (`sor_select`) and the 1M
-voxel op (`segmented_scan_sums`) give their
+(`brute_knn_idx`), the KITTI "pallas" frame (`sor_select`), the 1M
+voxel op (`segmented_scan_sums`), the SOR op on the overflow cloud
+again ("sor overflow 100K": `sweep_select`, the SOR engine's fallback),
+the fused ROR op on the noisy cloud with a one-row window budget ("ror
+full": `brute_radius_count` with every query block live) and the ROR op
+on the noisy cloud ("ror noisy 100K": `brute_radius_count` with no live
+block) give their
 kernels, then runs the trees in the order DIR..., this, this, ...DIR (so
 that drift on the card shows), each in a fresh process that builds its
 own kernels: each kernel against its plain version at the captured
 inputs (as phase 2) and timed with CUDA events and torch.profiler (with
 its device launches a call, registers and shared memory; the cluster
 loops' rounds, host reads and walked pairs), the KITTI frame p50,
-device time and stage medians (as phase 3), the noisy and overflow SOR op p50s, the KITTI
+device time and stage medians (as phase 3), the noisy and overflow SOR op p50s, the
+overflow SOR op's and the noisy ROR op's device time and device launches
+a call (and the ROR op's p50), the KITTI
 "xla" and "pallas" frame p50s and stage medians (as phase 8) and the
 "pallas" frame's device time, the 1M voxel op's p50 and device time, the
 aerial frame p50 and
@@ -125,6 +134,11 @@ cross-cloud) 100K op p50s, the `knn` calls' device times and the
 1.2M `euclidean_cluster` p50, and the device time (torch.profiler) of an
 aerial frame and of the 1.2M call. Each
 tree's ptxas log and numbers go to chiprun_out/ab.json.
+
+    python3 chip_smoke.py --ab DIR [DIR ...] --captures LABEL [LABEL ...]
+
+does the same for the named captures' kernels only (no frames or ops):
+the quick way to set variants of a kernel against each other.
 """
 
 from __future__ import annotations
@@ -1410,11 +1424,18 @@ def brute_captures(overflow, clean):
     return (("sor overflow", overflow), ("sor clean 100K", clean))
 
 
+def seg_capture(pc, kdata, fn):
+    """Kernel 18's inputs in the "xla" KITTI frame (seed 0) at caller
+    ``fn``."""
+    return capture_inputs(
+        lambda: run_kitti(pc, kdata, 0, "cuda", sor_backend="xla"),
+        ["segmented_select"], within=fn)
+
+
 def seg_captures(pc, kdata):
     """Kernel 18's inputs in the "xla" KITTI frame (seed 0), per caller."""
-    return {f"kitti xla {fn}": capture_inputs(
-        lambda: run_kitti(pc, kdata, 0, "cuda", sor_backend="xla"),
-        ["segmented_select"], within=fn) for fn in SEG_CALLERS}
+    return {f"kitti xla {fn}": seg_capture(pc, kdata, fn)
+            for fn in SEG_CALLERS}
 
 
 def seg_topk(args, kwargs):
@@ -1548,9 +1569,11 @@ def phase8(card_line, K, pc, kitti_mod, kdata, add):
 AB_INPUTS = ROOT / "build" / "chip_smoke_ab" / "inputs.pt"
 
 
-def ab_capture(path: Path) -> None:
+def ab_capture(path: Path, only=None) -> None:
+    """Capture the A/B inputs (``only``: just these labels) into ``path``."""
     import pointclouds_tpu_torch as pc
     from pointclouds_tpu_torch import api
+    from pointclouds_tpu_torch.ops import fusedops
     from pointclouds_tpu_torch.pipelines.scenes import (
         aerial_scene,
         velodyne_scene,
@@ -1562,52 +1585,72 @@ def ab_capture(path: Path) -> None:
     overflow = api.PointCloud.from_numpy(noisy_cloud(OVERFLOW_BOX))
     u100k = api.PointCloud.from_numpy(bench_cloud(100_000))
     slab = api.PointCloud.from_numpy(slab_cloud())
+    r32 = torch.tensor(np.float32(0.5), device="cuda")
     sets = {
-        "kitti": capture_inputs(lambda: run_kitti(pc, kdata, 0, "cuda"),
-                                PATHS["kitti"]),
-        "knn 100K": capture_inputs(
+        "kitti": lambda: capture_inputs(
+            lambda: run_kitti(pc, kdata, 0, "cuda"), PATHS["kitti"]),
+        "knn 100K": lambda: capture_inputs(
             lambda: api.knn(u100k, bench_cloud(100_000), 10),
             ["sweep_knn_select"]),
-        "knn cross 100K": capture_inputs(
+        "knn cross 100K": lambda: capture_inputs(
             lambda: api.knn(u100k, bench_cloud(100_000, seed=1), 10),
             ["sweep_knn_select"]),
-        "slab cluster": capture_inputs(
+        "slab cluster": lambda: capture_inputs(
             lambda: api.euclidean_cluster(slab, 0.5, *CLUSTER_SIZES),
             ["cluster_multisweep"]),
-        "sor noisy 100K": capture_inputs(
+        "sor noisy 100K": lambda: capture_inputs(
             lambda: api.statistical_outlier_removal(noisy, 10, 2.0),
             PATHS["sor"]),
-        "aerial": capture_inputs(lambda: run_aerial(pc, adata, 0, "cuda"),
-                                 ["sweep_moments",
-                                  "cluster_multisweep_windows"]),
-        "1.2M first hop": capture_inputs(
+        "aerial": lambda: capture_inputs(
+            lambda: run_aerial(pc, adata, 0, "cuda"),
+            ["sweep_moments", "cluster_multisweep_windows"]),
+        "1.2M first hop": lambda: capture_inputs(
             lambda: api.euclidean_cluster(large_cloud(api), LARGE_R,
                                           *CLUSTER_SIZES),
             ["cluster_propagate"]),
-        "aerial rescue": capture_inputs(
+        "aerial rescue": lambda: capture_inputs(
             lambda: run_aerial(pc, adata, 0, "cuda", ransac_subsample=None,
                                normals_rescue=True), ["rescue_knn_idx"]),
-        "normals 100K": capture_inputs(
+        "normals 100K": lambda: capture_inputs(
             lambda: api.estimate_normals(u100k, 10), NORMALS_KERNELS),
-        **seg_captures(pc, kdata),
-        **{label: capture_inputs(
-            lambda c=c: api.statistical_outlier_removal(c, 10, 2.0),
-            ["brute_knn_idx"])
+        **{f"kitti xla {fn}": (lambda fn=fn: seg_capture(pc, kdata, fn))
+           for fn in SEG_CALLERS},
+        **{label: (lambda c=c: capture_inputs(
+            lambda: api.statistical_outlier_removal(c, 10, 2.0),
+            ["brute_knn_idx"]))
            for label, c in brute_captures(overflow, u100k)},
-        "kitti pallas": capture_inputs(
+        "kitti pallas": lambda: capture_inputs(
             lambda: run_kitti(pc, kdata, 0, "cuda", sor_backend="pallas"),
             ["sor_select"]),
-        "voxel 1M": capture_inputs(
+        "voxel 1M": lambda: capture_inputs(
             lambda: api.voxel_downsample(
                 api.PointCloud.from_numpy(bench_cloud(1_000_000)), 0.5),
             ["segmented_scan_sums"]),
+        # Kernel 9 at the SOR engine's fallback; kernel 14 with every query
+        # block live (the fused ROR op on a one-row window budget) and at
+        # the real noisy ROR op's call, which has no live block.
+        "sor overflow 100K": lambda: capture_inputs(
+            lambda: api.statistical_outlier_removal(overflow, 10, 2.0),
+            ["sweep_select"]),
+        "ror full": lambda: capture_inputs(
+            lambda: fusedops.ror_fused(noisy._arrs, r32, 5, wr=1, cap=4096),
+            ["brute_radius_count"]),
+        "ror noisy 100K": lambda: capture_inputs(
+            lambda: api.radius_outlier_removal(noisy, 0.5, 5),
+            ["brute_radius_count"]),
     }
+    unknown = set(only or ()) - set(sets)
+    if unknown:
+        raise ValueError(f"no A/B capture named {sorted(unknown)}")
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(sets, path)
+    torch.save({label: run() for label, run in sets.items()
+                if only is None or label in only}, path)
 
 
-def ab_child(tree: Path, inputs: Path) -> dict:
-    """One checkout's numbers, in a process whose package is ``tree``'s."""
+def ab_child(tree: Path, inputs: Path, kernels_only=False) -> dict:
+    """One checkout's numbers, in a process whose package is ``tree``'s
+    (``kernels_only``: the kernels at the captured inputs, no frames or
+    ops)."""
     sys.path.insert(0, str(tree))
     import pointclouds_tpu_torch as pc
     from pointclouds_tpu_torch import api
@@ -1643,6 +1686,8 @@ def ab_child(tree: Path, inputs: Path) -> dict:
             if name.startswith("cluster_multisweep"):
                 res["rounds"][key] = (f"{call()[2]} rounds; "
                                       f"{select_work(name, args, kwargs)}")
+    if kernels_only:
+        return res
     kdata = velodyne_scene(seed=0, n_points=KITTI_POINTS)
     kcloud = pc.make_cloud_arrays(kdata, device="cuda")
     run_kitti(pc, kdata, 0, cloud=kcloud)
@@ -1655,8 +1700,15 @@ def ab_child(tree: Path, inputs: Path) -> dict:
     res["sor_op_p50_ms"] = p50_ms(
         lambda: api.statistical_outlier_removal(noisy, 10, 2.0))[0]
     overflow = api.PointCloud.from_numpy(noisy_cloud(OVERFLOW_BOX))
-    res["sor_overflow_op_p50_ms"] = p50_ms(
-        lambda: api.statistical_outlier_removal(overflow, 10, 2.0))[0]
+    sor_over = lambda: api.statistical_outlier_removal(  # noqa: E731
+        overflow, 10, 2.0)
+    res["sor_overflow_op_p50_ms"] = p50_ms(sor_over)[0]
+    res["sor_overflow_device_ms"] = device_ms(sor_over, 3)
+    res["sor_overflow_device_launches"] = len(device_kernels(sor_over))
+    ror = lambda: api.radius_outlier_removal(noisy, 0.5, 5)  # noqa: E731
+    res["ror_op_p50_ms"] = p50_ms(ror)[0]
+    res["ror_device_ms"] = device_ms(ror, 5)
+    res["ror_device_launches"] = len(device_kernels(ror))
     run_kitti(pc, kdata, 0, cloud=kcloud, sor_backend="xla")
     res["xla_stages"], res["xla_p50_ms"] = timed_frames(
         lambda f: run_kitti(pc, kdata, f % len(SEEDS), cloud=kcloud,
@@ -1699,15 +1751,59 @@ def ab_child(tree: Path, inputs: Path) -> dict:
     return res
 
 
-def ab_main(others) -> int:
+def ab_frames_text(r) -> str:
+    """The frame and op numbers of one A/B child's run, for the log."""
+    return (
+        f"sweep_sor_two_pass {r['stages']['sweep_sor_two_pass']:.3f} ms, "
+        f"sweep_cluster_labels (KITTI) "
+        f"{r['stages']['sweep_cluster_labels']:.3f} ms, "
+        f"KITTI frame p50 {r['frame_p50_ms']:.3f} ms (device "
+        f"{ms_text(r.get('kitti_device_ms'), 3)}), SOR noisy 100K op "
+        f"p50 {r['sor_op_p50_ms']:.3f} ms, SOR overflow op p50 "
+        f"{r['sor_overflow_op_p50_ms']:.3f} ms (device "
+        f"{ms_text(r['sor_overflow_device_ms'], 3)}, "
+        f"{r['sor_overflow_device_launches']} device launches), ROR noisy "
+        f"100K op p50 {r['ror_op_p50_ms']:.3f} ms (device "
+        f"{ms_text(r['ror_device_ms'], 3)}, {r['ror_device_launches']} "
+        f"device launches), point_sor_mean_dists "
+        f"{r['xla_stages']['point_sor_mean_dists']:.3f} ms, "
+        f"cell_knn_subset {r['xla_stages']['cell_knn_subset']:.3f} ms, "
+        f"KITTI xla frame p50 {r['xla_p50_ms']:.3f} ms, "
+        f"cell_sor_mean_dists "
+        f"{r['pallas_stages']['cell_sor_mean_dists']:.3f} ms, KITTI "
+        f"pallas frame p50 {r['pallas_p50_ms']:.3f} ms (device "
+        f"{ms_text(r['pallas_device_ms'], 3)}), voxel 1M op p50 "
+        f"{r['voxel_1m_p50_ms']:.3f} ms (device "
+        f"{ms_text(r['voxel_1m_device_ms'], 3)}), voxel stage (KITTI) "
+        f"{r['stages']['voxel_downsample_sweep_fused']:.3f} ms, "
+        f"normals_from_moment_rows "
+        f"{r['aerial_stages']['normals_from_moment_rows']:.3f} ms, "
+        f"sweep_cluster_labels (aerial) "
+        f"{r['aerial_stages']['sweep_cluster_labels']:.3f} ms, "
+        f"aerial frame p50 {r['aerial_p50_ms']:.3f} ms (device "
+        f"{ms_text(r['aerial_device_ms'], 3)}), normals 100K op "
+        f"p50 {r['normals_op_p50_ms']:.3f} ms, knn 100K op p50 "
+        f"{r['knn_op_p50_ms']:.3f} ms (device "
+        f"{ms_text(r.get('knn_device_ms'), 3)}), knn cross 100K op p50 "
+        f"{r['knn_cross_op_p50_ms']:.3f} ms (device "
+        f"{ms_text(r.get('knn_cross_device_ms'), 3)}), "
+        f"euclidean_cluster 1.2M p50 "
+        f"{r['cluster_large_p50_ms']:.3f} ms (device "
+        f"{ms_text(r['cluster_large_device_ms'], 3)}); ")
+
+
+def ab_main(others, only=None) -> int:
+    """Run the trees in turns on this card; ``only``: just these captures'
+    kernels, no frames or ops."""
     card_line = card()
-    ab_capture(AB_INPUTS)
+    ab_capture(AB_INPUTS, only)
     others = [d.resolve() for d in others]
     runs = []
     for tree in [*others, ROOT, ROOT, *reversed(others)]:
         out = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--ab-child",
-             str(tree), str(AB_INPUTS)], capture_output=True, text=True)
+             str(tree), str(AB_INPUTS), *(["--kernels-only"] if only else [])],
+            capture_output=True, text=True)
         if out.returncode != 0:
             print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
             raise RuntimeError(f"A/B run of {tree} failed")
@@ -1715,43 +1811,13 @@ def ab_main(others) -> int:
         runs.append(r)
         log(f"ab {tree}: build {r['build_s']:.1f} s; " + ", ".join(
             f"{k} {v:.4f}" for k, v in r["kernels"].items()) + " ms; "
-            f"sweep_sor_two_pass {r['stages']['sweep_sor_two_pass']:.3f} ms, "
-            f"sweep_cluster_labels (KITTI) "
-            f"{r['stages']['sweep_cluster_labels']:.3f} ms, "
-            f"KITTI frame p50 {r['frame_p50_ms']:.3f} ms (device "
-            f"{ms_text(r.get('kitti_device_ms'), 3)}), SOR noisy 100K op "
-            f"p50 {r['sor_op_p50_ms']:.3f} ms, SOR overflow op p50 "
-            f"{r['sor_overflow_op_p50_ms']:.3f} ms, point_sor_mean_dists "
-            f"{r['xla_stages']['point_sor_mean_dists']:.3f} ms, "
-            f"cell_knn_subset {r['xla_stages']['cell_knn_subset']:.3f} ms, "
-            f"KITTI xla frame p50 {r['xla_p50_ms']:.3f} ms, "
-            f"cell_sor_mean_dists "
-            f"{r['pallas_stages']['cell_sor_mean_dists']:.3f} ms, KITTI "
-            f"pallas frame p50 {r['pallas_p50_ms']:.3f} ms (device "
-            f"{ms_text(r['pallas_device_ms'], 3)}), voxel 1M op p50 "
-            f"{r['voxel_1m_p50_ms']:.3f} ms (device "
-            f"{ms_text(r['voxel_1m_device_ms'], 3)}), voxel stage (KITTI) "
-            f"{r['stages']['voxel_downsample_sweep_fused']:.3f} ms, "
-            f"segmented_scan_sums device launches a call "
-            f"{ {k: v for k, v in r['device_launches'].items() if k.startswith('segmented_scan')} }, "
-            f"normals_from_moment_rows "
-            f"{r['aerial_stages']['normals_from_moment_rows']:.3f} ms, "
-            f"sweep_cluster_labels (aerial) "
-            f"{r['aerial_stages']['sweep_cluster_labels']:.3f} ms, "
-            f"aerial frame p50 {r['aerial_p50_ms']:.3f} ms (device "
-            f"{ms_text(r['aerial_device_ms'], 3)}), normals 100K op "
-            f"p50 {r['normals_op_p50_ms']:.3f} ms, knn 100K op p50 "
-            f"{r['knn_op_p50_ms']:.3f} ms (device "
-            f"{ms_text(r.get('knn_device_ms'), 3)}), knn cross 100K op p50 "
-            f"{r['knn_cross_op_p50_ms']:.3f} ms (device "
-            f"{ms_text(r.get('knn_cross_device_ms'), 3)}), "
-            f"euclidean_cluster 1.2M p50 "
-            f"{r['cluster_large_p50_ms']:.3f} ms (device "
-            f"{ms_text(r['cluster_large_device_ms'], 3)}); device ms a call "
+            + ("" if only else ab_frames_text(r)) + "device ms a call "
             + ", ".join(f"{k} {ms_text(v)}" for k, v in r["device_ms"].items())
             + "; device launches a call " + ", ".join(
                 f"{k} {v}" for k, v in r["device_launches"].items()
-                if k.startswith(("sweep_knn", "cluster_multisweep ")))
+                if k.startswith(("segmented_scan", "sweep_knn",
+                                 "cluster_multisweep ", "sweep_select ",
+                                 "brute_radius_count")))
             + "".join(f"; {k}: {v}" for k, v in r["rounds"].items()) +
             f" [{card_line}]")
     OUT_DIR.mkdir(exist_ok=True)
@@ -1766,16 +1832,21 @@ def main() -> int:
                                  "one NVIDIA GPU.")
     ap.add_argument("--ab", nargs="+", type=Path, metavar="DIR",
                     help="compare with these unpacked checkouts instead")
+    ap.add_argument("--captures", nargs="+", metavar="LABEL",
+                    help="with --ab: only these captures' kernels, no "
+                    "frames or ops")
     ap.add_argument("--ab-child", nargs=2, type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help=argparse.SUPPRESS)
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if a.ab_child:
-        print(json.dumps(ab_child(*a.ab_child)))
+        print(json.dumps(ab_child(*a.ab_child, a.kernels_only)))
         return 0
     if a.ab:
-        return ab_main(a.ab)
+        return ab_main(a.ab, a.captures)
     t_start = time.perf_counter()
     import pointclouds_tpu_torch as pc
     from pointclouds_tpu_torch.pipelines import aerial as aerial_mod
@@ -1866,6 +1937,21 @@ def main() -> int:
         log(f"kernel brute_knn_idx ({label}): device {ms_text(row['device_ms'])} "
             f"ms a call (torch.profiler) [{card_line}]")
         brute_rows.append(row)
+    # Kernel 14 also at the noisy ROR op's own call, which has no live
+    # query block (the full capture above has 32): one launch of CTAs
+    # that exit at once.
+    args, kwargs = capture_inputs(
+        lambda: api.radius_outlier_removal(noisy, 0.5, 5),
+        ["brute_radius_count"])["brute_radius_count"]
+    ror_empty = kernel_row("brute_radius_count", args, kwargs, K, card_line,
+                           label="ror noisy 100K")
+    call = lambda: K.brute_radius_count(*args, **kwargs)  # noqa: E731
+    ror_empty.update(device_ms=device_ms(call),
+                     device_launches=len(device_kernels(call)))
+    log(f"kernel brute_radius_count (ror noisy 100K): device "
+        f"{ms_text(ror_empty['device_ms'])} ms a call (torch.profiler), "
+        f"{ror_empty['device_launches']} device launches a call "
+        f"[{card_line}]")
     # Kernel 1 also at the 1M voxel op (16 tiles), beside the KITTI frame
     # (2 tiles); at both, its device time and device launches a call.
     scan_row = next(r for r in rows if r["name"] == "segmented_scan_sums")
@@ -1885,6 +1971,7 @@ def main() -> int:
                             label="normals 100K"),
                  work=select_work(name, *normals[name]))
             for name in NORMALS_KERNELS], brute_knn_idx=brute_rows,
+        brute_radius_count_empty=ror_empty,
         segmented_scan_sums_1m=scan_1m), indent=1))
     launches_total = {name: 0 for name in KERNELS}
 

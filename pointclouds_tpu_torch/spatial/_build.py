@@ -48,7 +48,7 @@ _SIGNATURES = {
     "pc_count_within": ([_P, _P, _P, _I, _P], _I),
     "pc_rescue_radius_count": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
                                _I),
-    "pc_brute_radius_count": ([_P, _P, _I, _I, _I, _P, _P, _P], _I),
+    "pc_brute_radius_count": ([_P, _P, _P, _I, _I, _P, _P, _P], _I),
     "pc_brute_knn_idx": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "pc_sweep_knn_select": ([_P, _P, _P, _P, _I, _I, _P], _I),
     "pc_nn_argmin": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),

@@ -33,10 +33,23 @@
 // one streamed walk (tau falls as the list fills) replaces the bound walk:
 // 1.5-1.7x faster on the H100 at the noisy and overflow SOR ops' inputs.
 //
-// brute_radius_count splits every query block over `nsplit` CUDA blocks that
-// walk rows s, s + nsplit, ... (32 blocks could not fill 132 SMs) and adds
-// integer counts with atomics (exact in any order), written out as f32.
-#include "warpselect.cuh"
+// brute_radius_count is one launch of the register-tiled count walk
+// (countwalk.cuh): kBruteSplit CTAs per query block (32 blocks alone could
+// not fill 132 SMs), each of kRadiusWarps warps that all hold the block's
+// 128 queries, four a lane. CTA s of a block walks its contiguous share of
+// the cloud's rows through the cp.async ring, its warps splitting each
+// tile's rows; the warps' integer counts are summed in shared memory and
+// added into a zeroed int32 scratch with atomics (exact in any order).
+// The block's last CTA to arrive (a counter per block after a
+// __threadfence) writes the counts out as f32 (exact: every count is below
+// 2^24) and zeroes the scratch and its counter for the next call: no
+// memset, no conversion kernel. A thread-block cluster a query block, the
+// counts summed through distributed shared memory, measured 1.45x slower
+// at the full capture with 8 CTAs a cluster and 2x with 4 (PERF.md). A
+// block with no valid query (r2 < 0 on every lane) walks nothing and
+// writes zeros, so the fused ROR ops' usual call, with no live block, is
+// one launch of CTAs that exit at once.
+#include "countwalk.cuh"
 
 namespace {
 
@@ -75,28 +88,55 @@ __global__ void __launch_bounds__(W * 32)
 // beat 8 and 16. Few live queries are the common call. W 32 was no faster.
 constexpr int kBruteWarps = 16, kBruteSlices = 4;
 
-// q: [qb, 4, 128] (w = r2, -1 invalid); cand: [nr, 4, 128] (w = validity).
-// Block (b, s) adds its hits over rows s, s + nsplit, ... to counts.
-__global__ void brute_radius_partial(const float* __restrict__ qpl,
-                                     const float* __restrict__ cand,
-                                     int* __restrict__ counts, int nr) {
-  __shared__ float sh[kRowFloats];
-  __shared__ int live;
-  const int b = blockIdx.x;
-  const int l = threadIdx.x;
-  const float* q = qpl + (long long)b * kRowFloats;
-  const float qx = q[l], qy = q[kLanes + l], qz = q[2 * kLanes + l];
-  const float qr2 = q[3 * kLanes + l];
-  if (!block_any(qr2 >= 0.0f, &live)) return;
-  int cnt = 0;
-  for (int r = blockIdx.y; r < nr; r += gridDim.y) {
-    stage_row(cand, r, sh);
-    for (int c = 0; c < kLanes; ++c)
-      if (sh[3 * kLanes + c] > 0.5f &&
-          d2_rn(qx, qy, qz, sh[c], sh[kLanes + c], sh[2 * kLanes + c]) <= qr2)
-        ++cnt;
+// (warps per CTA, CTAs per query block), measured on the H100 at the
+// fused ROR op's full capture (32 live blocks, 1,024 rows; PERF.md): W 4
+// beat 8 by 2%; C 8, 16 and 32 came within 2% of each other (every SM
+// walks ~256 rows either way).
+constexpr int kRadiusWarps = 4, kBruteSplit = 16;
+
+// q: [qb, 4, 128] (w = r2, -1 invalid); cand: [nr, 4, 128] (w = validity);
+// out: f32 [qb * 128]; counts: int [qb * 128] and arrived: [qb], zero at
+// the call and left zero. CTA i = b * C + s serves query block b, walking
+// rows [nr s / C, nr (s + 1) / C).
+template <int W, int C>
+__global__ void __launch_bounds__(W * 32)
+    brute_radius_kernel(const float* __restrict__ qpl,
+                        const float* __restrict__ cand,
+                        float* __restrict__ out, int nr, int* counts,
+                        unsigned* arrived) {
+  __shared__ __align__(16) float sh[kStages * kTileFloats];
+  static_assert((W + 1) * kLanes < kStages * kTileFloats, "sums fit");
+  const int b = blockIdx.x / C;
+  const int s = blockIdx.x % C;
+  float* col = out + (long long)b * kLanes;
+  CountTile tile;
+  tile.load(qpl + (long long)b * kRowFloats, threadIdx.x & 31);
+  // The same answer on every CTA of the block.
+  if (!__syncthreads_or(tile.any_valid())) {
+    if (s == 0)
+      for (int i = threadIdx.x; i < kLanes; i += W * 32) col[i] = 0.0f;
+    return;
   }
-  if (cnt) atomicAdd(counts + (long long)b * kLanes + l, cnt);
+  const int lo = (int)((long long)nr * s / C);
+  const int hi = (int)((long long)nr * (s + 1) / C);
+  count_rows<W * 32>(cand, RowsFrom<EveryRow>{{}, lo}, hi - lo, sh,
+                     tile);
+  int* part = reinterpret_cast<int*>(sh);
+  int* sums = part + W * kLanes;  // then sums[kLanes]: "this CTA is last"
+  sum_warps<W>(tile, part, sums);
+  int* acc = counts + (long long)b * kLanes;
+  for (int i = threadIdx.x; i < kLanes; i += W * 32)
+    if (sums[i]) atomicAdd(acc + i, sums[i]);
+  __threadfence();  // this CTA's adds are seen before its arrival
+  __syncthreads();
+  if (threadIdx.x == 0) sums[kLanes] = atomicAdd(arrived + b, 1u) == C - 1;
+  __syncthreads();
+  if (sums[kLanes]) {
+    __threadfence();
+    for (int i = threadIdx.x; i < kLanes; i += W * 32)
+      col[i] = (float)atomicExch(acc + i, 0);
+    if (threadIdx.x == 0) arrived[b] = 0;
+  }
 }
 
 }  // namespace
@@ -111,17 +151,15 @@ extern "C" int pc_brute_knn_idx(const float* q, const float* cand, float* out,
   return (int)cudaGetLastError();
 }
 
-// counts: int [qb * 128], zeroed by the caller; out: f32 [qb * 128].
+// out: f32 [qb * 128]; counts: int [qb * 128] and arrived: [qb], zeroed
+// once by the caller and left zero by every call.
 extern "C" int pc_brute_radius_count(const float* q, const float* cand,
-                                     int qb, int nr, int nsplit, int* counts,
-                                     float* out, void* stream) {
-  if (qb == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  brute_radius_partial<<<dim3(qb, nsplit), kLanes, 0, s>>>(q, cand, counts,
-                                                           nr);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long nq = (long long)qb * kLanes;
-  counts_to_f32<<<(unsigned)((nq + 255) / 256), 256, 0, s>>>(counts, out, nq);
+                                     float* out, int qb, int nr, int* counts,
+                                     unsigned* arrived, void* stream) {
+  if (qb > 0)
+    brute_radius_kernel<kRadiusWarps, kBruteSplit>
+        <<<qb * kBruteSplit, kRadiusWarps * 32, 0,
+           static_cast<cudaStream_t>(stream)>>>(q, cand, out, nr, counts,
+                                                arrived);
   return (int)cudaGetLastError();
 }

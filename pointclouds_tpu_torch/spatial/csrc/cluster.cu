@@ -142,14 +142,6 @@ struct ListSource {
   }
 };
 
-// Rows lo, lo + 1, ... of a row source (a CTA's share of its block's).
-template <class RowAt>
-struct RowsFrom {
-  RowAt rows;
-  int lo;
-  __device__ long long operator()(int t) const { return rows(lo + t); }
-};
-
 // Round k over the blocks of `src`: P CTAs of W warps a block, Q queries a
 // lane; CTA p of block b walks the p-th of P near-equal shares of the
 // block's rows and hooks from its partial minima (a minimum merges exactly

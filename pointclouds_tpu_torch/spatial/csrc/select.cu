@@ -22,43 +22,28 @@
 // Bound on Hopper: the per-pair d2 + compare work (operations), not memory:
 // each staged row is reused by every query of its block.
 //
-// sweep_select_rows and rescue_select (the KITTI frame's SOR passes) are
-// warp-cooperative (warpselect.cuh): S warps per query (each walking every
-// S-th row of each tile, their lists merged in shared memory at the end),
-// W warps per CTA = W / S queries of one 128-query block, sharing a
-// cp.async staging of the block's candidate rows in a ring of three 8-row
-// tiles (pass 1: its row list; pass 2: its active 8-row groups). A first
-// walk takes a bound from each lane's two smallest d2; in the second most
-// candidates cost one d2 and, per row, one vote against the warp's
-// threshold, and the few insertions are shared by the warp instead of run
-// per thread under divergence. Pass 2 has no split over blocks, no partial
-// lists in device memory and no merge kernel: its fix_cap queries are
-// fix_cap * S warps (16,384 at the KITTI bench frame), so its critical
-// path is the longest active list (91 of the 96 groups there) walked by
-// 32 * S lanes. W and S were tuned on the H100 at the KITTI bench inputs
-// (below; PERF.md has the table).
-//
-// sweep_select (kernel 9) keeps the per-thread design: one block of 128
-// threads per query block, each thread an exact sorted top-k in registers
-// (topk.cuh), each candidate row staged in shared memory by the block.
+// All three are warp-cooperative (warpselect.cuh): S warps per query (each
+// walking every S-th row of each tile, their lists merged in shared memory
+// at the end), W warps per CTA = W / S queries of one 128-query block,
+// sharing a cp.async staging of the block's candidate rows in a ring of
+// three 8-row tiles (sweep_select_rows: its row list; sweep_select: its
+// nine windows, WindowRows; rescue_select: its active 8-row groups). The
+// insertions are shared by the warp instead of run per thread under
+// divergence. Kernels 2 and 3 first walk their rows for a bound from each
+// lane's two smallest d2, so that in the second most candidates cost one
+// d2 and, per row, one vote against the warp's threshold; kernel 9 walks
+// its ~49 window rows a block once, streamed (the bound walk's second read
+// measured slower than the insertions it saves). No kernel splits a
+// block's rows over CTAs,
+// keeps partial lists in device memory or needs a merge kernel. Pass 2's
+// fix_cap queries are fix_cap * S warps (16,384 at the KITTI bench frame),
+// so its critical path is the longest active list (91 of the 96 groups
+// there) walked by 32 * S lanes. W and S were tuned on the H100: kernels 2
+// and 3 at the KITTI bench inputs, kernel 9 at the overflow SOR op's
+// (PERF.md has the tables).
 #include "warpselect.cuh"
 
 namespace {
-
-__device__ void store_topk(const TopK& tk, float* out, long long stride,
-                           long long q, int k) {
-  float total = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kMaxK; ++i)
-    if (i < k && tk.r[i] < kInf)
-      total = __fadd_rn(total, sqrtf(fmaxf(tk.r[i], 0.0f)));
-  float count, kth;
-  tk.count_kth(k, count, kth);
-  out[q] = total;
-  out[stride + q] = count;
-  out[2 * stride + q] = kth;
-  out[3 * stride + q] = 1.0f;
-}
 
 // pts: [nr + 1, 4, 128] (pad row nr all-masked); rowlist: [nb, cap + 2]
 // (row ids, block-valid flag, true row count). Query block b = row b; CTA
@@ -97,27 +82,23 @@ __global__ void __launch_bounds__(W * 32)
 }
 
 // pts: [nr, 4, 128]; starts: [nb, 28] (the window pack). Query block b =
-// row b; it walks its nine windows [start + skip, start + length).
-__global__ void sweep_select_kernel(const float* __restrict__ pts,
-                                    const int* __restrict__ starts,
-                                    float* __restrict__ out, int nb, int k) {
-  __shared__ float sh[kRowFloats];
-  const int b = blockIdx.x;
-  const int l = threadIdx.x;
-  const int* ss = starts + (long long)b * kStartsCols;
-  const float* q = pts + (long long)b * kRowFloats;
-  const float qx = q[l], qy = q[kLanes + l], qz = q[2 * kLanes + l];
-  const bool qv = q[3 * kLanes + l] > 0.5f;
-  TopK tk;
-  tk.init();
-  if (ss[3 * kShifts] != 0) {
-    for (int j = 0; j < kShifts; ++j) {
-      const int st = ss[j], ln = ss[2 * kShifts + j];
-      for (int r = ss[kShifts + j]; r < ln; ++r)
-        visit_row(pts, st + r, sh, qx, qy, qz, qv, tk, k);
-    }
-  }
-  store_topk(tk, out, (long long)nb * kLanes, (long long)b * kLanes + l, k);
+// row b (rows nb.. are candidates only); CTA i serves its queries
+// (i % kPer) * (W / S) + warp / S over the block's nine windows.
+template <int W, int S, bool kBoundWalk>
+__global__ void __launch_bounds__(W * 32)
+    sweep_select_kernel(const float* __restrict__ pts,
+                        const int* __restrict__ starts,
+                        float* __restrict__ out, int nb, int k) {
+  extern __shared__ __align__(16) float sh[];  // kWindowSmem bytes
+  constexpr int kPer = ctas_per_block(W, S);
+  const int b = blockIdx.x / kPer;
+  const int warp = threadIdx.x / 32;
+  const int qi = (blockIdx.x % kPer) * (W / S) + warp / S;
+  WarpKSmallest<float> sel;
+  sel.init(k, threadIdx.x & 31);
+  select_windows<W, S, kBoundWalk>(pts, pts, starts, sh, b, qi, sel);
+  if (warp % S == 0)
+    sel.store(out, (long long)nb * kLanes, (long long)b * kLanes + qi);
 }
 
 // cand: [nr, 4, 128]; q: [qb, 4, 128]; active: [qb, 1 + ng] (count, then
@@ -157,6 +138,13 @@ __global__ void __launch_bounds__(W * 32)
 // one long active list four.
 constexpr int kRowsWarps = 8, kRowsSlices = 1;
 constexpr int kRescueWarps = 16, kRescueSlices = 4;
+// (warps per CTA, warps per query, bound walk) of kernel 9, measured on the
+// H100 at the overflow SOR op's inputs (PERF.md): with one streamed walk W
+// 32 beat 16 by 3% and 8 by 20%, S 2 was 40% slower; the bound walk was
+// 14-25% slower at W 16 and 32 (fewer CTAs a block stage each row fewer
+// times).
+constexpr int kWindowsWarps = 32, kWindowsSlices = 1;
+constexpr bool kWindowsBoundWalk = false;
 
 }  // namespace
 
@@ -175,9 +163,15 @@ extern "C" int pc_sweep_select_rows(const float* pts, const int* rowlist,
 
 extern "C" int pc_sweep_select(const float* pts, const int* starts,
                                float* out, int nb, int k, void* stream) {
-  if (nb > 0)
-    sweep_select_kernel<<<nb, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-        pts, starts, out, nb, k);
+  if (nb == 0) return 0;
+  auto kernel =
+      sweep_select_kernel<kWindowsWarps, kWindowsSlices, kWindowsBoundWalk>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWindowSmem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<nb * ctas_per_block(kWindowsWarps, kWindowsSlices),
+           kWindowsWarps * 32, kWindowSmem,
+           static_cast<cudaStream_t>(stream)>>>(pts, starts, out, nb, k);
   return (int)cudaGetLastError();
 }
 

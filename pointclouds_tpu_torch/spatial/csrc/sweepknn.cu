@@ -31,11 +31,6 @@
 
 namespace {
 
-// The windows' prefix sums and bases (WindowRows) live past the ring, 48 KB
-// and 80 bytes, above the static limit: dynamic shared memory.
-constexpr int kRingBytes = kStages * kTileFloats * sizeof(float);
-constexpr int kSweepKnnSmem = kRingBytes + 2 * 10 * sizeof(int);
-
 // pts: [nr, 4, 128] candidate rows; qpl: [>= nb, 4, 128] query rows;
 // starts: [nb, 28] (the window pack); out: [2k + 3, nb * 128]. CTA i
 // serves queries (i % kPer) * (W / S) + warp / S of block i / kPer.
@@ -45,28 +40,14 @@ __global__ void __launch_bounds__(W * 32)
                      const float* __restrict__ qpl,
                      const int* __restrict__ starts, float* __restrict__ out,
                      int nb, int k) {
-  extern __shared__ __align__(16) float sh[];  // kSweepKnnSmem bytes
-  int* pre = reinterpret_cast<int*>(sh + kStages * kTileFloats);
-  int* base = pre + kShifts + 1;
+  extern __shared__ __align__(16) float sh[];  // kWindowSmem bytes
   constexpr int kPer = ctas_per_block(W, S);
   const int b = blockIdx.x / kPer;
   const int warp = threadIdx.x / 32;
   const int qi = (blockIdx.x % kPer) * (W / S) + warp / S;
-  const int* ss = starts + (long long)b * kStartsCols;
-  if (threadIdx.x == 0) WindowRows::fill<true>(ss, pre, base);
-  __syncthreads();
-  // A block with no valid query walks nothing: the empty fill.
-  const int nrows = ss[3 * kShifts] != 0 ? pre[kShifts] : 0;
-  const float* q = qpl + (long long)b * kRowFloats;
-  const bool live = q[3 * kLanes + qi] > 0.5f;
   WarpKSmallest<Key> sel;
   sel.init(k, threadIdx.x & 31);
-  if (__syncthreads_or(live && nrows > 0)) {
-    select_rows<W * 32, S, kBoundWalk>(
-        pts, WindowRows{pre, base}, nrows, sh, q[qi], q[kLanes + qi],
-        q[2 * kLanes + qi], live, warp % S, sel);
-    merge_slices<S>(sh, sel);
-  }
+  select_windows<W, S, kBoundWalk>(pts, qpl, starts, sh, b, qi, sel);
   if (warp % S == 0)
     sel.store_knn(out, (long long)nb * kLanes, (long long)b * kLanes + qi);
 }
@@ -85,10 +66,10 @@ extern "C" int pc_sweep_knn_select(const float* pts, const float* q,
   auto kernel =
       sweep_knn_kernel<kSweepKnnWarps, kSweepKnnSlices, kSweepKnnBoundWalk>;
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSweepKnnSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWindowSmem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<nb * ctas_per_block(kSweepKnnWarps, kSweepKnnSlices),
-           kSweepKnnWarps * 32, kSweepKnnSmem,
+           kSweepKnnWarps * 32, kWindowSmem,
            static_cast<cudaStream_t>(stream)>>>(pts, q, starts, out, nb, k);
   return (int)cudaGetLastError();
 }

@@ -199,8 +199,8 @@ struct WarpKSmallest {
 
   // Lane 0 stores (total, count, kth, ok = 1) of the k smallest values at
   // column `col` of out [4, stride]: total adds sqrt of each finite value
-  // in ascending order (as `store_topk`), count the finite ones, kth the
-  // last of them (0 if none).
+  // in ascending order (the TPU kernels' extraction order), count the
+  // finite ones, kth the last of them (0 if none).
   __device__ void store(float* out, long long stride, long long col) const {
     static_assert(!kKeyed, "store: the value list");
     const float root = sqrtf(fmaxf(list, 0.0f));  // each lane its own entry
@@ -448,9 +448,52 @@ struct WindowRows {
   }
 };
 
+// Dynamic shared memory of a window selection: the ring, then WindowRows'
+// prefix sums and bases (80 bytes past the 48 KB static limit).
+constexpr int kWindowSmem =
+    kStages * kTileFloats * sizeof(float) + 2 * (kShifts + 1) * sizeof(int);
+
+// The exact k smallest keys of query `qi` of block b (row b of `qpl`) over
+// the block's nine windows [start + skip, start + length) of the
+// candidate rows `pts` (starts: [nb, 28], the window pack) into `sel`, on
+// S warps a query (this warp walks slice warp % S), the slices merged into
+// the first. The windows arrive in sorted-cell order (select_rows). A
+// block whose flag is 0, or whose windows hold no row, walks nothing.
+// `sh`: kWindowSmem bytes of dynamic shared memory; every thread of the
+// CTA calls this.
+template <int W, int S, bool kBoundWalk, class K>
+__device__ __forceinline__ void select_windows(const float* __restrict__ pts,
+                                               const float* __restrict__ qpl,
+                                               const int* __restrict__ starts,
+                                               float* sh, int b, int qi,
+                                               WarpKSmallest<K>& sel) {
+  int* pre = reinterpret_cast<int*>(sh + kStages * kTileFloats);
+  int* base = pre + kShifts + 1;
+  const int* ss = starts + (long long)b * kStartsCols;
+  if (threadIdx.x == 0) WindowRows::fill<true>(ss, pre, base);
+  __syncthreads();
+  const int nrows = ss[3 * kShifts] != 0 ? pre[kShifts] : 0;
+  const float* q = qpl + (long long)b * kRowFloats;
+  const bool live = q[3 * kLanes + qi] > 0.5f;
+  if (__syncthreads_or(live && nrows > 0)) {
+    select_rows<W * 32, S, kBoundWalk>(
+        pts, WindowRows{pre, base}, nrows, sh, q[qi], q[kLanes + qi],
+        q[2 * kLanes + qi], live, (threadIdx.x / 32) % S, sel);
+    merge_slices<S>(sh, sel);
+  }
+}
+
 // Every candidate row: step t is row t (the whole-cloud rescues).
 struct EveryRow {
   __device__ long long operator()(int t) const { return t; }
+};
+
+// Rows lo, lo + 1, ... of a row source (a CTA's share of its block's).
+template <class RowAt>
+struct RowsFrom {
+  RowAt rows;
+  int lo;
+  __device__ long long operator()(int t) const { return rows(lo + t); }
 };
 
 // The rows of a rescue query block's active groups: active [1 + ng]

@@ -46,10 +46,6 @@ LAUNCHES = {
 
 # Blocks that share one rescue query block's group list (csrc/radius.cu).
 _RESCUE_SPLIT = 16
-# Blocks that share one query block's walk over the whole cloud in
-# `brute_radius_count` (csrc/brute.cu): the whole-cloud rescues have at most
-# 32 query blocks.
-_BRUTE_SPLIT = 64
 # Relative inclusion band of the moments' second walk
 # (`pallas_kernels.D2_BAND`): ~7 ulp.
 D2_BAND = 8e-7
@@ -328,8 +324,9 @@ def sweep_select_rows_plain(pts_padded, rowlist, *, k: int, cap: int):
 
 
 def _check_aligned16(name: str, t: torch.Tensor):
-    """The warp-select kernels (2, 3, 6, 7, 10, 13) and the min-label walk
-    (4, 8, 16) stage rows with 16-byte cp.async copies."""
+    """The warp-select kernels (2, 3, 6, 7, 9, 10, 13), the min-label walk
+    (4, 8, 16) and the count walk (14) stage rows with 16-byte cp.async
+    copies."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data must start on a 16-byte boundary")
 
@@ -894,6 +891,7 @@ def sweep_select(pts_planar, starts, *, k: int):
         raise ValueError("sweep_select: more blocks than planar rows")
     if not _on_cuda(pts_planar):
         return sweep_select_plain(pts_planar, starts, k=k)
+    _check_aligned16("sweep_select.pts", pts_planar)
     out = torch.empty((4, nb * 128), dtype=torch.float32, device=dev)
     _lib().call("pc_sweep_select", pts_planar.data_ptr(), starts.data_ptr(),
                 out.data_ptr(), nb, k, _stream())
@@ -1047,6 +1045,23 @@ def _check_brute(name, q_planar, cand_planar):
     return nr, qb
 
 
+# Kernel 14's int32 scratch per (device, stream): counts [cap * 128], then
+# one arrival counter a query block [cap]. Zeroed when made; every call
+# leaves it zero (its last CTA of each block zeroes what it used), so a
+# call makes one launch and no memset. Calls on one stream never overlap.
+_RADIUS_SCRATCH = {}
+
+
+def _radius_scratch(dev, qb: int):
+    key = (dev, _stream())
+    t = _RADIUS_SCRATCH.get(key)
+    if t is None or t.numel() < qb * 129:
+        t = torch.zeros(max(qb, 32) * 129, dtype=torch.int32, device=dev)
+        _RADIUS_SCRATCH[key] = t
+    cap = t.numel() // 129
+    return t[:cap * 128], t[cap * 128:]
+
+
 def brute_radius_count(q_planar, cand_planar):
     """Exact inclusive within-radius counts of every query over the whole
     candidate array.
@@ -1058,9 +1073,15 @@ def brute_radius_count(q_planar, cand_planar):
     nr, qb = _check_brute("brute_radius_count", q_planar, cand_planar)
     if not _on_cuda(cand_planar):
         return brute_radius_count_plain(q_planar, cand_planar)
-    return _counts_cuda("brute_radius_count", "pc_brute_radius_count", qb,
-                        cand_planar.device, q_planar.data_ptr(),
-                        cand_planar.data_ptr(), qb, nr, _BRUTE_SPLIT)
+    _check_aligned16("brute_radius_count.cand", cand_planar)
+    dev = cand_planar.device
+    out = torch.empty(qb * 128, dtype=torch.float32, device=dev)
+    counts, arrived = _radius_scratch(dev, qb)
+    _lib().call("pc_brute_radius_count", q_planar.data_ptr(),
+                cand_planar.data_ptr(), out.data_ptr(), qb, nr,
+                counts.data_ptr(), arrived.data_ptr(), _stream())
+    LAUNCHES["brute_radius_count"] += 1
+    return out
 
 
 # ── 13. Exact kNN over the whole cloud, with positions ─────────────────────

@@ -410,14 +410,32 @@ def test_aerial_pipeline_gpu_equals_cpu(dev):
                                                                   100_000)
 
 
-@pytest.mark.parametrize("k", [11, 21])
-def test_sweep_select(dev, k):
-    s = _structure(dev, seed=3, wr=6, cell=0.9)
-    got = _count_launch("sweep_select", lambda: kernels.sweep_select(
-        s["planar"], s["starts_skip"], k=k))
-    want = kernels.sweep_select_plain(s["planar"], s["starts_skip"], k=k)
+@pytest.mark.parametrize("case", ["structure", "windows"])
+@pytest.mark.parametrize("k", [1, 11, 21, 32])
+def test_sweep_select(dev, k, case):
+    """"structure": the sorted structure of a uniform cloud (dedup skips
+    from the structure); "windows": `_knn_windows_case`'s lattice rows
+    (ties at d2 0) under random windows with nonzero skips, more planar
+    rows than blocks, a block whose flag is 0 and a block with no valid
+    query, both written as total 0, count 0, kth 0, ok 1."""
+    if case == "structure":
+        s = _structure(dev, seed=3, wr=6, cell=0.9)
+        planar, starts = s["planar"], s["starts_skip"]
+    else:
+        planar, starts = (a.to(dev) for a in _knn_windows_case(case))
+    before = kernels.LAUNCHES["sweep_select"]
+    got = kernels.sweep_select(planar, starts, k=k)
+    assert kernels.LAUNCHES["sweep_select"] == before + 1
+    want = kernels.sweep_select_plain(planar, starts, k=k)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    assert bool(got[3].all()) and (got[1] == k).float().mean() > 0.5
+    if case == "windows":
+        nb = starts.shape[0]
+        for b in (1, nb - 1):
+            cols = slice(b * 128, (b + 1) * 128)
+            assert (got[0][cols] == 0).all() and (got[1][cols] == 0).all()
+            assert (got[2][cols] == 0).all()
 
 
 def test_count_within(dev):
@@ -472,14 +490,63 @@ def test_rescue_radius_count_groups(dev):
     assert torch.equal(got, want) and got.sum() > 0
 
 
-def test_brute_radius_count(dev):
+def _pinned_d2(q, c):
+    """The kernels' d2, fma(dz, dz, fma(dx, dx, dy*dy)), of query points q
+    [..., 3] and candidate points c [..., 3]."""
+    d = q - c
+    return kernels.fma_f32(d[..., 2], d[..., 2], kernels.fma_f32(
+        d[..., 0], d[..., 0], d[..., 1] * d[..., 1]))
+
+
+def _brute_radius_case(rng, case, dev):
+    """(q, cand) for kernel 14. "random": 6 query blocks over 200 rows, the
+    last block all invalid; "empty": no valid query at all (every block
+    writes zeros); "edge": each valid query's r2 is the pinned d2 to a
+    valid candidate, which lies exactly on its radius (inclusive);
+    "zero": r2 = 0 at queries copied from candidates, with duplicate
+    candidates (coincident points count); "odd": 203 rows, no multiple of
+    the split; "short": 3 rows, fewer than the split's CTAs; "full": 32
+    query blocks, all live."""
+    nr, qb = {"odd": (203, 3), "short": (3, 2), "full": (64, 32)}.get(
+        case, (200, 6))
+    cand = _planar(rng, nr)
+    cand[nr // 2, :3, :64] = cand[nr // 2, :3, 64:]  # duplicates
+    q = _radius_queries(rng, qb, torch.device("cpu"),
+                        dead_block=case not in ("full", "short"))
+    if case == "empty":
+        q[:, 3] = -1.0
+    if case in ("edge", "zero"):
+        pts = cand[:, :3].permute(0, 2, 1).reshape(-1, 3)
+        valid = (cand[:, 3] > 0.5).reshape(-1).nonzero().flatten()
+        pick = valid[torch.from_numpy(rng.integers(0, len(valid),
+                                                   qb * 128))]
+        qp = q[:, :3].permute(0, 2, 1).reshape(-1, 3)
+        if case == "zero":
+            qp = pts[pick].clone()
+            q[:, :3] = qp.reshape(qb, 128, 3).permute(0, 2, 1)
+        r2 = 0.0 if case == "zero" else _pinned_d2(qp, pts[pick])
+        live = q[:, 3].reshape(-1) >= 0
+        q[:, 3] = torch.where(live, r2, -1.0).reshape(qb, 128)
+    return q.to(dev), cand.to(dev)
+
+
+@pytest.mark.parametrize("case", ["random", "empty", "edge", "zero", "odd",
+                                  "short", "full"])
+def test_brute_radius_count(dev, case):
     rng = np.random.default_rng(7)
-    cand = _planar(rng, 200).to(dev)
-    q = _radius_queries(rng, 6, dev)
-    got = _count_launch("brute_radius_count",
-                        lambda: kernels.brute_radius_count(q, cand))
+    q, cand = _brute_radius_case(rng, case, dev)
+    before = kernels.LAUNCHES["brute_radius_count"]
+    got = kernels.brute_radius_count(q, cand)
+    assert kernels.LAUNCHES["brute_radius_count"] == before + 1
     assert torch.equal(got, kernels.brute_radius_count_plain(q, cand))
-    assert got.sum() > 0 and (got[5 * 128:] == 0).all()
+    live = q[:, 3].reshape(-1) >= 0
+    assert (got[~live] == 0).all()
+    if case == "empty":
+        assert not live.any()
+    else:
+        assert got.sum() > 0
+    if case in ("edge", "zero"):  # the candidate on the radius counts
+        assert (got[live] >= 1).all()
 
 
 @pytest.mark.parametrize("case", ["random", "dup", "dead", "many", "few"])
