@@ -116,7 +116,9 @@ again ("sor overflow 100K": `sweep_select`, the SOR engine's fallback),
 the fused ROR op on the noisy cloud with a one-row window budget ("ror
 full": `brute_radius_count` with every query block live) and the ROR op
 on the noisy cloud ("ror noisy 100K": `brute_radius_count` with no live
-block) give their
+block; "ror count 100K": `count_within`), and the ICP point-to-point op
+at 10K ("icp 10K": `nn_argmin`) and the half-shift lattice ("nn
+lattice": `nn_argmin` with tied nearest candidates) give their
 kernels, then runs the trees in the order DIR..., this, this, ...DIR (so
 that drift on the card shows), each in a fresh process that builds its
 own kernels: each kernel against its plain version at the captured
@@ -125,7 +127,8 @@ its device launches a call, registers and shared memory; the cluster
 loops' rounds, host reads and walked pairs), the KITTI frame p50,
 device time and stage medians (as phase 3), the noisy and overflow SOR op p50s, the
 overflow SOR op's and the noisy ROR op's device time and device launches
-a call (and the ROR op's p50), the KITTI
+a call (and the ROR op's p50), the 10K ICP point-to-point op's p50,
+device time and device launches a call, the KITTI
 "xla" and "pallas" frame p50s and stage medians (as phase 8) and the
 "pallas" frame's device time, the 1M voxel op's p50 and device time, the
 aerial frame p50 and
@@ -867,13 +870,14 @@ def profile_op(fn, reps=5):
             [(n[:60], round(t / reps / 1e3, 4)) for n, t in top])
 
 
-def device_ms(fn, reps=20):
+def device_ms(fn, reps=20, per_call=None):
     """Device time of the kernels one call of ``fn`` launches, from
     torch.profiler over ``reps`` calls: a small kernel's CUDA-event time
     (`cuda_ms`) is its wrapper's host time when that is the longer. The
-    profiler now and then records no device event for a window; such a
-    window is taken again, and after three None is returned (not
-    measured), never 0."""
+    profiler now and then drops device events from a window; a window
+    with none, or (given ``per_call``, the device kernels one call
+    launches) with another count than reps * per_call, is taken again,
+    and after three None is returned (not measured), never a part."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -885,7 +889,7 @@ def device_ms(fn, reps=20):
             torch.cuda.synchronize()
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-        if us:
+        if us and (per_call is None or len(us) == reps * per_call):
             return sum(us) / reps / 1e3
     return None
 
@@ -897,16 +901,21 @@ def ms_text(ms, digits=4) -> str:
 
 def device_kernels(fn) -> list:
     """Names of the device kernels one call of ``fn`` launches
-    (torch.profiler, after a warm-up call)."""
+    (torch.profiler, after a warm-up call; the most any of three windows
+    saw, as the profiler now and then drops events)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = max(names, seen, key=len)
+    return names
 
 
 def kernel_resources(fn) -> dict:
@@ -930,15 +939,18 @@ def kernel_resources(fn) -> dict:
             for e in events if e.get("cat") == "kernel"}
 
 
-def scan_device(args, kwargs, K, card_line, label) -> dict:
-    """Kernel 1's device time, device launches and resources a call at a
-    capture."""
-    fn = lambda: K.segmented_scan_sums(*args, **kwargs)  # noqa: E731
+def kernel_device(name, args, kwargs, K, card_line, label) -> dict:
+    """A kernel's device time, device launches and resources a call at a
+    capture (a small kernel's CUDA-event time is its wrapper's host time)."""
+    fn = lambda: getattr(K, name)(*args, **kwargs)  # noqa: E731
     names = device_kernels(fn)
-    res = dict(device_ms=device_ms(fn), device_launches=len(names),
+    # Every wrapper launches: a profile with no kernel in it measured
+    # nothing.
+    res = dict(device_ms=device_ms(fn, per_call=len(names)) if names
+               else None, device_launches=len(names),
                device_kernels=sorted(set(names)),
                resources=kernel_resources(fn))
-    log(f"kernel segmented_scan_sums ({label}): n {args[0].numel()}, device "
+    log(f"kernel {name} ({label}): device "
         f"{ms_text(res['device_ms'])} ms a call (torch.profiler), "
         f"{res['device_launches']} device launches a call "
         f"{res['device_kernels']}; (registers a thread, shared memory "
@@ -1105,6 +1117,22 @@ CLUSTER_SIZES = (20, 100_000)  # min and max cluster size
 IO_DIR = ROOT / "build" / "chip_smoke_io"
 
 
+NN_LATTICE = "half-shift lattice 22^3"
+
+
+def nn_lattice():
+    """Kernel 15's inputs on a 22^3 lattice, the queries shifted half a
+    step along every axis: each has 8 nearest candidates at equal d2, in
+    rows that different CTAs walk."""
+    from pointclouds_tpu_torch.ops.registration import _to_planar
+
+    g = np.arange(22, dtype=np.float32)
+    lat = torch.from_numpy(np.stack(np.meshgrid(g, g, g, indexing="ij"),
+                                    -1).reshape(-1, 3)).cuda()
+    ones = torch.ones(lat.shape[0], dtype=torch.bool, device="cuda")
+    return (_to_planar(lat + 0.5, ones), _to_planar(lat, ones)), {}
+
+
 def icp_clouds(api, device=None):
     """bench_ops' ICP pair: 10K uniform points (seed 1) and the same points
     shifted 0.05 m along every axis."""
@@ -1189,19 +1217,12 @@ def phase7_kernels(card_line, K, api, knn_cloud, queries):
     """Kernel 10 cross-cloud (100K queries against 100K points) and kernel
     15 on a half-shifted lattice (every query has tied nearest candidates),
     each against its plain version, with its times and bound."""
-    from pointclouds_tpu_torch.ops.registration import _to_planar
-
     cross = capture_inputs(lambda: api.knn(knn_cloud, queries, 10),
                            ["sweep_knn_select"])["sweep_knn_select"]
-    g = np.arange(22, dtype=np.float32)
-    lat = torch.from_numpy(np.stack(np.meshgrid(g, g, g, indexing="ij"),
-                                    -1).reshape(-1, 3)).cuda()
-    ones = torch.ones(lat.shape[0], dtype=torch.bool, device="cuda")
-    lattice = ((_to_planar(lat + 0.5, ones), _to_planar(lat, ones)), {})
     out = {}
     for label, name, (args, kwargs) in (
             ("cross-cloud 100K x 100K", "sweep_knn_select", cross),
-            ("half-shift lattice 22^3", "nn_argmin", lattice)):
+            (NN_LATTICE, "nn_argmin", nn_lattice())):
         err, tol, ms, plain_ms = check_kernel(name, args, kwargs, K)
         nbytes, ops = work(name, args, kwargs,
                            getattr(K, name)(*args, **kwargs))
@@ -1638,6 +1659,16 @@ def ab_capture(path: Path, only=None) -> None:
         "ror noisy 100K": lambda: capture_inputs(
             lambda: api.radius_outlier_removal(noisy, 0.5, 5),
             ["brute_radius_count"]),
+        # Kernel 15 at the ICP op's call and on the half-shift lattice
+        # (tied nearest candidates); kernel 11 at the noisy ROR op's.
+        "icp 10K": lambda: capture_inputs(
+            lambda: api.icp_point_to_point(*icp_clouds(api),
+                                           max_iterations=50),
+            ["nn_argmin"]),
+        "nn lattice": lambda: {"nn_argmin": nn_lattice()},
+        "ror count 100K": lambda: capture_inputs(
+            lambda: api.radius_outlier_removal(noisy, 0.5, 5),
+            ["count_within"]),
     }
     unknown = set(only or ()) - set(sets)
     if unknown:
@@ -1680,8 +1711,8 @@ def ab_child(tree: Path, inputs: Path, kernels_only=False) -> dict:
             key = f"{name} {label}"
             res["kernels"][key] = check_kernel(name, args, kwargs, K)[2]
             call = lambda: getattr(K, name)(*args, **kwargs)  # noqa: E731
-            res["device_ms"][key] = device_ms(call, 5)
-            res["device_launches"][key] = len(device_kernels(call))
+            n = res["device_launches"][key] = len(device_kernels(call))
+            res["device_ms"][key] = device_ms(call, 5, n) if n else None
             res["resources"][key] = kernel_resources(call)
             if name.startswith("cluster_multisweep"):
                 res["rounds"][key] = (f"{call()[2]} rounds; "
@@ -1709,6 +1740,12 @@ def ab_child(tree: Path, inputs: Path, kernels_only=False) -> dict:
     res["ror_op_p50_ms"] = p50_ms(ror)[0]
     res["ror_device_ms"] = device_ms(ror, 5)
     res["ror_device_launches"] = len(device_kernels(ror))
+    icp_src, icp_tgt = icp_clouds(api)
+    icp = lambda: api.icp_point_to_point(  # noqa: E731
+        icp_src, icp_tgt, max_iterations=50)
+    res["icp_op_p50_ms"] = p50_ms(icp)[0]
+    res["icp_device_ms"] = device_ms(icp, 5)
+    res["icp_device_launches"] = len(device_kernels(icp))
     run_kitti(pc, kdata, 0, cloud=kcloud, sor_backend="xla")
     res["xla_stages"], res["xla_p50_ms"] = timed_frames(
         lambda f: run_kitti(pc, kdata, f % len(SEEDS), cloud=kcloud,
@@ -1765,6 +1802,9 @@ def ab_frames_text(r) -> str:
         f"{r['sor_overflow_device_launches']} device launches), ROR noisy "
         f"100K op p50 {r['ror_op_p50_ms']:.3f} ms (device "
         f"{ms_text(r['ror_device_ms'], 3)}, {r['ror_device_launches']} "
+        f"device launches), ICP point-to-point 10K op p50 "
+        f"{r['icp_op_p50_ms']:.3f} ms (device "
+        f"{ms_text(r['icp_device_ms'], 3)}, {r['icp_device_launches']} "
         f"device launches), point_sor_mean_dists "
         f"{r['xla_stages']['point_sor_mean_dists']:.3f} ms, "
         f"cell_knn_subset {r['xla_stages']['cell_knn_subset']:.3f} ms, "
@@ -1817,7 +1857,8 @@ def ab_main(others, only=None) -> int:
                 f"{k} {v}" for k, v in r["device_launches"].items()
                 if k.startswith(("segmented_scan", "sweep_knn",
                                  "cluster_multisweep ", "sweep_select ",
-                                 "brute_radius_count")))
+                                 "brute_radius_count", "nn_argmin",
+                                 "count_within")))
             + "".join(f"; {k}: {v}" for k, v in r["rounds"].items()) +
             f" [{card_line}]")
     OUT_DIR.mkdir(exist_ok=True)
@@ -1945,25 +1986,28 @@ def main() -> int:
         ["brute_radius_count"])["brute_radius_count"]
     ror_empty = kernel_row("brute_radius_count", args, kwargs, K, card_line,
                            label="ror noisy 100K")
-    call = lambda: K.brute_radius_count(*args, **kwargs)  # noqa: E731
-    ror_empty.update(device_ms=device_ms(call),
-                     device_launches=len(device_kernels(call)))
-    log(f"kernel brute_radius_count (ror noisy 100K): device "
-        f"{ms_text(ror_empty['device_ms'])} ms a call (torch.profiler), "
-        f"{ror_empty['device_launches']} device launches a call "
-        f"[{card_line}]")
+    ror_empty.update(kernel_device("brute_radius_count", args, kwargs, K,
+                                   card_line, "ror noisy 100K"))
+    # Kernels 1 (KITTI), 11 (the noisy ROR op) and 15 (ICP 10K, and the
+    # half-shift lattice of phase 7): their device time and device
+    # launches a call.
+    for name, label in (("segmented_scan_sums", "kitti"),
+                        ("count_within", "ror count 100K"),
+                        ("nn_argmin", "icp 10K")):
+        next(r for r in rows if r["name"] == name).update(
+            kernel_device(name, *captured[name], K, card_line, label))
+    nn_lattice_device = kernel_device("nn_argmin", *nn_lattice(), K,
+                                      card_line, NN_LATTICE)
     # Kernel 1 also at the 1M voxel op (16 tiles), beside the KITTI frame
-    # (2 tiles); at both, its device time and device launches a call.
-    scan_row = next(r for r in rows if r["name"] == "segmented_scan_sums")
-    scan_row.update(scan_device(*captured["segmented_scan_sums"], K,
-                                card_line, "kitti"))
+    # (2 tiles).
     u1m = api.PointCloud.from_numpy(bench_cloud(1_000_000))
     args, kwargs = capture_inputs(lambda: api.voxel_downsample(u1m, 0.5),
                                   ["segmented_scan_sums"])[
         "segmented_scan_sums"]
     scan_1m = dict(kernel_row("segmented_scan_sums", args, kwargs, K,
                               card_line, label="voxel 1M"),
-                   **scan_device(args, kwargs, K, card_line, "voxel 1M"))
+                   **kernel_device("segmented_scan_sums", args, kwargs, K,
+                                   card_line, "voxel 1M"))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "phase2.json").write_text(json.dumps(dict(
         card=card_line, kernels=rows, normals_100k=[
@@ -1972,7 +2016,8 @@ def main() -> int:
                  work=select_work(name, *normals[name]))
             for name in NORMALS_KERNELS], brute_knn_idx=brute_rows,
         brute_radius_count_empty=ror_empty,
-        segmented_scan_sums_1m=scan_1m), indent=1))
+        segmented_scan_sums_1m=scan_1m,
+        nn_argmin_lattice=nn_lattice_device), indent=1))
     launches_total = {name: 0 for name in KERNELS}
 
     def add(launches):

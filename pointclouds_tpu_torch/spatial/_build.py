@@ -51,7 +51,7 @@ _SIGNATURES = {
     "pc_brute_radius_count": ([_P, _P, _P, _I, _I, _P, _P, _P], _I),
     "pc_brute_knn_idx": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "pc_sweep_knn_select": ([_P, _P, _P, _P, _I, _I, _P], _I),
-    "pc_nn_argmin": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "pc_nn_argmin": ([_P, _P, _P, _I, _I, _P, _P, _P], _I),
     "pc_cluster_propagate": ([_P, _P, _P, _P, _I, ctypes.c_float, _P], _I),
     "pc_sor_select": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "pc_segmented_select": ([_P, _P, ctypes.c_longlong, _I, _I, _P], _I),

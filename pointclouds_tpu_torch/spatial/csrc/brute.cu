@@ -105,38 +105,30 @@ __global__ void __launch_bounds__(W * 32)
                         float* __restrict__ out, int nr, int* counts,
                         unsigned* arrived) {
   __shared__ __align__(16) float sh[kStages * kTileFloats];
-  static_assert((W + 1) * kLanes < kStages * kTileFloats, "sums fit");
+  static_assert(W * kLanes < kStages * kTileFloats, "sums fit");
   const int b = blockIdx.x / C;
   const int s = blockIdx.x % C;
   float* col = out + (long long)b * kLanes;
-  CountTile tile;
-  tile.load(qpl + (long long)b * kRowFloats, threadIdx.x & 31);
+  QueryTile<WithinQueryR2> tile;
   // The same answer on every CTA of the block.
-  if (!__syncthreads_or(tile.any_valid())) {
+  if (!__syncthreads_or(
+          tile.load(qpl + (long long)b * kRowFloats, threadIdx.x & 31))) {
     if (s == 0)
       for (int i = threadIdx.x; i < kLanes; i += W * 32) col[i] = 0.0f;
     return;
   }
   const int lo = (int)((long long)nr * s / C);
   const int hi = (int)((long long)nr * (s + 1) / C);
-  count_rows<W * 32>(cand, RowsFrom<EveryRow>{{}, lo}, hi - lo, sh,
-                     tile);
+  walk_tile<W * 32>(cand, RowsFrom<EveryRow>{{}, lo}, hi - lo, sh, tile);
   int* part = reinterpret_cast<int*>(sh);
-  int* sums = part + W * kLanes;  // then sums[kLanes]: "this CTA is last"
-  sum_warps<W>(tile, part, sums);
+  int* last = part + W * kLanes;  // "this CTA is last"
   int* acc = counts + (long long)b * kLanes;
-  for (int i = threadIdx.x; i < kLanes; i += W * 32)
-    if (sums[i]) atomicAdd(acc + i, sums[i]);
-  __threadfence();  // this CTA's adds are seen before its arrival
-  __syncthreads();
-  if (threadIdx.x == 0) sums[kLanes] = atomicAdd(arrived + b, 1u) == C - 1;
-  __syncthreads();
-  if (sums[kLanes]) {
-    __threadfence();
+  sum_warps<W>(tile, part, [&](int i, int total) {
+    if (total) atomicAdd(acc + i, total);
+  });
+  if (last_to_arrive(arrived + b, C, last))
     for (int i = threadIdx.x; i < kLanes; i += W * 32)
       col[i] = (float)atomicExch(acc + i, 0);
-    if (threadIdx.x == 0) arrived[b] = 0;
-  }
 }
 
 }  // namespace

@@ -17,47 +17,62 @@
 // mirrors (measured: 100% bitwise on points placed on the radius, against
 // 88-97% for the other orders); the plain torch versions emulate it.
 //
-// Design: one block of 128 threads per 128-query block, each candidate row
-// staged in shared memory and read by all 128 queries. Bound on Hopper: the
-// per-pair d2 + compare work (each staged row is reused 128 times), as for
-// the selection kernels but with no insertion network: a count per thread.
-// Pass 1 has one block per 128 sorted points (1,024 at 131,072 rows). Pass
-// 2 has only fix_cap / 128 (32) query blocks that each walk many groups, so
-// each block's group list is split over `nsplit` blocks; their counts meet
-// in integer atomics (exact in any order), written out as f32.
-#include "topk.cuh"
+// count_within is the register-tiled count walk (countwalk.cuh) over the
+// block's windows (WindowRows, as the window selections of warpselect.cuh
+// read them): one CTA of kWithinWarps warps per 128-query block, every warp
+// holding all 128 queries (four a lane), the warps splitting each staged
+// 8-row tile's rows and summing their counts in shared memory. The pair
+// test takes the candidate's r2 (WithinCandR2): a pair is the pinned d2, a
+// compare with the candidate's w and a predicated add. Pass 1 has one
+// block per 128 sorted points (782 at the 100K ROR op), enough to fill the
+// card, so no CTAs share a block and nothing is combined across CTAs. A
+// block whose flag is 0, or with no valid query, writes zeros and reads no
+// candidate row. Bound on Hopper: operations (8 issued instructions a
+// pair, each staged row reused by 128 queries).
+//
+// rescue_radius_count_groups: one block of 128 threads per 128-query block,
+// each candidate row staged in shared memory and read by all 128 queries.
+// Pass 2 has only fix_cap / 128 (32) query blocks that each walk many
+// groups, so each block's group list is split over `nsplit` blocks; their
+// counts meet in integer atomics (exact in any order), written out as f32.
+#include "countwalk.cuh"
 
 namespace {
 
-// pts: [nr, 4, 128] (w = r2 or 0); starts: [nb, 28]. Query block b = row b.
-__global__ void count_within_kernel(const float* __restrict__ pts,
-                                    const int* __restrict__ starts,
-                                    float* __restrict__ out, int nb) {
-  __shared__ float sh[kRowFloats];
+// Warps per CTA, measured on the H100 at the noisy 100K ROR op's capture
+// (PERF.md): W 4 took 3-6% longer, 2 30% and 1 64%. A two-tile ring (32
+// KB, 6 CTAs an SM) came within 3% at W 4 and 8 (at W 2 it gained 21%).
+constexpr int kWithinWarps = 8;
+
+// pts: [nr, 4, 128] (w = r2 or 0); starts: [nb, 28]; out: [nb * 128].
+// Query block b = row b; CTA b serves it.
+template <int W>
+__global__ void __launch_bounds__(W * 32)
+    count_within_kernel(const float* __restrict__ pts,
+                        const int* __restrict__ starts,
+                        float* __restrict__ out) {
+  extern __shared__ __align__(16) float sh[];  // kWindowSmem bytes
+  static_assert(W * kLanes <= kStages * kTileFloats, "counts fit");
   const int b = blockIdx.x;
-  const int l = threadIdx.x;
   const int* ss = starts + (long long)b * kStartsCols;
-  int cnt = 0;
+  float* col = out + (long long)b * kLanes;
+  int* pre = reinterpret_cast<int*>(sh + kStages * kTileFloats);
+  int* base = pre + kShifts + 1;
+  QueryTile<WithinCandR2> tile;
+  bool live = false;
   if (ss[3 * kShifts] != 0) {
-    const float* q = pts + (long long)b * kRowFloats;
-    const float qx = q[l], qy = q[kLanes + l], qz = q[2 * kLanes + l];
-    const bool qv = q[3 * kLanes + l] > 0.0f;
-    for (int j = 0; j < kShifts; ++j) {
-      const int st = ss[j], ln = ss[2 * kShifts + j];
-      for (int r = ss[kShifts + j]; r < ln; ++r) {
-        stage_row(pts, st + r, sh);
-        if (!qv) continue;
-        for (int c = 0; c < kLanes; ++c) {
-          const float cw = sh[3 * kLanes + c];
-          if (cw > 0.0f &&
-              d2_rn(qx, qy, qz, sh[c], sh[kLanes + c], sh[2 * kLanes + c]) <=
-                  cw)
-            ++cnt;
-        }
-      }
-    }
+    if (threadIdx.x == 0) WindowRows::fill<true>(ss, pre, base);
+    live = tile.load(pts + (long long)b * kRowFloats, threadIdx.x & 31);
   }
-  out[(long long)b * kLanes + l] = (float)cnt;
+  // pre is visible past this barrier; the same answer on every thread.
+  if (!__syncthreads_or(live) || pre[kShifts] == 0) {
+    for (int i = threadIdx.x; i < kLanes; i += W * 32) col[i] = 0.0f;
+    return;
+  }
+  walk_tile<W * 32>(pts, WindowRows{pre, base}, pre[kShifts], sh, tile);
+  sum_warps<W>(tile, reinterpret_cast<int*>(sh), [&](int i, int total) {
+    col[i] = (float)total;  // exact: below 2^24
+  });
 }
 
 // cand: [nr, 4, 128] (w = validity); q: [qb, 4, 128] (w = r2, -1 invalid);
@@ -95,11 +110,16 @@ __global__ void rescue_radius_partial(const float* __restrict__ cand,
 
 }  // namespace
 
+// pts 16-byte aligned; out: f32 [nb * 128].
 extern "C" int pc_count_within(const float* pts, const int* starts,
                                float* out, int nb, void* stream) {
-  if (nb > 0)
-    count_within_kernel<<<nb, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-        pts, starts, out, nb);
+  if (nb == 0) return 0;
+  auto kernel = count_within_kernel<kWithinWarps>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWindowSmem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<nb, kWithinWarps * 32, kWindowSmem,
+           static_cast<cudaStream_t>(stream)>>>(pts, starts, out);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,9 @@
 // The selection limit, +inf for device code, and the row staging of the
-// kernels that keep one thread per query (the radius counts of kernels 11
-// and 12, nn_argmin): each thread owns one query; candidate rows of 128
-// points are staged in shared memory by the whole block (`stage_row`). The
+// kernel that keeps one thread per query (the group radius counts of
+// kernel 12): each thread owns one query; candidate rows of 128 points are
+// staged in shared memory by the whole block (`stage_row`). The
 // warp-cooperative kernels build on warpselect.cuh, the register-tiled
-// count walk on countwalk.cuh.
+// pair walk on countwalk.cuh.
 #pragma once
 #include "common.cuh"
 

@@ -325,8 +325,8 @@ def sweep_select_rows_plain(pts_padded, rowlist, *, k: int, cap: int):
 
 def _check_aligned16(name: str, t: torch.Tensor):
     """The warp-select kernels (2, 3, 6, 7, 9, 10, 13), the min-label walk
-    (4, 8, 16) and the count walk (14) stage rows with 16-byte cp.async
-    copies."""
+    (4, 8, 16) and the pair walk (11, 14, 15) stage rows with 16-byte
+    cp.async copies."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data must start on a 16-byte boundary")
 
@@ -939,6 +939,7 @@ def count_within(pts_planar, starts):
         raise ValueError("count_within: more blocks than planar rows")
     if not _on_cuda(pts_planar):
         return count_within_plain(pts_planar, starts)
+    _check_aligned16("count_within.pts", pts_planar)
     out = torch.empty(nb * 128, dtype=torch.float32, device=dev)
     _lib().call("pc_count_within", pts_planar.data_ptr(), starts.data_ptr(),
                 out.data_ptr(), nb, _stream())
@@ -1045,21 +1046,24 @@ def _check_brute(name, q_planar, cand_planar):
     return nr, qb
 
 
-# Kernel 14's int32 scratch per (device, stream): counts [cap * 128], then
-# one arrival counter a query block [cap]. Zeroed when made; every call
-# leaves it zero (its last CTA of each block zeroes what it used), so a
-# call makes one launch and no memset. Calls on one stream never overlap.
-_RADIUS_SCRATCH = {}
+# Scratch of the kernels whose CTAs combine a query block's results
+# (kernels 14 and 15), per kernel and (device, stream): a value per query
+# [cap * 128], made equal to `fill`, and one int32 arrival counter a query
+# block [cap], zeroed. Every call leaves both so (the last CTA of each
+# block resets what it used), so a call makes one launch and no memset.
+# Calls on one stream never overlap.
+_BLOCK_SCRATCH = {}
 
 
-def _radius_scratch(dev, qb: int):
-    key = (dev, _stream())
-    t = _RADIUS_SCRATCH.get(key)
-    if t is None or t.numel() < qb * 129:
-        t = torch.zeros(max(qb, 32) * 129, dtype=torch.int32, device=dev)
-        _RADIUS_SCRATCH[key] = t
-    cap = t.numel() // 129
-    return t[:cap * 128], t[cap * 128:]
+def _block_scratch(kernel: str, dev, qb: int, dtype, fill: int):
+    key = (kernel, dev, _stream())
+    t = _BLOCK_SCRATCH.get(key)
+    if t is None or t[1].numel() < qb:
+        cap = max(qb, 32)
+        t = (torch.full((cap * 128,), fill, dtype=dtype, device=dev),
+             torch.zeros(cap, dtype=torch.int32, device=dev))
+        _BLOCK_SCRATCH[key] = t
+    return t
 
 
 def brute_radius_count(q_planar, cand_planar):
@@ -1076,7 +1080,8 @@ def brute_radius_count(q_planar, cand_planar):
     _check_aligned16("brute_radius_count.cand", cand_planar)
     dev = cand_planar.device
     out = torch.empty(qb * 128, dtype=torch.float32, device=dev)
-    counts, arrived = _radius_scratch(dev, qb)
+    counts, arrived = _block_scratch("brute_radius_count", dev, qb,
+                                     torch.int32, 0)
     _lib().call("pc_brute_radius_count", q_planar.data_ptr(),
                 cand_planar.data_ptr(), out.data_ptr(), qb, nr,
                 counts.data_ptr(), arrived.data_ptr(), _stream())
@@ -1232,12 +1237,6 @@ def nn_argmin_plain(q_planar, cand_planar):
     return torch.where(use, d2, torch.inf), torch.where(use, pos, -1.0)
 
 
-def _nn_splits(qb: int, nr: int) -> int:
-    """CUDA blocks per query block: about four waves of the card's 132 SMs,
-    at most one per target row."""
-    return max(1, min(nr, -(-4 * 132 // max(qb, 1)), 64))
-
-
 def nn_argmin(q_planar, cand_planar):
     """For every query, the exact squared distance to its nearest valid
     candidate and that candidate's flat position.
@@ -1253,14 +1252,14 @@ def nn_argmin(q_planar, cand_planar):
     nr, qb = _check_brute("nn_argmin", q_planar, cand_planar)
     if not _on_cuda(cand_planar):
         return nn_argmin_plain(q_planar, cand_planar)
+    _check_aligned16("nn_argmin.cand", cand_planar)
     dev = cand_planar.device
-    nsplit = _nn_splits(qb, nr)
-    part_d = torch.empty((nsplit, qb * 128), dtype=torch.float32, device=dev)
-    part_p = torch.empty((nsplit, qb * 128), dtype=torch.int32, device=dev)
     out = torch.empty((2, qb * 128), dtype=torch.float32, device=dev)
+    # Keys all-ones: int64 -1.
+    keys, arrived = _block_scratch("nn_argmin", dev, qb, torch.int64, -1)
     _lib().call("pc_nn_argmin", q_planar.data_ptr(), cand_planar.data_ptr(),
-                part_d.data_ptr(), part_p.data_ptr(), out.data_ptr(), qb, nr,
-                nsplit, _stream())
+                out.data_ptr(), qb, nr, keys.data_ptr(), arrived.data_ptr(),
+                _stream())
     LAUNCHES["nn_argmin"] += 1
     return out[0], out[1]
 

@@ -438,25 +438,81 @@ def test_sweep_select(dev, k, case):
             assert (got[2][cols] == 0).all()
 
 
-def test_count_within(dev):
+def _device_launches(fn):
+    """Device kernels one call of ``fn`` launches (torch.profiler, after a
+    warm-up call; a window in which the profiler saw no kernel is taken
+    again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                for e in prof.events())
+        if n:
+            return n
+    return 0
+
+
+def _count_within_case(dev, case):
+    """Kernel 11's (planar, starts): the sorted structure of a uniform
+    cloud with each candidate's r2 0.25, or on every third row the d2 to
+    the next sorted point (a pair on its radius); "small_r2": r2 0.04 on
+    every candidate, all below the 0.5 validity threshold of the other
+    walks; "dup_masked": the structure with one row's second half copied
+    onto its first as masked twins (w = 0, d2 0 to a valid point) and one
+    query block all invalid; "windows": random rows under random,
+    overlapping windows with nonzero skips, block 1 with no valid query
+    and the last block's flag 0."""
+    if case == "windows":
+        rng = np.random.default_rng(13)
+        nb, nr = 12, 40
+        planar = _planar(rng, nr, scale=2.0)
+        planar[:, 3] *= 0.3
+        planar[1, 3] = 0.0
+        starts = torch.from_numpy(_window_starts(rng, nb, nr))
+        assert (starts[:, 9:18] > 0).any()
+        return planar.to(dev), starts.to(dev)
     s = _structure(dev, seed=4, wr=4, cell=0.5)
     planar = s["planar"].clone()
-    # Per-candidate r2: 0.25, or the d2 to the next sorted point (a pair
-    # on its radius) on every third row.
     pts = planar[:, :3, :].permute(0, 2, 1).reshape(-1, 3)
-    nxt = torch.roll(pts, -1, 0)
-    d = pts - nxt
-    d2 = kernels.fma_f32(d[:, 2], d[:, 2], kernels.fma_f32(
-        d[:, 0], d[:, 0], d[:, 1] * d[:, 1]))
     w = planar[:, 3, :].reshape(-1)
-    r2 = torch.where((torch.arange(len(w), device=dev) % 3 == 0)
-                     & (d2 > 0) & (d2 < 0.25), d2, 0.25)
+    if case == "small_r2":
+        r2 = torch.full_like(w, 0.04)
+    else:
+        nxt = torch.roll(pts, -1, 0)
+        d2 = _pinned_d2(pts, nxt)
+        r2 = torch.where((torch.arange(len(w), device=dev) % 3 == 0)
+                         & (d2 > 0) & (d2 < 0.25), d2, 0.25)
     planar[:, 3, :] = (w * r2).reshape(-1, 128)
-    got = _count_launch("count_within", lambda: kernels.count_within(
-        planar, s["starts_skip"]))
-    assert torch.equal(got, kernels.count_within_plain(planar,
-                                                       s["starts_skip"]))
+    if case == "dup_masked":
+        planar[3, :3, :64] = planar[3, :3, 64:]
+        planar[3, 3, :64] = 0.0
+        planar[5, 3] = 0.0
+    return planar, s["starts_skip"]
+
+
+@pytest.mark.parametrize("case", ["structure", "small_r2", "dup_masked",
+                                  "windows"])
+def test_count_within(dev, case):
+    """Bitwise against the plain version, one launch a call; a block with
+    no valid query or with flag 0 counts nothing."""
+    planar, starts = _count_within_case(dev, case)
+    before = kernels.LAUNCHES["count_within"]
+    got = kernels.count_within(planar, starts)
+    assert kernels.LAUNCHES["count_within"] == before + 1
+    assert torch.equal(got, kernels.count_within_plain(planar, starts))
     assert got.sum() > 0
+    assert _device_launches(lambda: kernels.count_within(planar,
+                                                         starts)) == 1
+    dead = (planar[:starts.shape[0], 3] <= 0).all(dim=1) | (starts[:, 27]
+                                                           == 0)
+    assert (got.reshape(-1, 128)[dead] == 0).all()
+    if case in ("dup_masked", "windows"):
+        assert dead.any()
 
 
 def _groups(rng, qb, ng, dev):
@@ -673,35 +729,81 @@ def test_sweep_knn_select_cross(dev, k):
     assert (got[2 * k, 128:256] == 0).all()
 
 
-@pytest.mark.parametrize("lattice", [False, True])
-def test_nn_argmin(dev, lattice):
+def _nn_case(case):
+    """Kernel 15's (q, c, qv, cv) on the CPU: "random" 1,000 queries
+    against 3,000 candidates; "lattice": queries at the half-shift of a
+    24^3 lattice (108 target rows), each with 8 nearest candidates at equal
+    d2 up to 4.5 rows apart, so that many ties fall in different CTAs'
+    row ranges; "none": no valid candidate (every served query gets +inf
+    and the target's last position); "one_row" and "few_rows": targets of
+    1 and 3 rows, fewer than a block's CTAs."""
     rng = np.random.default_rng(11)
-    if lattice:  # every query at half-shift: 8 tied nearest candidates
-        g = np.arange(16, dtype=np.float32)
+    if case == "lattice":
+        g = np.arange(24, dtype=np.float32)
         c = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
-        q = c[:2000] + np.float32(0.5)
+        q = c[::7][:2000] + np.float32(0.5)
     else:
-        c = rng.uniform(-5, 5, (3000, 3)).astype(np.float32)
+        nc = {"one_row": 100, "few_rows": 300}.get(case, 3000)
+        c = rng.uniform(-5, 5, (nc, 3)).astype(np.float32)
         q = rng.uniform(-5, 5, (1000, 3)).astype(np.float32)
-    cv = torch.from_numpy(rng.random(len(c)) > 0.1)
-    qv = torch.from_numpy(rng.random(len(q)) > 0.1)
-    q = torch.from_numpy(q)
-    q[5] = float("nan")  # a non-finite valid query: (+inf, -1)
+    cv = rng.random(len(c)) > (1.0 if case == "none" else 0.1)
+    qv = rng.random(len(q)) > 0.1
+    q[5] = np.nan  # a non-finite valid query: (+inf, -1)
+    return q, c, qv, cv
+
+
+def _nn_planar(dev, q, c, qv, cv):
     from pointclouds_tpu_torch.ops.registration import _to_planar
 
-    qp = _to_planar(q, qv).to(dev)
-    cp = _to_planar(torch.from_numpy(c), cv).to(dev)
-    got = _count_launch("nn_argmin", lambda: kernels.nn_argmin(qp, cp))
+    return (_to_planar(torch.from_numpy(q), torch.from_numpy(qv)).to(dev),
+            _to_planar(torch.from_numpy(c), torch.from_numpy(cv)).to(dev))
+
+
+@pytest.mark.parametrize("case", ["random", "lattice", "none", "one_row",
+                                  "few_rows"])
+def test_nn_argmin(dev, case):
+    q, c, qv, cv = _nn_case(case)
+    qp, cp = _nn_planar(dev, q, c, qv, cv)
+    before = kernels.LAUNCHES["nn_argmin"]
+    got = kernels.nn_argmin(qp, cp)
+    assert kernels.LAUNCHES["nn_argmin"] == before + 1
     want = kernels.nn_argmin_plain(qp, cp)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    served = qv.clone()
+    assert _device_launches(lambda: kernels.nn_argmin(qp, cp)) == 1
+    served = torch.from_numpy(qv).to(dev)
     served[5] = False
-    served = served.to(dev)
-    assert got[1][5] == -1.0 and (got[1][:len(q)][served] >= 0).all()
-    none = kernels.nn_argmin(qp, torch.zeros_like(cp))  # no valid target
-    assert torch.isinf(none[0][:len(q)][served]).all()
-    assert (none[1][:len(q)][served] == cp.shape[0] * 128 - 1).all()
+    d2, pos = got[0][:len(q)], got[1][:len(q)]
+    assert pos[5] == -1.0 and (pos[~served] == -1.0).all()
+    if case == "none":
+        assert torch.isinf(d2[served]).all()
+        assert (pos[served] == cp.shape[0] * 128 - 1).all()
+    else:
+        assert torch.isfinite(d2[served]).all() and (pos[served] >= 0).all()
+
+
+def test_nn_argmin_scratch_left_reset(dev):
+    """Calls in a row with different block counts, then on a second
+    stream and back: each bitwise against the plain version, and every
+    call leaves its stream's key scratch all-ones and its arrival
+    counters zero."""
+    q, c, qv, cv = _nn_case("lattice")
+    qp, cp = _nn_planar(dev, q, c, qv, cv)
+    side = torch.cuda.Stream()
+    for blocks, stream in ((16, None), (3, None), (9, side), (1, side),
+                           (16, None)):
+        with torch.cuda.stream(stream or torch.cuda.current_stream()):
+            sub = qp[:blocks].contiguous()
+            got = kernels.nn_argmin(sub, cp)
+            want = kernels.nn_argmin_plain(sub, cp)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            torch.cuda.current_stream().synchronize()
+    used = [t for key, t in kernels._BLOCK_SCRATCH.items()
+            if key[0] == "nn_argmin" and key[1] == qp.device]
+    assert len(used) >= 2
+    for keys, arrived in used:
+        assert (keys == -1).all() and (arrived == 0).all()
 
 
 @pytest.mark.parametrize("active", ["all", "half"])

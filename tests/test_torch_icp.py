@@ -47,16 +47,20 @@ def _lattice(n_side):
     return np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
 
 
-@pytest.mark.parametrize("case", ["random", "lattice"])
+@pytest.mark.parametrize("case", ["random", "lattice", "none"])
 def test_nn_argmin_plain_matches_pallas(case):
+    """"none": no valid candidate, so every served query gets +inf and
+    the target's last position."""
     rng = np.random.default_rng(0)
-    if case == "random":
-        c = rng.uniform(-3, 3, (700, 3)).astype(np.float32)
-        q = rng.uniform(-3, 3, (300, 3)).astype(np.float32)
-    else:  # queries at half-shift: 8 nearest at exactly equal d2
+    if case == "lattice":  # queries at half-shift: 8 nearest at equal d2
         c = _lattice(8)
         q = c[:300] + np.float32(0.5)
+    else:
+        c = rng.uniform(-3, 3, (700, 3)).astype(np.float32)
+        q = rng.uniform(-3, 3, (300, 3)).astype(np.float32)
     cv, qv = rng.random(len(c)) > 0.1, rng.random(len(q)) > 0.1
+    if case == "none":
+        cv[:] = False
     qp = jreg._to_planar(jnp.asarray(q), jnp.asarray(qv))
     cp = jreg._to_planar(jnp.asarray(c), jnp.asarray(cv))
     want = [np.asarray(a) for a in jpk.nn_argmin(qp, cp, interpret=True)]
@@ -70,6 +74,10 @@ def test_nn_argmin_plain_matches_pallas(case):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g[served], w[served])
     assert (got[1][~served] == -1).all() and np.isinf(got[0][~served]).all()
+    if case == "none":
+        last = 128 * -(-len(c) // 128) - 1
+        assert np.isinf(got[0][served]).all()
+        assert (got[1][served] == last).all()
 
 
 def _run_both(src, tgt, n_src, n_tgt, iters, tol, max_dist, normals=None):

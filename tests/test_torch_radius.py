@@ -64,11 +64,17 @@ def _boundary_r2(q_xyz, q_live, cand_xyz, cand_live):
     return r2
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_count_within_plain_matches_pallas_and_mirror(seed):
+@pytest.mark.parametrize("seed,radius", [
+    pytest.param(0, RADIUS, id="0"), pytest.param(1, RADIUS, id="1"),
+    pytest.param(2, np.float32(0.2), id="small_r2")])
+def test_count_within_plain_matches_pallas_and_mirror(seed, radius):
+    """"small_r2": r 0.2 (r2 0.04, far below the 0.5 validity threshold
+    of the other walks) on the cloud scaled by 0.4, with one row's first
+    half turned into masked duplicates (w = 0) of its second half."""
     xyz, valid = _cloud(seed, 3000)
+    xyz = xyz * np.float32(radius / RADIUS)
     s = jsweep._radius_structure(jnp.asarray(xyz), jnp.asarray(valid),
-                                 RADIUS, 4, jsweep.SWEEP_TABLE_SIZE)
+                                 radius, 4, jsweep.SWEEP_TABLE_SIZE)
     planar = np.array(s["planar"])
     pts, w = _planar_points(planar)
     live = w > 0.5
@@ -76,10 +82,13 @@ def test_count_within_plain_matches_pallas_and_mirror(seed):
     # point: an exact boundary pair wherever that point is in range.
     nxt = np.roll(pts, -1, axis=0)
     d2 = _pinned_d2(pts, nxt)
-    on = live & np.roll(live, -1) & (d2 > 0) & (d2 <= RADIUS * RADIUS)
-    wr2 = np.where(live, RADIUS * RADIUS, 0.0).astype(np.float32)
+    on = live & np.roll(live, -1) & (d2 > 0) & (d2 <= radius * radius)
+    wr2 = np.where(live, radius * radius, 0.0).astype(np.float32)
     wr2[on] = d2[on]
     planar[:, 3, :] = wr2.reshape(-1, 128)
+    if radius < RADIUS:
+        planar[2, :3, :64] = planar[2, :3, 64:]
+        planar[2, 3, :64] = 0.0
     assert on.sum() > 1000
     starts = s["starts_skip"]
     pal = np.asarray(jpk.count_within(jnp.asarray(planar), starts, wr=4,
