@@ -30,7 +30,11 @@ Phases:
    at the overflow SOR op's (4,096 live queries) and at the clean 100K
    SOR op's (no live block), `brute_radius_count` also at the noisy ROR
    op's own call (no live block; with its device time and device
-   launches a call), `segmented_scan_sums` also at the 1M voxel
+   launches a call), `rescue_radius_count_groups` also at the noisy ROR
+   op's own call (2 live blocks of 32) and `ransac_score_counts` also at
+   the RANSAC op's on the 10K slab (128 rows), each with its device time,
+   device launches, registers and shared memory a call at both captures,
+   `segmented_scan_sums` also at the 1M voxel
    op's (16 tiles), with its device time and device launches a call at
    both (phase2.json);
 3. KITTI end to end with RANSAC seeds 0-4: every KITTI kernel launched, no
@@ -118,7 +122,12 @@ full": `brute_radius_count` with every query block live) and the ROR op
 on the noisy cloud ("ror noisy 100K": `brute_radius_count` with no live
 block; "ror count 100K": `count_within`), and the ICP point-to-point op
 at 10K ("icp 10K": `nn_argmin`) and the half-shift lattice ("nn
-lattice": `nn_argmin` with tied nearest candidates) give their
+lattice": `nn_argmin` with tied nearest candidates), the fused ROR op
+with the one-row budget again ("ror rescue": `rescue_radius_count_groups`
+with 32 live blocks), the noisy ROR op ("ror rescue noisy 100K": the same
+with 2 live blocks), the KITTI frame with full scoring ("ransac kitti
+full": `ransac_score_counts` at 512 slots and 768 rows) and the RANSAC op
+on the 10K slab ("ransac op 10K") give their
 kernels, then runs the trees in the order DIR..., this, this, ...DIR (so
 that drift on the card shows), each in a fresh process that builds its
 own kernels: each kernel against its plain version at the captured
@@ -127,7 +136,8 @@ its device launches a call, registers and shared memory; the cluster
 loops' rounds, host reads and walked pairs), the KITTI frame p50,
 device time and stage medians (as phase 3), the noisy and overflow SOR op p50s, the
 overflow SOR op's and the noisy ROR op's device time and device launches
-a call (and the ROR op's p50), the 10K ICP point-to-point op's p50,
+a call (and the ROR op's p50), the 10K RANSAC op's p50, device time and
+device launches a call, the 10K ICP point-to-point op's p50,
 device time and device launches a call, the KITTI
 "xla" and "pallas" frame p50s and stage medians (as phase 8) and the
 "pallas" frame's device time, the 1M voxel op's p50 and device time, the
@@ -462,16 +472,26 @@ def select_work(name, args, kwargs) -> str:
             f"last call: {w['host_reads']} host reads, "
             f"{w['pairs_visited']} pairs walked (frontier and row prune), "
             f"labels lowered per round {w.get('lowered')}")
-    if name in ("rescue_select", "rescue_knn_idx"):
+    if name in ("rescue_select", "rescue_knn_idx",
+                "rescue_radius_count_groups"):
         q, active = args[1], args[2]
-        live = (q[:, 3] > 0.5).any(dim=1)
+        valid = q[:, 3] >= RESCUE_LIVE[name]
+        live = valid.any(dim=1)
         groups = active[live, 0].float()
         mx, med = ((int(groups.max()), float(groups.median()))
                    if groups.numel() else (0, 0.0))
         return (f"{int(live.sum())} of {q.shape[0]} query blocks live, "
-                f"{int((q[:, 3] > 0.5).sum())} valid queries, active groups "
+                f"{int(valid.sum())} valid queries, active groups "
                 f"per live block max {mx} median {med:g} (total "
                 f"{int(groups.sum())})")
+    if name == "ransac_score_counts":
+        hyp, pts = args
+        real = int((hyp[4] >= 0).sum())
+        valid = int((pts[:, 3] > 0.5).sum())
+        walked = hyp.shape[1] * pts.shape[0] * 128
+        return (f"{real} of {hyp.shape[1]} hypotheses, {valid} valid of "
+                f"{pts.shape[0] * 128} points: {walked} pairs walked, "
+                f"{real * valid} counted")
     return ""
 
 
@@ -746,6 +766,11 @@ def slab_cloud(n=100_000, seed=3):
         (rng.random((n - ns, 3)) * 20).astype(np.float32)])
 
 
+def ransac_op(api, cloud):
+    """bench_ops' RANSAC op: threshold 0.05, 500 iterations, seed 7."""
+    return api.ransac_plane_seeded(cloud, 0.05, 500, 7)
+
+
 CARD = "cuda"  # where `PointCloud.from_numpy` must put a cloud by default
 NOISY_BOX = 20.0  # outliers here stay within SOR's rescue reach
 OVERFLOW_BOX = 40.0  # here they widen the cell estimate 4x: overflow
@@ -784,9 +809,9 @@ OPS6 = [
     ("normals k10 noisy", "normals", "noisy",
      lambda api, c: api.estimate_normals(c, 10)),
     ("ransac_plane_seeded 0.05 x500 slab 10K", "ransac", "slab10k",
-     lambda api, c: api.ransac_plane_seeded(c, 0.05, 500, 7)),
+     ransac_op),
     ("ransac_plane_seeded 0.05 x500 slab 100K", "ransac", "slab100k",
-     lambda api, c: api.ransac_plane_seeded(c, 0.05, 500, 7)),
+     ransac_op),
 ]
 # Rescue kernels: the query channel's w that marks a valid query.
 RESCUE_LIVE = {"rescue_select": 0.5, "rescue_knn_idx": 0.5,
@@ -1606,6 +1631,7 @@ def ab_capture(path: Path, only=None) -> None:
     overflow = api.PointCloud.from_numpy(noisy_cloud(OVERFLOW_BOX))
     u100k = api.PointCloud.from_numpy(bench_cloud(100_000))
     slab = api.PointCloud.from_numpy(slab_cloud())
+    slab10k = api.PointCloud.from_numpy(slab_cloud(10_000))
     r32 = torch.tensor(np.float32(0.5), device="cuda")
     sets = {
         "kitti": lambda: capture_inputs(
@@ -1669,6 +1695,21 @@ def ab_capture(path: Path, only=None) -> None:
         "ror count 100K": lambda: capture_inputs(
             lambda: api.radius_outlier_removal(noisy, 0.5, 5),
             ["count_within"]),
+        # Kernel 12 at the fused ROR op with a one-row window budget (32
+        # live blocks) and at the noisy ROR op's own call (2 live);
+        # kernel 5 at the KITTI frame's full scoring and the RANSAC op at
+        # 10K.
+        "ror rescue": lambda: capture_inputs(
+            lambda: fusedops.ror_fused(noisy._arrs, r32, 5, wr=1, cap=4096),
+            ["rescue_radius_count_groups"]),
+        "ror rescue noisy 100K": lambda: capture_inputs(
+            lambda: api.radius_outlier_removal(noisy, 0.5, 5),
+            ["rescue_radius_count_groups"]),
+        "ransac kitti full": lambda: capture_inputs(
+            lambda: run_kitti(pc, kdata, 0, "cuda", ransac_subsample=None),
+            ["ransac_score_counts"]),
+        "ransac op 10K": lambda: capture_inputs(
+            lambda: ransac_op(api, slab10k), ["ransac_score_counts"]),
     }
     unknown = set(only or ()) - set(sets)
     if unknown:
@@ -1740,6 +1781,11 @@ def ab_child(tree: Path, inputs: Path, kernels_only=False) -> dict:
     res["ror_op_p50_ms"] = p50_ms(ror)[0]
     res["ror_device_ms"] = device_ms(ror, 5)
     res["ror_device_launches"] = len(device_kernels(ror))
+    slab10k = api.PointCloud.from_numpy(slab_cloud(10_000))
+    ransac = lambda: ransac_op(api, slab10k)  # noqa: E731
+    res["ransac_op_p50_ms"] = p50_ms(ransac)[0]
+    res["ransac_device_ms"] = device_ms(ransac, 5)
+    res["ransac_device_launches"] = len(device_kernels(ransac))
     icp_src, icp_tgt = icp_clouds(api)
     icp = lambda: api.icp_point_to_point(  # noqa: E731
         icp_src, icp_tgt, max_iterations=50)
@@ -1802,7 +1848,10 @@ def ab_frames_text(r) -> str:
         f"{r['sor_overflow_device_launches']} device launches), ROR noisy "
         f"100K op p50 {r['ror_op_p50_ms']:.3f} ms (device "
         f"{ms_text(r['ror_device_ms'], 3)}, {r['ror_device_launches']} "
-        f"device launches), ICP point-to-point 10K op p50 "
+        f"device launches), RANSAC 10K op p50 {r['ransac_op_p50_ms']:.3f} "
+        f"ms (device {ms_text(r['ransac_device_ms'], 3)}, "
+        f"{r['ransac_device_launches']} device launches), ICP "
+        f"point-to-point 10K op p50 "
         f"{r['icp_op_p50_ms']:.3f} ms (device "
         f"{ms_text(r['icp_device_ms'], 3)}, {r['icp_device_launches']} "
         f"device launches), point_sor_mean_dists "
@@ -1858,7 +1907,8 @@ def ab_main(others, only=None) -> int:
                 if k.startswith(("segmented_scan", "sweep_knn",
                                  "cluster_multisweep ", "sweep_select ",
                                  "brute_radius_count", "nn_argmin",
-                                 "count_within")))
+                                 "count_within", "rescue_radius_count",
+                                 "ransac_score_counts")))
             + "".join(f"; {k}: {v}" for k, v in r["rounds"].items()) +
             f" [{card_line}]")
     OUT_DIR.mkdir(exist_ok=True)
@@ -1993,11 +2043,26 @@ def main() -> int:
     # launches a call.
     for name, label in (("segmented_scan_sums", "kitti"),
                         ("count_within", "ror count 100K"),
-                        ("nn_argmin", "icp 10K")):
+                        ("nn_argmin", "icp 10K"),
+                        ("rescue_radius_count_groups", "ror rescue"),
+                        ("ransac_score_counts", "ransac kitti full")):
         next(r for r in rows if r["name"] == name).update(
             kernel_device(name, *captured[name], K, card_line, label))
     nn_lattice_device = kernel_device("nn_argmin", *nn_lattice(), K,
                                       card_line, NN_LATTICE)
+    # Kernel 12 also at the noisy ROR op's own call (2 live blocks), and
+    # kernel 5 at the RANSAC op on the 10K slab (128 rows).
+    slab10k = api.PointCloud.from_numpy(slab_cloud(10_000))
+    extra = {}
+    for name, label, run in (
+            ("rescue_radius_count_groups", "ror rescue noisy 100K",
+             lambda: api.radius_outlier_removal(noisy, 0.5, 5)),
+            ("ransac_score_counts", "ransac op 10K",
+             lambda: ransac_op(api, slab10k))):
+        args, kwargs = capture_inputs(run, [name])[name]
+        extra[f"{name} {label}"] = dict(
+            kernel_row(name, args, kwargs, K, card_line, label=label),
+            **kernel_device(name, args, kwargs, K, card_line, label))
     # Kernel 1 also at the 1M voxel op (16 tiles), beside the KITTI frame
     # (2 tiles).
     u1m = api.PointCloud.from_numpy(bench_cloud(1_000_000))
@@ -2017,7 +2082,7 @@ def main() -> int:
             for name in NORMALS_KERNELS], brute_knn_idx=brute_rows,
         brute_radius_count_empty=ror_empty,
         segmented_scan_sums_1m=scan_1m,
-        nn_argmin_lattice=nn_lattice_device), indent=1))
+        nn_argmin_lattice=nn_lattice_device, **extra), indent=1))
     launches_total = {name: 0 for name in KERNELS}
 
     def add(launches):

@@ -38,7 +38,7 @@ _SIGNATURES = {
     "pc_rescue_select": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "pc_cluster_rounds_lists": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  ctypes.c_float, _I, _I, _P], _I),
-    "pc_ransac_score_counts": ([_P, _P, _P, _P, _I, _I, _P], _I),
+    "pc_ransac_score_counts": ([_P, _P, _P, _I, _I, _P, _P, _P], _I),
     "pc_sweep_moments": ([_P, _P, _P, _I, _I, ctypes.c_float,
                           ctypes.c_float, _P], _I),
     "pc_rescue_knn_idx": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
@@ -46,7 +46,7 @@ _SIGNATURES = {
                                    ctypes.c_float, _I, _I, _P], _I),
     "pc_sweep_select": ([_P, _P, _P, _I, _I, _P], _I),
     "pc_count_within": ([_P, _P, _P, _I, _P], _I),
-    "pc_rescue_radius_count": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "pc_rescue_radius_count": ([_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
                                _I),
     "pc_brute_radius_count": ([_P, _P, _P, _I, _I, _P, _P, _P], _I),
     "pc_brute_knn_idx": ([_P, _P, _P, _I, _I, _I, _P], _I),

@@ -34,21 +34,21 @@
 // 1.5-1.7x faster on the H100 at the noisy and overflow SOR ops' inputs.
 //
 // brute_radius_count is one launch of the register-tiled count walk
-// (countwalk.cuh): kBruteSplit CTAs per query block (32 blocks alone could
-// not fill 132 SMs), each of kRadiusWarps warps that all hold the block's
-// 128 queries, four a lane. CTA s of a block walks its contiguous share of
-// the cloud's rows through the cp.async ring, its warps splitting each
-// tile's rows; the warps' integer counts are summed in shared memory and
-// added into a zeroed int32 scratch with atomics (exact in any order).
-// The block's last CTA to arrive (a counter per block after a
-// __threadfence) writes the counts out as f32 (exact: every count is below
-// 2^24) and zeroes the scratch and its counter for the next call: no
-// memset, no conversion kernel. A thread-block cluster a query block, the
-// counts summed through distributed shared memory, measured 1.45x slower
-// at the full capture with 8 CTAs a cluster and 2x with 4 (PERF.md). A
-// block with no valid query (r2 < 0 on every lane) walks nothing and
-// writes zeros, so the fused ROR ops' usual call, with no live block, is
-// one launch of CTAs that exit at once.
+// (countwalk.cuh, count_block): kBruteSplit CTAs per query block (32
+// blocks alone could not fill 132 SMs), each of kRadiusWarps warps that
+// all hold the block's 128 queries, four a lane. CTA s of a block walks
+// its contiguous share of the cloud's rows through the cp.async ring, its
+// warps splitting each tile's rows; the warps' integer counts are summed
+// in shared memory and added into a zeroed int32 scratch with atomics
+// (exact in any order). The block's last CTA to arrive (a counter per
+// block after a __threadfence) writes the counts out as f32 (exact: every
+// count is below 2^24) and zeroes the scratch and its counter for the
+// next call: no memset, no conversion kernel. A thread-block cluster a
+// query block, the counts summed through distributed shared memory,
+// measured 1.45x slower at the full capture with 8 CTAs a cluster and 2x
+// with 4 (PERF.md). A block with no valid query (r2 < 0 on every lane)
+// walks nothing and writes zeros, so the fused ROR ops' usual call, with
+// no live block, is one launch of CTAs that exit at once.
 #include "countwalk.cuh"
 
 namespace {
@@ -105,30 +105,13 @@ __global__ void __launch_bounds__(W * 32)
                         float* __restrict__ out, int nr, int* counts,
                         unsigned* arrived) {
   __shared__ __align__(16) float sh[kStages * kTileFloats];
-  static_assert(W * kLanes < kStages * kTileFloats, "sums fit");
   const int b = blockIdx.x / C;
-  const int s = blockIdx.x % C;
-  float* col = out + (long long)b * kLanes;
   QueryTile<WithinQueryR2> tile;
-  // The same answer on every CTA of the block.
-  if (!__syncthreads_or(
-          tile.load(qpl + (long long)b * kRowFloats, threadIdx.x & 31))) {
-    if (s == 0)
-      for (int i = threadIdx.x; i < kLanes; i += W * 32) col[i] = 0.0f;
-    return;
-  }
-  const int lo = (int)((long long)nr * s / C);
-  const int hi = (int)((long long)nr * (s + 1) / C);
-  walk_tile<W * 32>(cand, RowsFrom<EveryRow>{{}, lo}, hi - lo, sh, tile);
-  int* part = reinterpret_cast<int*>(sh);
-  int* last = part + W * kLanes;  // "this CTA is last"
-  int* acc = counts + (long long)b * kLanes;
-  sum_warps<W>(tile, part, [&](int i, int total) {
-    if (total) atomicAdd(acc + i, total);
-  });
-  if (last_to_arrive(arrived + b, C, last))
-    for (int i = threadIdx.x; i < kLanes; i += W * 32)
-      col[i] = (float)atomicExch(acc + i, 0);
+  const bool live =
+      tile.load(qpl + (long long)b * kRowFloats, threadIdx.x & 31);
+  count_block<W>(tile, live, cand, EveryRow{}, nr, blockIdx.x % C, C,
+                 out + (long long)b * kLanes, counts + (long long)b * kLanes,
+                 arrived + b, sh);
 }
 
 }  // namespace

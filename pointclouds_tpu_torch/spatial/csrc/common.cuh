@@ -19,13 +19,3 @@ __device__ __forceinline__ float d2_rn(float qx, float qy, float qz,
 // Planar rows: row r holds 128 points as [x*128 | y*128 | z*128 | w*128].
 constexpr int kLanes = 128;
 constexpr int kRowFloats = 4 * kLanes;
-
-// Integer hit counts (exact in any order of atomic adds) written out as
-// f32, as the TPU kernels return counts.
-namespace {
-__global__ void counts_to_f32(const int* __restrict__ counts,
-                              float* __restrict__ out, long long n) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i < n) out[i] = (float)counts[i];
-}
-}  // namespace

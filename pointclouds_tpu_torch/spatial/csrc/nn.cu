@@ -39,7 +39,7 @@
 namespace {
 
 // The smallest d2 and its position: d2 <= best moves both (predicated).
-struct Nearest {
+struct Nearest : PointD2 {
   struct State {
     float best;
     int pos;
@@ -131,32 +131,9 @@ __global__ void __launch_bounds__(W * 32)
 // PERF.md): (W 4, C 8) beat (4, 4) by 6%, (8, 8) and (2, 8) by 12%, and
 // every C of 1 or 2 by 39-192%; C 16 and a two-tile ring came within 2%.
 // C is the smallest power of two, up to kNnMaxSplit, that gives the call
-// kNnCtasPerSm CTAs an SM, so a larger cloud takes fewer.
+// kWalkCtasPerSm CTAs an SM (walk_split), so a larger cloud takes fewer.
 constexpr int kNnWarps = 4;
 constexpr int kNnMaxSplit = 8;
-constexpr int kNnCtasPerSm = 4;
-
-// CTAs a query block for qb blocks on the current device (above). The SM
-// count is read once per device: a call is short enough that the query
-// would show in its host time.
-int nn_split(int qb, int& split) {
-  constexpr int kMaxDevices = 64;
-  static int sms[kMaxDevices];  // 0: not read yet
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (sms[dev] == 0) {
-    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
-                                 dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  split = 1;
-  while (split < kNnMaxSplit &&
-         (long long)qb * split < (long long)kNnCtasPerSm * sms[dev])
-    split *= 2;
-  return 0;
-}
 
 }  // namespace
 
@@ -168,7 +145,7 @@ extern "C" int pc_nn_argmin(const float* q, const float* cand, float* out,
                             unsigned* arrived, void* stream) {
   if (qb == 0) return 0;
   int split = 1;
-  const int err = nn_split(qb, split);
+  const int err = walk_split(qb, kNnMaxSplit, split);
   if (err != 0) return err;
   nn_kernel<kNnWarps><<<qb * split, kNnWarps * 32, 0,
                         static_cast<cudaStream_t>(stream)>>>(

@@ -30,11 +30,19 @@
 // candidate row. Bound on Hopper: operations (8 issued instructions a
 // pair, each staged row reused by 128 queries).
 //
-// rescue_radius_count_groups: one block of 128 threads per 128-query block,
-// each candidate row staged in shared memory and read by all 128 queries.
-// Pass 2 has only fix_cap / 128 (32) query blocks that each walk many
-// groups, so each block's group list is split over `nsplit` blocks; their
-// counts meet in integer atomics (exact in any order), written out as f32.
+// rescue_radius_count_groups is one launch of the same walk over the rows
+// of each query block's active groups (GroupRows), with kernel 14's action
+// and combine (count_block, WithinQueryR2: the query's r2, a valid
+// candidate has w > 0.5): pass 2 has only fix_cap / 128 (32) query
+// blocks, each with a list of ~50 rows at the fused ROR op, too few to
+// fill 132 SMs, so C CTAs share a block (walk_split, from the SM count)
+// and CTA s walks steps [n s / C, n (s + 1) / C) of its n = count * gr
+// rows: split by steps, not by groups, so an uneven list still spreads
+// over all C. Their counts meet in a scratch by integer atomics (exact in
+// any order), and the block's last CTA writes them out as f32 and leaves
+// the scratch zero: no memset, no conversion kernel. A block with no
+// valid query or no group walks nothing and writes zeros (the noisy 100K
+// ROR op's call has 2 live blocks of 32).
 #include "countwalk.cuh"
 
 namespace {
@@ -75,38 +83,38 @@ __global__ void __launch_bounds__(W * 32)
   });
 }
 
-// cand: [nr, 4, 128] (w = validity); q: [qb, 4, 128] (w = r2, -1 invalid);
-// active: [qb, 1 + ng]. Block (b, s) walks groups s, s + nsplit, ... and
-// adds its hits to counts[b * 128 + lane].
-__global__ void rescue_radius_partial(const float* __restrict__ cand,
-                                      const float* __restrict__ qpl,
-                                      const int* __restrict__ active,
-                                      int* __restrict__ counts, int ng1,
-                                      int gr) {
-  __shared__ float sh[kRowFloats];
-  __shared__ int live;
-  const int b = blockIdx.x;
-  const int l = threadIdx.x;
-  const float* q = qpl + (long long)b * kRowFloats;
-  const float qx = q[l], qy = q[kLanes + l], qz = q[2 * kLanes + l];
-  const float qr2 = q[3 * kLanes + l];
-  if (!block_any(qr2 >= 0.0f, &live)) return;
+// cand: [nr, 4, 128] (w = validity); q: [qb, 4, 128] (w = r2, -1
+// invalid); active: [qb, ng1] (count, then group ids); out: f32 [qb *
+// 128]; counts: int [qb * 128] and arrived: [qb], zero at the call and
+// left zero. CTA i = b * C + s serves query block b.
+template <int W>
+__global__ void __launch_bounds__(W * 32)
+    rescue_radius_kernel(const float* __restrict__ cand,
+                         const float* __restrict__ qpl,
+                         const int* __restrict__ active,
+                         float* __restrict__ out, int ng1, int gr, int C,
+                         int* counts, unsigned* arrived) {
+  __shared__ __align__(16) float sh[kStages * kTileFloats];
+  const int b = blockIdx.x / C;
   const int* act = active + (long long)b * ng1;
-  const int ngroups = act[0];
-  int cnt = 0;
-  for (int t = blockIdx.y; t < ngroups; t += gridDim.y) {
-    const long long base = (long long)act[1 + t] * gr;
-    for (int r = 0; r < gr; ++r) {
-      stage_row(cand, base + r, sh);
-      for (int c = 0; c < kLanes; ++c)
-        if (sh[3 * kLanes + c] > 0.5f &&
-            d2_rn(qx, qy, qz, sh[c], sh[kLanes + c], sh[2 * kLanes + c]) <=
-                qr2)
-          ++cnt;
-    }
-  }
-  if (cnt) atomicAdd(counts + (long long)b * kLanes + l, cnt);
+  QueryTile<WithinQueryR2> tile;
+  const bool live =
+      tile.load(qpl + (long long)b * kRowFloats, threadIdx.x & 31);
+  count_block<W>(tile, live, cand, GroupRows{act, gr}, act[0] * gr,
+                 blockIdx.x % C, C, out + (long long)b * kLanes,
+                 counts + (long long)b * kLanes, arrived + b, sh);
 }
+
+// Warps per CTA and CTAs a query block at most (walk_split), measured on the
+// H100 at the fused ROR op's capture (32 live blocks, 193 groups, 11 at most)
+// and the noisy ROR op's (2 live blocks, 17 groups; PERF.md). The time follows
+// the rows a warp walks in the longest list: at W 4, C 8 beat C 4 by 1.3x, C 2
+// by 2.2x and C 1 by 4.2x; W 8 tied W 4 and W 2 lost 1.3x at C 8. C 16 (512
+// CTAs) took 3% less than C 8 at the full capture and 27% less on the noisy
+// call; C 32 (1,024, past the 528 resident) took 27% more at the full capture,
+// 34% less on the noisy call. A two-tile ring came within 3%.
+constexpr int kRescueWarps = 4;
+constexpr int kRescueMaxSplit = 16;
 
 }  // namespace
 
@@ -123,18 +131,19 @@ extern "C" int pc_count_within(const float* pts, const int* starts,
   return (int)cudaGetLastError();
 }
 
-// counts: int [qb * 128], zeroed by the caller; out: f32 [qb * 128].
+// out: f32 [qb * 128]; counts: int [qb * 128] and arrived: [qb], zeroed
+// once by the caller and left zero by every call. cand 16-byte aligned.
 extern "C" int pc_rescue_radius_count(const float* cand, const float* q,
-                                      const int* active, int qb, int ng1,
-                                      int gr, int nsplit, int* counts,
-                                      float* out, void* stream) {
+                                      const int* active, float* out, int qb,
+                                      int ng1, int gr, int* counts,
+                                      unsigned* arrived, void* stream) {
   if (qb == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  rescue_radius_partial<<<dim3(qb, nsplit), kLanes, 0, s>>>(
-      cand, q, active, counts, ng1, gr);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long nq = (long long)qb * kLanes;
-  counts_to_f32<<<(unsigned)((nq + 255) / 256), 256, 0, s>>>(counts, out, nq);
+  int split = 1;
+  const int err = walk_split(qb, kRescueMaxSplit, split);
+  if (err != 0) return err;
+  rescue_radius_kernel<kRescueWarps>
+      <<<qb * split, kRescueWarps * 32, 0,
+         static_cast<cudaStream_t>(stream)>>>(cand, q, active, out, ng1, gr,
+                                              split, counts, arrived);
   return (int)cudaGetLastError();
 }

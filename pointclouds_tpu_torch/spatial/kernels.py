@@ -44,8 +44,6 @@ LAUNCHES = {
     "segmented_select": 0,
 }
 
-# Blocks that share one rescue query block's group list (csrc/radius.cu).
-_RESCUE_SPLIT = 16
 # Relative inclusion band of the moments' second walk
 # (`pallas_kernels.D2_BAND`): ~7 ulp.
 D2_BAND = 8e-7
@@ -325,8 +323,8 @@ def sweep_select_rows_plain(pts_padded, rowlist, *, k: int, cap: int):
 
 def _check_aligned16(name: str, t: torch.Tensor):
     """The warp-select kernels (2, 3, 6, 7, 9, 10, 13), the min-label walk
-    (4, 8, 16) and the pair walk (11, 14, 15) stage rows with 16-byte
-    cp.async copies."""
+    (4, 8, 16) and the pair walk (5, 11, 12, 14, 15) stage rows with
+    16-byte cp.async copies."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data must start on a 16-byte boundary")
 
@@ -591,11 +589,13 @@ def ransac_score_counts(hyp, pts_planar):
            dev)
     if not _on_cuda(hyp):
         return ransac_score_counts_plain(hyp, pts_planar)
-    counts = torch.empty(nh, dtype=torch.int32, device=dev)
+    _check_aligned16("ransac_score_counts.pts", pts_planar)
     out = torch.empty(nh, dtype=torch.float32, device=dev)
+    counts, arrived = _block_scratch("ransac_score_counts", dev, nh // 128,
+                                     torch.int32, 0)
     _lib().call("pc_ransac_score_counts", hyp.data_ptr(),
-                pts_planar.data_ptr(), counts.data_ptr(), out.data_ptr(), nh,
-                nr, _stream())
+                pts_planar.data_ptr(), out.data_ptr(), nh, nr,
+                counts.data_ptr(), arrived.data_ptr(), _stream())
     LAUNCHES["ransac_score_counts"] += 1
     return out
 
@@ -966,16 +966,6 @@ def rescue_radius_count_groups_plain(cand_planar, q_planar, active, *,
                        _radius_r2)
 
 
-def _counts_cuda(name, entry, qb, dev, *args):
-    """Launch a radius-count entry that adds integer hits into a zeroed
-    int32[QB*128] and writes them out as f32."""
-    counts = torch.zeros(qb * 128, dtype=torch.int32, device=dev)
-    out = torch.empty(qb * 128, dtype=torch.float32, device=dev)
-    _lib().call(entry, *args, counts.data_ptr(), out.data_ptr(), _stream())
-    LAUNCHES[name] += 1
-    return out
-
-
 def rescue_radius_count_groups(cand_planar, q_planar, active, *,
                                gr: int = 8):
     """Exact inclusive within-radius counts of compacted query blocks
@@ -1002,11 +992,16 @@ def rescue_radius_count_groups(cand_planar, q_planar, active, *,
     if not _on_cuda(cand_planar):
         return rescue_radius_count_groups_plain(cand_planar, q_planar, active,
                                                 gr=gr)
-    return _counts_cuda("rescue_radius_count_groups",
-                        "pc_rescue_radius_count", qb, dev,
-                        cand_planar.data_ptr(), q_planar.data_ptr(),
-                        active.data_ptr(), qb, 1 + nr // gr, gr,
-                        _RESCUE_SPLIT)
+    _check_aligned16("rescue_radius_count_groups.cand", cand_planar)
+    out = torch.empty(qb * 128, dtype=torch.float32, device=dev)
+    counts, arrived = _block_scratch("rescue_radius_count_groups", dev, qb,
+                                     torch.int32, 0)
+    _lib().call("pc_rescue_radius_count", cand_planar.data_ptr(),
+                q_planar.data_ptr(), active.data_ptr(), out.data_ptr(), qb,
+                1 + nr // gr, gr, counts.data_ptr(), arrived.data_ptr(),
+                _stream())
+    LAUNCHES["rescue_radius_count_groups"] += 1
+    return out
 
 
 def _live_only(q_planar, live, fill, fn):
@@ -1047,11 +1042,12 @@ def _check_brute(name, q_planar, cand_planar):
 
 
 # Scratch of the kernels whose CTAs combine a query block's results
-# (kernels 14 and 15), per kernel and (device, stream): a value per query
-# [cap * 128], made equal to `fill`, and one int32 arrival counter a query
-# block [cap], zeroed. Every call leaves both so (the last CTA of each
-# block resets what it used), so a call makes one launch and no memset.
-# Calls on one stream never overlap.
+# (kernels 5, 12, 14 and 15; kernel 5's blocks are hypothesis tiles), per
+# kernel and (device, stream): a value per query [cap * 128], made equal
+# to `fill`, and one int32 arrival counter a query block [cap], zeroed.
+# Every call leaves both so (the last CTA of each block resets what it
+# used), so a call makes one launch and no memset. Calls on one stream
+# never overlap.
 _BLOCK_SCRATCH = {}
 
 

@@ -198,30 +198,6 @@ def _count_launch(name, fn):
     return out
 
 
-def test_ransac_score_counts(dev):
-    rng = np.random.default_rng(5)
-    pts = _planar(rng, 40, scale=20.0).to(dev)
-    nh = 256
-    hyp = np.zeros((5, nh), np.float32)
-    nrm = rng.normal(size=(3, 200))
-    hyp[:3, :200] = nrm / np.linalg.norm(nrm, axis=0)
-    hyp[3, :200] = rng.normal(size=200) * 5
-    hyp[4, :200] = 0.3
-    hyp[4, 200:] = -1.0
-    hyp = torch.from_numpy(hyp).to(dev)
-    # A point exactly on hypothesis 0's threshold (in the pinned distance
-    # form) must count.
-    x, y, z = pts[0, 0, 0], pts[0, 1, 0], pts[0, 2, 0]
-    pts[0, 3, 0] = 1.0
-    hyp[4, 0] = (kernels.fma_f32(z, hyp[2, 0], kernels.fma_f32(
-        x, hyp[0, 0], y * hyp[1, 0])) + hyp[3, 0]).abs()
-    got = _count_launch("ransac_score_counts",
-                        lambda: kernels.ransac_score_counts(hyp, pts))
-    want = kernels.ransac_score_counts_plain(hyp, pts)
-    assert torch.equal(got, want)
-    assert (got[200:] == 0).all() and got[:200].sum() > 0
-
-
 def _structure(dev, seed=0, n=4096, wr=4, cell=1.3, lattice=False):
     rng = np.random.default_rng(seed)
     xyz = rng.uniform(0, 10, (n, 3)).astype(np.float32)
@@ -441,7 +417,9 @@ def test_sweep_select(dev, k, case):
 def _device_launches(fn):
     """Device kernels one call of ``fn`` launches (torch.profiler, after a
     warm-up call; a window in which the profiler saw no kernel is taken
-    again)."""
+    again). The tests that call this stay together: on the H100 (torch
+    2.11), when a process's first profiler window came many tests
+    earlier, later windows came back empty; grouped, they did not."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -533,17 +511,151 @@ def _radius_queries(rng, qb, dev, dead_block=True):
     return q
 
 
-def test_rescue_radius_count_groups(dev):
+def _ransac_case(case, dev):
+    """(hyp, pts) for kernel 5: "random": 256 slots (200 hypotheses, the
+    rest pads) over 40 rows; "nh128", "nh512", "nh4096": 128, 512 and
+    4,096 slots (the last `_KERNEL_MAX_ITERS`); "nr1", "nr79", "nr203": 1,
+    79 and 203 rows (79 holds 10K points, 203 is no multiple of a split);
+    "masked": every point masked. Outside "masked", a point lies exactly
+    on hypothesis 0's threshold (in the pinned distance form)."""
+    rng = np.random.default_rng(5)
+    nr = {"nr1": 1, "nr79": 79, "nr203": 203}.get(case, 40)
+    nh = {"nh128": 128, "nh512": 512, "nh4096": 4096}.get(case, 256)
+    real = nh * 200 // 256
+    pts = _planar(rng, nr, scale=20.0).to(dev)
+    hyp = np.zeros((5, nh), np.float32)
+    nrm = rng.normal(size=(3, real))
+    hyp[:3, :real] = nrm / np.linalg.norm(nrm, axis=0)
+    hyp[3, :real] = rng.normal(size=real) * 5
+    hyp[4, :real] = 0.3
+    hyp[4, real:] = -1.0
+    hyp = torch.from_numpy(hyp).to(dev)
+    if case == "masked":
+        pts[:, 3] = 0.0
+    else:
+        x, y, z = pts[0, 0, 0], pts[0, 1, 0], pts[0, 2, 0]
+        pts[0, 3, 0] = 1.0
+        hyp[4, 0] = (kernels.fma_f32(z, hyp[2, 0], kernels.fma_f32(
+            x, hyp[0, 0], y * hyp[1, 0])) + hyp[3, 0]).abs()
+    return hyp, pts, real
+
+
+@pytest.mark.parametrize("case", ["random", "nh128", "nh512", "nh4096",
+                                  "nr1", "nr79", "nr203", "masked"])
+def test_ransac_score_counts(dev, case):
+    """Bitwise against the plain version, one device launch a call; pads
+    and masked points count nothing, the point on the threshold counts."""
+    hyp, pts, real = _ransac_case(case, dev)
+    got = _count_launch("ransac_score_counts",
+                        lambda: kernels.ransac_score_counts(hyp, pts))
+    want = kernels.ransac_score_counts_plain(hyp, pts)
+    assert torch.equal(got, want)
+    assert (got[real:] == 0).all()
+    if case == "masked":
+        assert (got == 0).all()
+    else:
+        assert got[0] >= 1 and got[:real].sum() > 0
+    assert _device_launches(lambda: kernels.ransac_score_counts(hyp,
+                                                                pts)) == 1
+
+
+def _rescue_radius_case(case, dev):
+    """(cand, q, active, gr) for kernel 12: "random": 5 query blocks over
+    64 rows in 8-row groups with random lists, the last block all invalid;
+    "empty": no valid query at all; "edge": each valid query's r2 is the
+    pinned d2 to a valid candidate of its block's groups (on its radius:
+    it counts); "zero": r2 0 at queries copied from such candidates, with
+    duplicate candidates; "uneven": block 0 lists every group, the others
+    0 or 1; "full": 32 live blocks with lists of 12-20 groups (more rows
+    than the split's CTAs hold tiles); "gr4", "gr16": the random case in
+    4- and 16-row groups (GroupRows' division)."""
     rng = np.random.default_rng(6)
-    nr, qb, gr = 64, 5, 8
-    cand = _planar(rng, nr).to(dev)
-    q = _radius_queries(rng, qb, dev)
-    act = _groups(rng, qb, nr // gr, dev)
+    gr = {"gr4": 4, "gr16": 16}.get(case, 8)
+    nr, qb = {"full": (160, 32), "uneven": (64, 6)}.get(case, (64, 5))
+    ng = nr // gr
+    cpu = torch.device("cpu")
+    cand = _planar(rng, nr)
+    q = _radius_queries(rng, qb, cpu, dead_block=case != "full")
+    if case in ("random", "empty", "gr4", "gr16"):
+        act = _groups(rng, qb, ng, cpu)
+    else:
+        lo, hi = {"full": (12, 21), "uneven": (0, 2)}.get(case, (1, ng + 1))
+        act = torch.full((qb, 1 + ng), 12345, dtype=torch.int32)
+        for b in range(qb):
+            n = ng if case == "uneven" and b == 0 else int(rng.integers(lo,
+                                                                        hi))
+            act[b, 0] = n
+            act[b, 1:1 + n] = torch.from_numpy(np.sort(rng.choice(
+                ng, n, replace=False)))
+    if case == "empty":
+        q[:, 3] = -1.0
+    if case in ("edge", "zero"):
+        cand[nr // 2, :3, :64] = cand[nr // 2, :3, 64:]  # duplicates
+        pts = cand[:, :3].permute(0, 2, 1).reshape(-1, 3)
+        valid = (cand[:, 3] > 0.5).reshape(-1)
+        for b in range(qb):
+            rows = (act[b, 1:1 + act[b, 0]].long()[:, None] * gr
+                    + torch.arange(gr)).reshape(-1)
+            pos = (rows[:, None] * 128 + torch.arange(128)).reshape(-1)
+            pos = pos[valid[pos]]
+            pick = pos[torch.from_numpy(rng.integers(0, len(pos), 128))]
+            if case == "zero":
+                q[b, :3] = pts[pick].T
+            r2 = 0.0 if case == "zero" else _pinned_d2(q[b, :3].T, pts[pick])
+            q[b, 3] = torch.where(q[b, 3] >= 0, r2, -1.0)
+    return cand.to(dev), q.to(dev), act.to(dev), gr
+
+
+@pytest.mark.parametrize("case", ["random", "empty", "edge", "zero",
+                                  "uneven", "full", "gr4", "gr16"])
+def test_rescue_radius_count_groups(dev, case):
+    """Bitwise against the plain version, one device launch a call; an
+    invalid query counts nothing, a candidate on the radius counts."""
+    cand, q, act, gr = _rescue_radius_case(case, dev)
     got = _count_launch("rescue_radius_count_groups",
                         lambda: kernels.rescue_radius_count_groups(
                             cand, q, act, gr=gr))
     want = kernels.rescue_radius_count_groups_plain(cand, q, act, gr=gr)
-    assert torch.equal(got, want) and got.sum() > 0
+    assert torch.equal(got, want)
+    live = q[:, 3].reshape(-1) >= 0
+    assert (got[~live] == 0).all()
+    if case == "empty":
+        assert not live.any()
+    else:
+        assert got.sum() > 0
+    if case in ("edge", "zero"):
+        assert (got[live] >= 1).all()
+    assert _device_launches(lambda: kernels.rescue_radius_count_groups(
+        cand, q, act, gr=gr)) == 1
+
+
+@pytest.mark.parametrize("kernel", ["rescue_radius_count_groups",
+                                    "ransac_score_counts"])
+def test_block_scratch_left_reset(dev, kernel):
+    """Calls in a row with different block (hypothesis tile) counts: each
+    bitwise against the plain version, and every call leaves its stream's
+    count scratch and arrival counters zero."""
+    if kernel == "ransac_score_counts":
+        calls = [(lambda h=h, p=p: kernels.ransac_score_counts(h, p),
+                  lambda h=h, p=p: kernels.ransac_score_counts_plain(h, p))
+                 for h, p, _ in (_ransac_case(c, dev)
+                                 for c in ("nh4096", "nh128", "nh512"))]
+    else:
+        calls = [(lambda c=c, q=q, a=a, g=g:
+                  kernels.rescue_radius_count_groups(c, q, a, gr=g),
+                  lambda c=c, q=q, a=a, g=g:
+                  kernels.rescue_radius_count_groups_plain(c, q, a, gr=g))
+                 for c, q, a, g in (_rescue_radius_case(case, dev)
+                                    for case in ("full", "random", "gr16"))]
+    for fn, plain in calls:
+        got = fn()
+        assert torch.equal(got, plain())
+        torch.cuda.synchronize()
+        used = [t for key, t in kernels._BLOCK_SCRATCH.items()
+                if key[0] == kernel and key[1] == got.device]
+        assert used
+        for counts, arrived in used:
+            assert (counts == 0).all() and (arrived == 0).all()
 
 
 def _pinned_d2(q, c):

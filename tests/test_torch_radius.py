@@ -115,16 +115,41 @@ def _flagged_rescue_inputs(xyz, valid, wr, fix_cap):
                                     fix_cap, xyz.shape[0], RADIUS)
 
 
-def test_rescue_radius_count_plain_matches_pallas_and_mirror():
+@pytest.mark.parametrize("case", ["boundary", "group_edge", "dead_block"])
+def test_rescue_radius_count_plain_matches_pallas_and_mirror(case):
+    """"boundary": each flagged query's r2 is the pinned d2 to its nearest
+    live candidate (a point exactly on its radius, counted where the
+    AABB prune kept its group); "group_edge": the pinned d2 to a random
+    valid candidate of the query's own active groups (on the radius, so
+    it always counts); "dead_block": the boundary case with one live query
+    block made all invalid (r2 -1: it counts nothing)."""
     xyz, valid = _cloud(2, 4000)
     planar_g, q_planar, active, qvalid, _ = _flagged_rescue_inputs(
         xyz, valid, wr=1, fix_cap=512)
-    qv = np.asarray(qvalid)
+    qv = np.array(qvalid)
     assert qv.sum() > 200
     qp = np.array(q_planar)
     qxyz, _ = _planar_points(qp)
     gxyz, gw = _planar_points(planar_g)
-    r2 = _boundary_r2(qxyz, qv, gxyz, gw > 0.5)
+    act = np.asarray(active)
+    if case == "group_edge":
+        rng = np.random.default_rng(2)
+        r2 = np.full(len(qxyz), -1.0, np.float32)
+        for b in range(act.shape[0]):
+            rows = (act[b, 1:1 + act[b, 0], None] * 8
+                    + np.arange(8)).reshape(-1)
+            pos = (rows[:, None] * 128 + np.arange(128)).reshape(-1)
+            pos = pos[gw[pos] > 0.5]
+            live = np.nonzero(qv[b * 128:(b + 1) * 128])[0] + b * 128
+            if live.size:
+                pick = pos[rng.integers(0, len(pos), live.size)]
+                r2[live] = _pinned_d2(qxyz[live], gxyz[pick])
+    else:
+        r2 = _boundary_r2(qxyz, qv, gxyz, gw > 0.5)
+    if case == "dead_block":
+        b = int(np.nonzero(qv.reshape(-1, 128).any(1))[0][0])
+        r2[b * 128:(b + 1) * 128] = -1.0
+        qv[b * 128:(b + 1) * 128] = False
     qp[:, 3, :] = r2.reshape(-1, 128)
     pal = np.asarray(jpk.rescue_radius_count_groups(
         planar_g, jnp.asarray(qp), active, gr=8, interpret=True))
@@ -134,7 +159,10 @@ def test_rescue_radius_count_plain_matches_pallas_and_mirror():
         to_torch(planar_g), to_torch(qp), to_torch(active), gr=8).numpy()
     np.testing.assert_array_equal(got, pal)
     np.testing.assert_array_equal(got, mir)
-    assert (got[qv] >= 1).mean() > 0.9  # the boundary neighbour counted
+    if case == "group_edge":
+        assert (got[qv] >= 1).all()
+    else:
+        assert (got[qv] >= 1).mean() > 0.9  # the boundary neighbour counted
     assert (got[~qv] == 0).all()
 
 

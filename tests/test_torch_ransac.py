@@ -75,10 +75,13 @@ def _strip_cloud(seed, n_plane, n_noise, z_noise, size=10.0):
     return jax_make_cloud(data)
 
 
-def test_score_counts_plain_matches_pallas():
+@pytest.mark.parametrize("case", ["strip", "edge"])
+def test_score_counts_plain_matches_pallas(case):
     """Kernel 5's plain version against the Pallas kernel in interpret mode
     on the explicit hypotheses of tests/test_segmentation.py, pad slots
-    included."""
+    included (128 slots); "edge": hypotheses 0-7 each take as threshold the
+    pinned distance of a valid point, which then lies exactly on it (and
+    counts)."""
     arrs = _strip_cloud(17, 4_000, 1_200, 0.02)
     rng = np.random.default_rng(17)
     rng.random((5_200, 3))  # the cloud's draws, as that test makes them
@@ -91,6 +94,11 @@ def test_score_counts_plain_matches_pallas():
     hyp[4, :64] = 0.3
     hyp[4, 64:] = -1.0
     use = np.asarray(arrs.valid) & np.isfinite(np.asarray(arrs.xyz)).all(-1)
+    if case == "edge":
+        p = torch.from_numpy(np.asarray(arrs.xyz)[np.nonzero(use)[0][:8]])
+        h = torch.from_numpy(hyp[:, :8])
+        hyp[4, :8] = (kernels.fma_f32(p[:, 2], h[2], kernels.fma_f32(
+            p[:, 0], h[0], p[:, 1] * h[1])) + h[3]).abs().numpy()
     jplanar = _jax_to_planar(arrs.xyz, jnp.asarray(use))
     want = np.asarray(jpk.ransac_score_counts(jnp.asarray(hyp), jplanar,
                                               interpret=True))
@@ -101,6 +109,8 @@ def test_score_counts_plain_matches_pallas():
     assert kernels.LAUNCHES["ransac_score_counts"] == 0  # CPU: plain
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want[64:] == 0).all() and want[:64].sum() > 0
+    if case == "edge":
+        assert (want[:8] >= 1).all()
 
 
 @pytest.mark.parametrize("seed", [0, 5])
