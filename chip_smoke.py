@@ -244,6 +244,9 @@ PATHS = {
     "kitti_xla": ["segmented_scan_sums", "segmented_select"],
     "kitti_pallas": ["segmented_scan_sums", "sor_select", "segmented_select"],
     "cluster_large": ["cluster_propagate"],
+    # The int64-keyed grid at 2^24 points (phase 9): torch ops, no kernel.
+    "knn_huge": [],
+    "cluster_huge": [],
 }
 KITTI_STAGES = ["voxel_downsample_sweep_fused", "structure_from_sorted",
                 "sweep_sor_two_pass", "sor_keep_mask_thr",
@@ -1184,14 +1187,16 @@ def round_trip(api, cloud, fmt):
     return getattr(api, f"read_{fmt.split('_')[0]}")(str(path))
 
 
-def oracle_knn(pts, queries, idx, dist, k):
-    """Against the float64 cKDTree: (rows whose distances are off by more
-    than rtol 1e-6, rows whose index set differs where the kth neighbour is
-    untied, rows with a tie within 1e-6 at the kth)."""
+def oracle_knn(pts, queries, idx, dist, k, tree=None):
+    """Against the float64 cKDTree (``tree``, or one built on ``pts``):
+    (rows whose distances are off by more than rtol 1e-6, rows whose index
+    set differs where the kth neighbour is untied, rows with a tie within
+    1e-6 at the kth)."""
     from scipy.spatial import cKDTree
 
-    d, i = cKDTree(pts.astype(np.float64)).query(queries.astype(np.float64),
-                                                 k + 1)
+    if tree is None:
+        tree = cKDTree(pts.astype(np.float64))
+    d, i = tree.query(queries.astype(np.float64), k + 1, workers=-1)
     tied = (d[:, k] - d[:, k - 1]) <= 1e-6 * d[:, k]
     bad_d = ~np.isclose(dist, d[:, :k], rtol=1e-6, atol=0).all(axis=1)
     bad_i = (np.sort(idx, axis=1) != np.sort(i[:, :k], axis=1)).any(axis=1)
@@ -1263,21 +1268,29 @@ def phase7_kernels(card_line, K, api, knn_cloud, queries):
     return out
 
 
-def host_queries(card_line, api):
+def host_queries(card_line, api, use_native=True):
     """The host index's single-point queries on 100K points in a 100 m box:
     build time and per-query microseconds (one query at the box centre
     repeated, the reference's method; 2000 random queries), and 50 queries
-    held against the float64 cKDTree."""
+    held against the float64 cKDTree. ``use_native=False``: the numpy
+    index, for comparison (the C++ index serves where it is built)."""
     from scipy.spatial import cKDTree
+
+    from pointclouds_tpu_torch import native
 
     pts = bench_cloud(100_000, box=100.0)
     c = api.PointCloud.from_numpy(pts)
-    t0 = time.perf_counter()
-    c._index()
-    build_ms = (time.perf_counter() - t0) * 1e3
+    stub = [] if use_native else [(native, "create_index")]
+    with Spy(stub, lambda name, orig, a, k: None):
+        t0 = time.perf_counter()
+        c._index()
+        build_ms = (time.perf_counter() - t0) * 1e3
+    kind = type(c._index()._native).__name__ if use_native else "numpy"
+    if use_native and c._index()._native is None:
+        raise AssertionError("the 100K host index is not the C++ index")
     centre = np.full(3, 50.0, np.float32)
     qs = (np.random.default_rng(9).random((2000, 3)) * 100).astype(np.float32)
-    res = dict(build_ms=build_ms)
+    res = dict(index=kind, build_ms=build_ms)
     for name, fn, q in (
             ("knn_indices k10 centre", lambda q: api.knn_indices(c, q, 10),
              [centre] * 5000),
@@ -1300,9 +1313,10 @@ def host_queries(card_line, api):
         if api.radius_search(c, qq, 2.0) != sorted(
                 tree.query_ball_point(q64, 2.0)):
             raise AssertionError("radius_search differs from the oracle")
-    log(f"host index 100K in a 100 m box: build {build_ms:.3f} ms; per "
-        f"query (us): " + ", ".join(f"{k} {v:.3f}" for k, v in res.items()
-                                    if k != "build_ms")
+    log(f"host index 100K in a 100 m box ({kind}): build {build_ms:.3f} "
+        f"ms; per query (us): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in res.items()
+            if k not in ("build_ms", "index"))
         + f"; 50 queries equal to the cKDTree oracle [{card_line}]")
     return res
 
@@ -1358,7 +1372,6 @@ def phase7(card_line, K, add):
         ops[name] = dict(p50_ms=ms, times_ms=times, launches=launches,
                          profile=prof)
     record["ops"] = ops
-    record["host_index"] = host_queries(card_line, api)
 
     gates = {}
     for name, queries in (("knn k10 all 100K", u100k),
@@ -1608,6 +1621,282 @@ def phase8(card_line, K, pc, kitti_mod, kdata, add):
     (OUT_DIR / "phase8.json").write_text(json.dumps(record, indent=1,
                                                     default=str))
     return rows
+
+
+# ── The int64-keyed grid at 2^24 points and the host C++ (phase 9) ──────────
+
+HUGE_POINTS = 1 << 24
+HUGE_BOX = 256.0  # 1 point a cubic metre
+HUGE_QUERIES = 65_536
+HUGE_K = 10
+HUGE_R = 0.7  # ~1.44 neighbours a point: below percolation, small components
+HUGE_SIZES = (1, 10**9)
+
+
+def huge_cloud():
+    """(points f32[2^24, 3] uniform in a 256 m cube, 65,536 queries in it)."""
+    rng = np.random.default_rng(24)
+    pts = (rng.random((HUGE_POINTS, 3)) * HUGE_BOX).astype(np.float32)
+    return pts, (rng.random((HUGE_QUERIES, 3)) * HUGE_BOX).astype(np.float32)
+
+
+def huge_cluster_oracle(tree, pts, r):
+    """(component labels, pairs whose float64 and f32 judgments differ):
+    the components of the pairs the reference's f32 rule accepts (the
+    pinned d2 fma(dz, dz, fma(dy, dy, dx*dx)) <= f32(r^2)), found among the
+    float64 cKDTree's query_pairs at r(1 + 1e-6)."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from pointclouds_tpu_torch.spatial.knn import _d2_sum
+
+    pairs = tree.query_pairs(r * (1 + 1e-6), output_type="ndarray")
+    p = torch.from_numpy(pts)
+    a, b = torch.from_numpy(pairs[:, 0]), torch.from_numpy(pairs[:, 1])
+    keep = (_d2_sum(p[a], p[b]) <= torch.tensor(np.float32(r * r))).numpy()
+    d64 = np.linalg.norm(pts[pairs[:, 0]].astype(np.float64)
+                         - pts[pairs[:, 1]].astype(np.float64), axis=1)
+    differ = int((keep != (d64 <= r)).sum())
+    pairs = pairs[keep]
+    n = len(pts)
+    graph = coo_matrix((np.ones(len(pairs), np.int8),
+                        (pairs[:, 0], pairs[:, 1])), shape=(n, n))
+    return connected_components(graph, directed=False)[1], differ
+
+
+def is_canonical_partition(clusters, labels) -> bool:
+    """Whether ``clusters`` (lists over every row) are exactly the
+    components of ``labels``, canonically ordered: size descending, then
+    first member; members ascending."""
+    import itertools
+
+    n = len(labels)
+    sizes = np.fromiter(map(len, clusters), np.int64, len(clusters))
+    if sizes.sum() != n or len(clusters) != np.unique(labels).size:
+        return False
+    members = np.fromiter(itertools.chain.from_iterable(clusters), np.int64,
+                          n)
+    if np.bincount(members, minlength=n).max() != 1:
+        return False
+    same = np.repeat(np.arange(len(sizes)), sizes)
+    same = same[1:] == same[:-1]
+    lab = labels[members]
+    firsts = members[np.r_[0, np.cumsum(sizes)[:-1]]]
+    return bool((lab[1:] == lab[:-1])[same].all()
+                and (members[1:] > members[:-1])[same].all()
+                and ((sizes[1:] < sizes[:-1])
+                     | ((sizes[1:] == sizes[:-1])
+                        & (firsts[1:] > firsts[:-1]))).all())
+
+
+def counted(targets, spent=None):
+    """A Spy counting the calls of each target (as (module, name)); with
+    ``spent`` (a dict), also each one's host-clock ms, ending in a
+    synchronize."""
+    calls = {name: 0 for _, name in targets}
+
+    def hook(name, orig, a, k):
+        calls[name] += 1
+        if spent is None:
+            return orig(*a, **k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        spent[name] = spent.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    return Spy(targets, hook), calls
+
+
+def huge_phase(card_line, K, add, api):
+    """`knn` (65,536 queries, k 10) and `euclidean_cluster` (r 0.7, min 1,
+    max 10^9) on 2^24 uniform points in a 256 m cube: both through the
+    int64-keyed grid (spied), against float64 cKDTree oracles built once;
+    p50s, device ms and the clustering's peak device memory."""
+    from scipy.spatial import cKDTree
+
+    from pointclouds_tpu_torch.ops import segmentation
+    from pointclouds_tpu_torch.spatial import engine
+
+    t0 = time.perf_counter()
+    pts, queries = huge_cloud()
+    torch.cuda.empty_cache()
+    cloud = api.PointCloud.from_numpy(pts, device="cuda")
+    log(f"phase 9: {HUGE_POINTS} points in a {HUGE_BOX:g} m cube, capacity "
+        f"{cloud._arrs.capacity}, on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rec = dict(card=card_line)
+
+    knn_call = lambda: api.knn(cloud, queries, HUGE_K)  # noqa: E731
+    spy, calls = counted([(engine, "_knn_int64"), (engine, "bruteforce_knn")])
+    with spy:
+        (idx, dist), launches = path_launches(K, "knn_huge", knn_call)
+    add(launches)
+    if calls["_knn_int64"] != 1 or calls["bruteforce_knn"]:
+        raise AssertionError(f"knn 2^24 did not take the int64 grid: {calls}")
+    ms, times = p50_ms(knn_call, reps=3)
+    dev = device_ms(knn_call, reps=2)
+    t0 = time.perf_counter()
+    tree = cKDTree(pts.astype(np.float64))
+    tree_s = time.perf_counter() - t0
+    bad_d, bad_i, tied = oracle_knn(pts, queries, idx, dist, HUGE_K, tree)
+    finite = bool(np.isfinite(dist).all()) and idx.shape == (HUGE_QUERIES,
+                                                            HUGE_K)
+    log(f"knn 2^24 k{HUGE_K} x {HUGE_QUERIES} queries: _knn_int64 calls "
+        f"{calls['_knn_int64']}, p50 {ms:.3f} ms over 3 calls "
+        f"({', '.join(f'{t:.3f}' for t in times)}), device "
+        f"{ms_text(dev, 3)} ms a call (torch.profiler); cKDTree oracle (built "
+        f"in {tree_s:.1f} s): {bad_d} rows' distances off by > rtol 1e-6, "
+        f"{bad_i} index sets differ ({tied} tied at the kth); finite "
+        f"{finite} [{card_line}]")
+    if bad_d or bad_i or not finite:
+        raise AssertionError("knn 2^24 differs from the cKDTree oracle")
+    rec["knn"] = dict(p50_ms=ms, times_ms=times, device_ms=dev,
+                      int64_calls=calls["_knn_int64"], distances_off=bad_d,
+                      sets_differ=bad_i, tied=tied)
+
+    cluster_call = lambda: api.euclidean_cluster(  # noqa: E731
+        cloud, HUGE_R, *HUGE_SIZES)
+    spent = {}
+    spy, calls = counted([(engine, "radius_neighbors"),
+                          (segmentation, "propagate_labels"),
+                          (segmentation, "bruteforce_cluster_labels"),
+                          (engine, "sweep_cluster_labels"),
+                          (engine, "_cell_graph_rung"),
+                          (api._engine, "cluster_labels"),
+                          (api._native, "cluster_epilogue"),
+                          (api, "_cluster_lists")], spent)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with spy:
+        clusters, launches = path_launches(K, "cluster_huge", cluster_call)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    add(launches)
+    peak = torch.cuda.max_memory_allocated()
+    if (calls["radius_neighbors"] != 1 or calls["propagate_labels"] != 1
+            or calls["bruteforce_cluster_labels"]
+            or calls["sweep_cluster_labels"] or calls["_cell_graph_rung"]):
+        raise AssertionError(f"euclidean_cluster 2^24 rungs: {calls}")
+    log("euclidean_cluster 2^24, the spied call's host ms (each ending in a "
+        "synchronize): " + ", ".join(f"{k} {v:.3f}" for k, v in spent.items())
+        + f" of {first_ms:.3f}")
+    times = [first_ms]
+    for _ in range(2):
+        t0 = time.perf_counter()
+        cluster_call()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    dev = device_ms(cluster_call, reps=1)
+    t0 = time.perf_counter()
+    labels, differ = huge_cluster_oracle(tree, pts, HUGE_R)
+    oracle_s = time.perf_counter() - t0
+    equal = is_canonical_partition(clusters, labels)
+    sizes = [len(c) for c in clusters[:8]]
+    log(f"euclidean_cluster 2^24 r{HUGE_R}: rungs {calls}, {len(clusters)} "
+        f"clusters (largest {sizes}), p50 {np.median(times):.3f} ms over 3 "
+        f"calls ({', '.join(f'{t:.3f}' for t in times)}; the first spied), "
+        f"device {ms_text(dev, 3)} ms a call, peak device memory "
+        f"{peak / 2**30:.2f} GiB; equal to the query_pairs + connected "
+        f"components oracle in canonical order: {equal} ({differ} pairs "
+        f"judged otherwise in float64; oracle {oracle_s:.1f} s) "
+        f"[{card_line}]")
+    if not equal:
+        raise AssertionError("euclidean_cluster 2^24 differs from the oracle")
+    rec["cluster"] = dict(rungs=calls, spent_ms=spent,
+                          clusters=len(clusters), largest=sizes,
+                          p50_ms=float(np.median(times)), times_ms=times,
+                          device_ms=dev, peak_bytes=peak,
+                          f64_differ=differ)
+    del cloud, clusters, tree
+    torch.cuda.empty_cache()
+    return rec
+
+
+def host_io(card_line, api):
+    """100K PCD ASCII / binary and LAS files: each written, read back
+    (C++ bodies) and written again byte-equal; the reads' p50 against the
+    numpy readers' on the same files."""
+    from pointclouds_tpu_torch import native
+    from pointclouds_tpu_torch.io import las
+
+    pts = bench_cloud(100_000)
+    IO_DIR.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for fmt in ("pcd", "pcd_binary", "las"):
+        a, b = IO_DIR / f"a.{fmt}", IO_DIR / f"b.{fmt}"
+        if fmt == "las":
+            las.write_las(str(a), pts)
+            read = lambda: api.read_las(str(a))  # noqa: E731
+            las.write_las(str(b), read().to_numpy())
+        else:
+            getattr(api, f"write_{fmt}")(str(a), api.PointCloud.from_numpy(
+                pts, device="cpu"))
+            read = lambda: api.read_pcd(str(a))  # noqa: E731
+            getattr(api, f"write_{fmt}")(str(b), read())
+        same = a.read_bytes() == b.read_bytes()
+        ms, _ = p50_ms(read, reps=3)
+        with Spy([(native, f) for f in ("parse_ascii_xyz", "gather_xyz_f32",
+                                        "decode_las")],
+                 lambda name, orig, a, k: None):  # the numpy readers
+            plain_ms, _ = p50_ms(read, reps=3)
+        log(f"{fmt} 100K read: p50 {ms:.3f} ms (C++), {plain_ms:.3f} ms "
+            f"(numpy); written again byte-equal: {same} ({len(a.read_bytes())}"
+            f" bytes) [{card_line}]")
+        if not same:
+            raise AssertionError(f"{fmt}: round trip not byte-equal")
+        out[fmt] = dict(read_ms=ms, numpy_read_ms=plain_ms, byte_equal=same)
+    for path in IO_DIR.iterdir():
+        path.unlink()
+    IO_DIR.rmdir()
+    return out
+
+
+def slab_epilogue(card_line):
+    """`native.cluster_epilogue` on the 100K slab clustering's labels (r
+    0.5) against the numpy epilogue: equal, with both times."""
+    from pointclouds_tpu_torch import native
+    from pointclouds_tpu_torch.core.cloud import make_cloud_arrays
+    from pointclouds_tpu_torch.spatial import engine
+
+    arrs = make_cloud_arrays(slab_cloud(), device="cuda")
+    labels = engine.cluster_labels(arrs.xyz, arrs.valid, 0.5,
+                                   n_valid=100_000)[:100_000]
+    native.cluster_epilogue(labels, *CLUSTER_SIZES)  # loads the library
+    t0 = time.perf_counter()
+    order, starts = native.cluster_epilogue(labels, *CLUSTER_SIZES)
+    got = [order[a:b].tolist() for a, b in zip(starts[:-1], starts[1:])]
+    c_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = canonical_clusters(labels, *CLUSTER_SIZES)
+    np_ms = (time.perf_counter() - t0) * 1e3
+    log(f"cluster_epilogue on the slab's labels: {len(got)} clusters, equal "
+        f"to the numpy epilogue: {got == want}; {c_ms:.3f} ms (C++), "
+        f"{np_ms:.3f} ms (numpy) [{card_line}]")
+    if got != want:
+        raise AssertionError("cluster_epilogue differs from numpy")
+    return dict(clusters=len(got), ms=c_ms, numpy_ms=np_ms)
+
+
+def phase9(card_line, K, add):
+    """The int64-keyed grid at 2^24 points and the host C++: the C++ must
+    be built (`native.available()`) and serve the host index."""
+    from pointclouds_tpu_torch import api, native
+
+    if not native.available():
+        raise AssertionError("the host C++ did not build (no compiler)")
+    record = dict(card=card_line, index_kind=native.index_kind())
+    log(f"phase 9: host C++ built, index served by {native.index_kind()}")
+    record["host_index"] = host_queries(card_line, api)
+    record["host_index_numpy"] = host_queries(card_line, api,
+                                              use_native=False)
+    record["io"] = host_io(card_line, api)
+    record["epilogue"] = slab_epilogue(card_line)
+    record["huge"] = huge_phase(card_line, K, add, api)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "phase9.json").write_text(json.dumps(record, indent=1,
+                                                    default=str))
 
 
 # ── A/B: this checkout's kernels and frame against other checkouts' ──────
@@ -2214,6 +2503,9 @@ def main() -> int:
 
     # ── Phase 8: the cell-grid KITTI backends, the large-cloud hop loop ──
     rows += phase8(card_line, K, pc, kitti_mod, kdata, add)
+
+    # ── Phase 9: the int64-keyed grid at 2^24 points, the host C++ ──
+    phase9(card_line, K, add)
 
     for r in rows:
         r["launches"] = launches_total[r["name"]]

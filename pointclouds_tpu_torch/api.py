@@ -11,12 +11,14 @@ device. On the card the ops run the CUDA kernels; on the CPU their plain
 torch versions. A machine without a card raises; it never falls back to
 the CPU. Single-point queries (`radius_search`, `knn_indices`, `knn` of
 at most 128 queries) run on the host, from a cell index built once per
-cloud.
+cloud (the C++ index of `native/` where a compiler built it), and the
+clusters are grouped there by the C++ epilogue.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
 import secrets
 from typing import Optional
@@ -24,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import native as _native
 from .core.cloud import (
     CloudTensors,
     apply_rigid,
@@ -485,6 +488,21 @@ def apply_transform(cloud: PointCloud, rotation, translation) -> PointCloud:
 # ── Segmentation ─────────────────────────────────────────────────────────────
 
 
+def _cluster_lists(order, starts) -> list:
+    """Cluster c as the list order[starts[c]:starts[c + 1]], sliced from one
+    list of every row. The cyclic garbage collector pauses meanwhile:
+    millions of new lists would set it off again and again (2-3x the time
+    at 2^24 rows), and lists of ints hold no cycles."""
+    rows, bounds = order.tolist(), starts.tolist()
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        return [rows[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    finally:
+        if was_enabled:
+            gc.enable()
+
+
 def euclidean_cluster(
     cloud: PointCloud, distance_threshold: float, min_size: int, max_size: int
 ) -> list:
@@ -509,7 +527,14 @@ def euclidean_cluster(
         remap = np.nonzero(labels_np >= 0)[0].astype(np.int64)
         labels_np = labels_np[remap]
     # Components, canonically ordered: size descending, then first member;
-    # members ascending.
+    # members ascending. The C++ epilogue (a counting sort) where it is
+    # built, else numpy.
+    res = _native.cluster_epilogue(labels_np, min_size, max_size)
+    if res is not None:
+        order, starts = res
+        if remap is not None:
+            order = remap[order]
+        return _cluster_lists(order, starts)
     order = np.argsort(labels_np, kind="stable")
     sorted_labels = labels_np[order]
     if remap is not None:
@@ -639,9 +664,16 @@ def knn(cloud: PointCloud, queries, k: int):
     k_eff = min(k, cloud.len())
     if nq <= 128:
         index = cloud._index()
+        finite = np.isfinite(q).all(axis=1)
+        if index._native is not None and finite.all():
+            # One C call for the whole batch.
+            rows_b, dd_b, cnt_b = index._native.knn_batch(q, k_eff)
+            got = np.arange(k_eff)[None, :] < cnt_b[:, None]
+            return (np.where(got, rows_b, -1).astype(np.int32),
+                    np.where(got, dd_b, np.inf).astype(np.float32))
         i_out = np.full((nq, k_eff), -1, np.int32)
         d_out = np.full((nq, k_eff), np.inf, np.float32)
-        for r in np.nonzero(np.isfinite(q).all(axis=1))[0]:
+        for r in np.nonzero(finite)[0]:
             rows, dd = index.knn(q[r], k_eff)
             i_out[r, :len(rows)] = rows
             d_out[r, :len(rows)] = dd
@@ -656,12 +688,12 @@ def knn(cloud: PointCloud, queries, k: int):
         qarrs = make_cloud_arrays(q, cloud.device)
         dists, idx, nvalid = _engine.knn(arrs.xyz, arrs.valid, qarrs.xyz,
                                          qarrs.valid, k_eff)
-    # One host read: distances and indices (exact in f32 below 2^24 rows,
-    # which the engine requires) in one buffer.
-    buf = torch.cat([torch.where(nvalid, dists, torch.inf)[:nq, :k_eff],
-                     torch.where(nvalid, idx, -1)[:nq, :k_eff].to(
-                         torch.float32)], dim=1).cpu().numpy()
-    return buf[:, k_eff:].astype(np.int32), buf[:, :k_eff].copy()
+    # One host read: the distances' bits beside the indices, as int32 (the
+    # indices stay exact at any cloud size).
+    buf = torch.cat([torch.where(nvalid, dists, torch.inf)[:nq, :k_eff].view(
+        torch.int32), torch.where(nvalid, idx, -1)[:nq, :k_eff].to(
+            torch.int32)], dim=1).cpu().numpy()
+    return buf[:, k_eff:].copy(), buf[:, :k_eff].view(np.float32).copy()
 
 
 def radius_search(cloud: PointCloud, query, radius: float):

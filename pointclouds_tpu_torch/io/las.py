@@ -6,8 +6,8 @@ then cast to f32, and intensity is attached only when any point has non-zero
 intensity. This is a from-scratch numpy implementation of the same contract
 (no ``laspy`` in the environment). LAZ compression is not supported.
 
-Copied from `pointclouds_tpu/io/las.py` with its numpy path only (the
-JAX package's native decoder is host-side speed, not yet ported).
+Copied from `pointclouds_tpu/io/las.py`: the point records are decoded by
+the host C++ (`native/pcio.cpp`) where it is built, by numpy otherwise.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+
+from .. import native as _native
 
 
 def read_las(path: str):
@@ -53,6 +55,12 @@ def read_las(path: str):
         raise OSError(
             f"LAS file truncated: need {end} bytes, have {len(raw)}"
         )
+
+    fast = _native.decode_las(raw[offset_to_points:end], count, record_len,
+                              (sx, sy, sz), (ox, oy, oz))
+    if fast is not None:
+        xyz, inten_f, any_i = fast
+        return xyz, (inten_f if any_i else None)
 
     body = np.frombuffer(raw[offset_to_points:end], dtype=np.uint8).reshape(
         count, record_len

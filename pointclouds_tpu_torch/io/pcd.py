@@ -13,9 +13,10 @@ Behavioral port of the reference PCD module (ref: crates/io/src/pcd.rs):
 All failures raise OSError (the Python layer surfaces IOError like the
 reference bindings, ref: crates/python/src/io.rs).
 
-Copied from `pointclouds_tpu/io/pcd.py` with its numpy paths only: the
-JAX package's native C++ parsers (`pointclouds_tpu/native/pcio.cpp`) are
-host-side speed, not yet ported.
+Copied from `pointclouds_tpu/io/pcd.py`: the ASCII and binary bodies go
+through the host C++ (`native/pcio.cpp`: a multithreaded float parser and a
+strided gather) where it is built; the numpy paths below have the same
+semantics and serve where there is no compiler.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from __future__ import annotations
 import io as _stdio
 
 import numpy as np
+
+from .. import native as _native
 
 
 def _parse_header(raw: bytes):
@@ -81,7 +84,12 @@ def read_pcd(path: str):
     fmt, num_points, fields, data_offset = _parse_header(raw)
 
     if fmt == "ascii":
-        body = raw[data_offset:].decode("utf-8")
+        body_bytes = raw[data_offset:]
+        fast = _native.parse_ascii_xyz(body_bytes,
+                                       body_bytes.count(b"\n") + 1)
+        if fast is not None:
+            return fast
+        body = body_bytes.decode("utf-8")
         rows = []
         for line in body.splitlines():
             t = line.strip()
@@ -115,6 +123,10 @@ def read_pcd(path: str):
         ix, iy, iz = fields.index("x"), fields.index("y"), fields.index("z")
     except ValueError:
         raise OSError("binary PCD file missing x, y, z fields")
+    fast = _native.gather_xyz_f32(data[:expected], num_points, point_size,
+                                  ix * 4, iy * 4, iz * 4)
+    if fast is not None:
+        return fast
     arr = np.frombuffer(data[:expected], dtype="<f4").reshape(num_points, num_fields)
     return np.ascontiguousarray(arr[:, [ix, iy, iz]]).astype(np.float32)
 

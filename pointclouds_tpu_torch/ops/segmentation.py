@@ -264,7 +264,48 @@ def ransac_plane_bytes(xyz, valid, threshold, seed, iterations: int, *,
     return torch.cat([scal, packed])
 
 
-# ── Euclidean clustering: the exact last resort ─────────────────────────────
+# ── Euclidean clustering: the grid rung and the exact last resort ───────────
+
+# Neighbour-list slots scanned at once when the within pairs are gathered.
+_PAIR_CHUNK_ELEMS = 1 << 26
+
+
+def propagate_labels(neighbor_idx, within, valid):
+    """Connected components of capped neighbour lists (``neighbor_idx``
+    i32[N, C] with ``within`` bool[N, C] marking the entries at distance <=
+    r, as `engine.radius_neighbors` returns them): min-label rounds with
+    two pointer jumps each, until a round changes nothing (a host read a
+    round). Returns int32 labels equal to the JAX package's: each
+    component carries its smallest row; isolated and invalid rows keep
+    their own (validity is already in ``within``).
+
+    The JAX package takes the minimum over the whole [N, C] gather each
+    round. The minimum does not depend on the order of its terms, so here
+    the within entries are gathered once, in chunks of rows, into (row,
+    neighbour) pairs, and each round is one gather and one scatter-min over
+    those pairs."""
+    del valid
+    n, c = neighbor_idx.shape
+    dev = neighbor_idx.device
+    rows, cols = [], []
+    step = max(1, _PAIR_CHUNK_ELEMS // max(c, 1))
+    for s in range(0, n, step):
+        r, j = within[s:s + step].nonzero(as_tuple=True)  # host read
+        rows.append(r + s)
+        cols.append(neighbor_idx[s:s + step][r, j].to(torch.int64))
+    rows = torch.cat(rows) if rows else torch.zeros(0, dtype=torch.int64,
+                                                    device=dev)
+    cols = torch.cat(cols) if cols else rows
+    labels = torch.arange(n, dtype=torch.int32, device=dev)
+    while True:
+        m = labels.scatter_reduce(0, rows, labels[cols], reduce="amin")
+        m = torch.minimum(m, m[m.long()])
+        m = torch.minimum(m, m[m.long()])
+        if torch.equal(m, labels):  # host read: the round changed nothing
+            return labels
+        labels = m
+
+
 
 
 def bruteforce_cluster_labels(xyz, valid, radius):

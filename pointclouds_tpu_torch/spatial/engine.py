@@ -8,8 +8,12 @@ multi-dispatch paths that the fused API ops (`ops/fusedops.py`) fall back
 to when their static rescue capacity overflows: one sweep, one host read of
 its certificate or flags, then a brute-force rescue of the flagged rows, of
 any number. `cluster_labels` takes the reference's cell-graph rung
-(`cellgrid.py`); where the JAX package's `knn` and radius counts take
-their cell-grid rungs (not ported) the port takes the exact brute force.
+(`cellgrid.py`), then its int64-keyed grid rung (`radius_neighbors` +
+`segmentation.propagate_labels`). Clouds of 2^24 points or more, past the
+sweep kernels' f32 positions, go to the int64-keyed grid (`grid.py`,
+`knn.grid_knn`) as in the JAX package. Where the JAX package's `knn` and
+radius counts take their cell-grid rungs (not ported) the port takes the
+exact brute force.
 
 On the TPU the JAX package picks the Pallas kernels or their XLA mirrors
 (`_kernel_preference`, VMEM gates) and degrades to the mirrors when a
@@ -28,7 +32,13 @@ from ..ops.filters import sor_mean_dists_from_knn
 from ..ops.normals import normals_from_knn, normals_from_moment_rows
 from . import sweep
 from .cellgrid import build_cellgrid, cell_graph_adjacency, cell_graph_labels
-from .knn import bruteforce_knn, bruteforce_radius_count
+from .grid import build_grid
+from .knn import (
+    bruteforce_knn,
+    bruteforce_radius_count,
+    grid_knn,
+    grid_radius_neighbors,
+)
 from .sweep import (
     _set_rows,
     sweep_cluster_labels,
@@ -42,13 +52,13 @@ from .sweep import (
 # Below this many points the brute-force path is cheaper than a sweep (and
 # exact by construction).
 BRUTE_THRESHOLD = 2048
-# Per-cell capacities of the cell-graph rung's grid, one per try.
+# Per-cell capacities of the grids, one per try.
 M_LADDER = (16, 32, 64, 128)
-# The sweep kernels' f32 positions are exact below this many points; the
-# JAX package serves larger clouds from an int64-keyed grid engine.
+# Cell sizes `_knn_int64` tries, each 1.6x the last.
+MAX_TRIES = 4
+# The sweep kernels and the cell grid hold positions in f32, exact below
+# this many points; larger clouds go to the int64-keyed grid (`grid.py`).
 CELLGRID_MAX_N = 1 << 24
-_INT64_GRID = ("clouds of 2^24 points or more need the int64-keyed grid "
-               "engine, not ported yet (ROADMAP.md, section 1, 'Ported last')")
 # The sweep kNN kernels' top-k, as the JAX package gates them.
 _SWEEP_KNN_MAX_K = 24
 _RESCUE_BUCKETS = (1024, 4096, 16384, 65536, 262144)
@@ -86,6 +96,13 @@ def estimate_cell_size(xyz, valid, k: int) -> float:
     r3 = s3 * (3.0 * kf / (4.0 * np.pi)) ** (1.0 / 3.0)
     r2 = s2 * (kf / np.pi) ** 0.5
     return float(max(r3, r2, 1e-9) * 1.25)
+
+
+def _fp_safe_radius_cell(radius: float, max_abs_coord: float) -> float:
+    """A cell slightly above ``radius``, so that the f32 rounding of floor(p
+    / cell), which grows with |coordinate| / cell, never puts a neighbour
+    within the radius outside the 27-cell neighbourhood."""
+    return radius * (1.0 + 1e-5) + max_abs_coord * 6e-7
 
 
 def _sweep_wr(n: int) -> int:
@@ -217,12 +234,34 @@ def knn(pxyz, pvalid, qxyz, qvalid, k: int):
     if n <= BRUTE_THRESHOLD or k >= n:
         return bruteforce_knn(pxyz, pvalid, qxyz, qvalid, k)
     if n >= CELLGRID_MAX_N:
-        raise NotImplementedError(f"knn: {_INT64_GRID}")
+        return _knn_int64(pxyz, pvalid, qxyz, qvalid, k)
     if k <= _SWEEP_KNN_MAX_K:
         if qxyz is pxyz and qvalid is pvalid:
             return _knn_sweep_same_cloud(pxyz, pvalid, k)
         if qxyz.shape[0] > BRUTE_THRESHOLD:
             return _knn_sweep_cross(pxyz, pvalid, qxyz, qvalid, k)
+    return bruteforce_knn(pxyz, pvalid, qxyz, qvalid, k)
+
+
+def _knn_int64(pxyz, pvalid, qxyz, qvalid, k: int):
+    """kNN over the int64-keyed grid, for clouds past the sweep kernels'
+    f32 positions: at each cell size (the estimate, then 1.6x, up to
+    `MAX_TRIES`), the capacities of `M_LADDER` until no cell overflows; a
+    certified result returns, an insufficient one grows the cell. The
+    reference's own exact brute force is the last resort."""
+    cell = estimate_cell_size(pxyz, pvalid, k)
+    for _ in range(MAX_TRIES):
+        grid = build_grid(pxyz, pvalid, cell)
+        for m in M_LADDER:
+            dists, idx, nvalid, overflow, insufficient = grid_knn(
+                grid, qxyz, qvalid, k, m)
+            # host read: both flags
+            over, insuff = torch.stack([overflow, insufficient]).tolist()
+            if not (over or insuff):
+                return dists, idx, nvalid
+            if not over:  # no overflow: the cell is too small
+                break
+        cell *= 1.6
     return bruteforce_knn(pxyz, pvalid, qxyz, qvalid, k)
 
 
@@ -314,9 +353,11 @@ def cluster_labels(xyz, valid, radius: float, n_valid: int | None = None,
     of planar rows (2^20 points) the flat row-list walk then the nine
     windows with no row cap, above it the hop loop at window budgets 7, 14
     and 28 rows -- then the collapsed cell-graph rung (`_cell_graph_rung`),
-    and where that cannot serve the cloud (or it has at most 512 points)
-    the uncapped exact all-pairs propagation
-    (`segmentation.bruteforce_cluster_labels`).
+    both below 2^24 points (`CELLGRID_MAX_N`) only; then the int64-keyed
+    grid's capped neighbour lists (`radius_neighbors`) with min-label
+    propagation (`segmentation.propagate_labels`), and only where no
+    capacity holds every neighbour the uncapped exact all-pairs
+    propagation (`segmentation.bruteforce_cluster_labels`).
 
     Without ``size_filter`` returns labels whose ascending order is that of
     the components' smallest rows. With ``size_filter=(min_size,
@@ -324,15 +365,13 @@ def cluster_labels(xyz, valid, radius: float, n_valid: int | None = None,
     True and labels are surviving-component ranks with -1 on the rows of
     components outside the band (`_surviving_component_ranks`); from the
     other rungs, (raw labels, False)."""
-    from ..ops.segmentation import bruteforce_cluster_labels
+    from ..ops import segmentation
 
     n = xyz.shape[0]
-    if n >= CELLGRID_MAX_N:
-        raise NotImplementedError(f"cluster_labels: {_INT64_GRID}")
     rows = n if n_valid is None else min(n, max(128, -(-int(n_valid) // 128)
                                                 * 128))
     r32 = np.float32(radius)
-    if n > BRUTE_THRESHOLD // 4:
+    if BRUTE_THRESHOLD // 4 < n < CELLGRID_MAX_N:
         nrows = max(-(-n // 128), 1)
         if nrows * 8 * 128 * 4 <= sweep.CLUSTER_RESIDENT_BYTES:
             ladder = ((min(nrows, 64), 16), (min(nrows, 64), None))
@@ -351,9 +390,14 @@ def cluster_labels(xyz, valid, radius: float, n_valid: int | None = None,
             comp, _ = _surviving_component_ranks(labels, int(size_filter[0]),
                                                  int(size_filter[1]))
             return comp[:rows].cpu().numpy(), True
-    labels = _cell_graph_rung(xyz, valid, radius)
+    labels = (_cell_graph_rung(xyz, valid, radius) if n < CELLGRID_MAX_N
+              else None)
     if labels is None:
-        labels = bruteforce_cluster_labels(xyz, valid, r32)
+        nbrs = radius_neighbors(xyz, valid, radius)
+        if nbrs is not None:
+            labels = segmentation.propagate_labels(*nbrs, valid)
+        else:
+            labels = segmentation.bruteforce_cluster_labels(xyz, valid, r32)
     labels = labels[:rows].cpu().numpy()
     return labels if size_filter is None else (labels, False)
 
@@ -383,4 +427,24 @@ def _cell_graph_rung(xyz, valid, radius: float):
             continue
         return cell_graph_labels(
             grid, cell_graph_adjacency(grid, np.float32(radius)))
+    return None
+
+
+def radius_neighbors(xyz, valid, radius: float):
+    """Exact capped neighbour lists of every point within ``radius``
+    (inclusive), for `segmentation.propagate_labels`: (idx i32[N, C],
+    within bool[N, C]) from the int64-keyed grid at a cell just above the
+    radius (`_fp_safe_radius_cell`), at the first capacity of (16, 32, 64,
+    128, 256, 512) where no cell overflows; None where none holds every
+    cell (truncated lists would break exactness: the caller takes the
+    uncapped brute force)."""
+    ext = _extent(xyz, valid)
+    max_abs = ext[2] if ext else 0.0
+    grid = build_grid(xyz, valid, _fp_safe_radius_cell(radius, max_abs))
+    for m in (*M_LADDER, M_LADDER[-1] * 2, M_LADDER[-1] * 4):
+        idx, within, overflow = grid_radius_neighbors(grid, xyz, valid,
+                                                      radius, m)
+        if not bool(overflow):  # host read: the capacity held
+            return idx, within
+        del idx, within
     return None

@@ -1,7 +1,10 @@
 """Build-once / query-many host index for single-point spatial queries:
-the numpy path of `pointclouds_tpu/spatial/hostindex.py` (its native C++
-twin, `pointclouds_tpu/native/pcindex.cpp`, is host-side speed, not yet
-ported).
+the counterpart of `pointclouds_tpu/spatial/hostindex.py`. Where the host
+C++ builds (`native/`, a compiler found) its index (`native/pcindex.cpp`)
+takes over the build and the queries: the same grid, the same exact f64
+semantics and tie order, without the interpreter's per-query overhead. The
+numpy path below defines the contract, serves where there is no compiler,
+and is what the tests hold the C++ against.
 
 The reference amortizes its KD-tree build across queries (ref:
 crates/spatial/src/kdtree.rs:25-44). A single-point query does not need the
@@ -20,7 +23,8 @@ from __future__ import annotations
 
 import numpy as np
 
-# Target points per cell for the build (queries scan 27+ cells).
+# Target points per cell for the build (queries scan 27+ cells); the same
+# constant as `native/pcindex.cpp`'s, so both build the same grid.
 _TARGET_PER_CELL = 2.0
 
 
@@ -28,7 +32,20 @@ class HostCellIndex:
     """Sorted-by-cell host arrays + binary-searchable cell runs."""
 
     def __init__(self, xyz: np.ndarray, valid: np.ndarray):
+        from .. import native
+
         xyz = np.asarray(xyz, np.float32)
+        self._native = native.create_index(xyz, np.asarray(valid, bool))
+        if self._native is not None:
+            self.n = xyz.shape[0]
+            self.n_valid = self._native.nvalid()
+            self.empty = self.n_valid == 0
+            if not self.empty:
+                # The C entry points themselves, bound on the instance: no
+                # Python frame between the caller and the index.
+                self.radius = self._native.radius
+                self.knn = self._native.knn
+            return
         finite = np.isfinite(xyz).all(axis=1)
         use = np.asarray(valid, bool) & finite
         self.n = xyz.shape[0]

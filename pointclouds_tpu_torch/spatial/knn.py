@@ -1,11 +1,13 @@
-"""Brute-force kNN and radius counts: the counterpart of
-`pointclouds_tpu/spatial/knn.py`'s `bruteforce_knn` and
-`bruteforce_radius_count`.
+"""Batched kNN and radius queries, brute force and over the int64-keyed
+grid: the counterpart of `pointclouds_tpu/spatial/knn.py`.
 
 These are XLA code in the JAX package (no Pallas kernel), so they stay
-torch ops here. They serve small clouds (at most `engine.BRUTE_THRESHOLD`
-points) and the engine's exact fallbacks. Distances are Euclidean,
-ascending; an invalid or non-finite query gets no results.
+torch ops here. The brute force serves small clouds (at most
+`engine.BRUTE_THRESHOLD` points) and the engine's exact fallbacks; the grid
+queries (`grid_knn`, `grid_radius_count`, `grid_radius_neighbors`) serve
+clouds of 2^24 points or more and the clustering rung before the brute
+force, and return the flags by which the engine retries. Distances are
+Euclidean, ascending; an invalid or non-finite query gets no results.
 
 The exact squared distance is pinned to the form XLA's CPU backend gives
 the JAX package's ``jnp.sum(diff * diff, axis=-1)``: fma(dz, dz, fma(dy,
@@ -20,9 +22,12 @@ import numpy as np
 import torch
 
 from ..ops.segmentation import _full_fp32_matmul
+from .grid import GridHash, gather_candidates
 from .kernels import _sqrt_f32, _topk_lex, fma_f32
 
-# Query rows per chunk: at most this many query-point pairs at once.
+# Query rows per chunk: at most this many query-point pairs at once (query
+# slots at once, for the grid queries). The JAX package maps over chunks of
+# 1024 queries; the chunks are independent, so their size changes nothing.
 _CHUNK_ELEMS = 1 << 24
 
 
@@ -84,20 +89,23 @@ def bruteforce_knn(pxyz, pvalid, qxyz, qvalid, k: int):
     return dists, idx, nvalid
 
 
+def _radius_sq(radius, device):
+    """r2 as the JAX package's jitted functions square ``radius``: a Python
+    float is a weakly typed float64 there, so r2 is its square in float64
+    rounded to f32; anything else is taken as f32 and squared in f32."""
+    if type(radius) is float:
+        return torch.tensor(np.float32(radius * radius), device=device)
+    r = torch.as_tensor(radius, dtype=torch.float32, device=device)
+    return r * r
+
+
 def bruteforce_radius_count(pxyz, pvalid, qxyz, qvalid, radius):
     """Number of valid points with d2 <= r2 (inclusive) of each query,
-    int32[Q]. As the JAX package's jitted function receives ``radius``:
-    a Python float is a weakly typed float64 there, so r2 is its square in
-    float64 rounded to f32; anything else is taken as f32 and squared in
-    f32."""
+    int32[Q], r2 as `_radius_sq` forms it."""
     dev = pxyz.device
     puse = pvalid & torch.isfinite(pxyz).all(dim=-1)
     quse = _query_use(qxyz, qvalid)
-    if type(radius) is float:
-        r2 = torch.tensor(np.float32(radius * radius), device=dev)
-    else:
-        r = torch.as_tensor(radius, dtype=torch.float32, device=dev)
-        r2 = r * r
+    r2 = _radius_sq(radius, dev)
     nq, n = qxyz.shape[0], pxyz.shape[0]
     counts = torch.zeros(nq, dtype=torch.int32, device=dev)
     step = max(1, _CHUNK_ELEMS // max(n, 1))
@@ -107,3 +115,101 @@ def bruteforce_radius_count(pxyz, pvalid, qxyz, qvalid, radius):
                & (_d2_sum(qc[:, None, :], pxyz[None, :, :]) <= r2))
         counts[s:s + step] = hit.sum(dim=1).to(torch.int32)
     return counts
+
+
+# ── Grid backend ─────────────────────────────────────────────────────────────
+
+
+def _grid_chunks(nq: int, m_per_cell: int):
+    """Query slices of at most `_CHUNK_ELEMS` candidate slots."""
+    step = max(1, _CHUNK_ELEMS // (27 * m_per_cell))
+    return [slice(s, s + step) for s in range(0, nq, step)]
+
+
+def grid_knn(grid: GridHash, qxyz, qvalid, k: int, m_per_cell: int):
+    """kNN over each query's 27-cell neighbourhood, at most ``m_per_cell``
+    points a cell.
+
+    Returns (dists f32[Q, k], idx i32[Q, k], nvalid bool[Q, k], overflow,
+    insufficient), the flags 0-d bools; the results are exact iff neither
+    is set. ``overflow``: some cell of a used query held more than M
+    points. ``insufficient``: some used query's kth d2 exceeds the square
+    of the cell less an f32 margin (floor(p / cell) rounds, more so far
+    from the origin), or it found fewer than min(k, valid points)
+    candidates. Ties go to the smaller candidate slot, as `lax.top_k`
+    orders them."""
+    dev = qxyz.device
+    nq = qxyz.shape[0]
+    q_use = _query_use(qxyz, qvalid)
+    cell = grid.cell_size
+    quot = torch.where(q_use[:, None], (qxyz / cell).abs(), 0.0)
+    max_quot = quot.amax() if nq else torch.zeros((), device=dev)
+    # The JAX package's (max_quot * 4 * 1.2e-7 + 1e-6) * cell, in the form
+    # XLA's CPU backend gives it (measured bitwise).
+    margin = fma_f32(max_quot * 4.0, torch.tensor(np.float32(1.2e-7),
+                                                  device=dev),
+                     torch.tensor(np.float32(1e-6), device=dev)) * cell
+    safe_cell = torch.clamp(cell - margin, min=0.0)
+    safe_cell2 = safe_cell * safe_cell
+    want = torch.clamp(grid.num_valid, max=k)
+    k_eff = min(k, 27 * m_per_cell)
+    d2s = torch.full((nq, k), torch.inf, dtype=torch.float32, device=dev)
+    idx = torch.zeros((nq, k), dtype=torch.int32, device=dev)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    insufficient = torch.zeros((), dtype=torch.bool, device=dev)
+    for s in _grid_chunks(nq, m_per_cell):
+        uc = q_use[s]
+        cand_idx, d2, cand_valid, ov = gather_candidates(grid, qxyz[s], uc,
+                                                         m_per_cell)
+        vals, pos = _topk_lex(d2, k_eff)
+        d2s[s, :k_eff] = vals
+        idx[s, :k_eff] = torch.gather(cand_idx, 1, pos)
+        found = cand_valid.sum(dim=1)
+        bad = torch.where(found >= k, d2s[s, k - 1] > safe_cell2,
+                          found < want)
+        overflow |= ov
+        insufficient |= (uc & bad).any()
+    nvalid = torch.isfinite(d2s)
+    dists = torch.where(nvalid, _sqrt_f32(torch.clamp(d2s, min=0.0)),
+                        torch.inf)
+    return dists, idx, nvalid, overflow, insufficient
+
+
+def grid_radius_count(grid: GridHash, qxyz, qvalid, radius, m_per_cell: int):
+    """(counts i32[Q] of the points with d2 <= r2, overflow): exact iff
+    radius <= the grid's cell and not overflow."""
+    dev = qxyz.device
+    nq = qxyz.shape[0]
+    q_use = _query_use(qxyz, qvalid)
+    r2 = _radius_sq(radius, dev)
+    counts = torch.zeros(nq, dtype=torch.int32, device=dev)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    for s in _grid_chunks(nq, m_per_cell):
+        _, d2, _, ov = gather_candidates(grid, qxyz[s], q_use[s], m_per_cell)
+        counts[s] = (d2 <= r2).sum(dim=1).to(torch.int32)
+        overflow |= ov
+    return counts, overflow
+
+
+def grid_radius_neighbors(grid: GridHash, qxyz, qvalid, radius,
+                          m_per_cell: int):
+    """Capped neighbour lists within ``radius`` (inclusive), for the
+    clustering rung: (idx i32[Q, 27M] original rows, within bool[Q, 27M]
+    marking the entries at d2 <= r2, overflow). Exact iff radius <= the
+    grid's cell and not overflow. The outputs are written in place, chunk
+    by chunk: at 2^24 queries and M 16 they take 36 GB."""
+    dev = qxyz.device
+    nq = qxyz.shape[0]
+    q_use = _query_use(qxyz, qvalid)
+    r2 = _radius_sq(radius, dev)
+    slots = 27 * m_per_cell
+    idx = torch.empty((nq, slots), dtype=torch.int32, device=dev)
+    within = torch.empty((nq, slots), dtype=torch.bool, device=dev)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    for s in _grid_chunks(nq, m_per_cell):
+        cand_idx, d2, _, ov = gather_candidates(grid, qxyz[s], q_use[s],
+                                                m_per_cell)
+        idx[s] = cand_idx
+        within[s] = d2 <= r2
+        overflow |= ov
+    return idx, within, overflow

@@ -100,9 +100,32 @@ def test_bruteforce_cluster_labels_match_jax():
     assert len(np.unique(got[valid & np.isfinite(pts).all(1)])) > 5
 
 
-def test_cluster_labels_large_cloud_not_ported():
-    class Big:
-        shape = (1 << 24, 3)
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.cluster_labels(Big(), None, 1.0)
+def test_cluster_labels_large_cloud_not_ported(monkeypatch):
+    """Clouds of `CELLGRID_MAX_N` points or more skip the sweep and
+    cell-graph rungs and take the int64-keyed grid's lists with label
+    propagation, in both packages: the limit lowered to 4096 in both so a
+    5,000-point cloud takes it. Labels and clusters equal."""
+    monkeypatch.setattr(engine, "CELLGRID_MAX_N", 4096)
+    monkeypatch.setattr(jengine, "CELLGRID_MAX_N", 4096)
+    calls = []
+    orig = segmentation.propagate_labels
+    monkeypatch.setattr(segmentation, "propagate_labels",
+                        lambda *a: calls.append(1) or orig(*a))
+    pts = _blobs(23, 10, 420, noise=800)
+    valid = np.isfinite(pts).all(axis=1)
+    labels, filtered = engine.cluster_labels(
+        torch.from_numpy(pts), torch.from_numpy(valid), 0.5,
+        size_filter=(1, 10**9))
+    assert not filtered and calls == [1]
+    assert jengine.cluster_labels(jnp.asarray(pts), jnp.asarray(valid),
+                                  0.5) is None
+    jidx, jwithin = jengine.radius_neighbors(jnp.asarray(pts),
+                                             jnp.asarray(valid), 0.5)
+    want = np.asarray(jseg.propagate_labels(jidx, jwithin,
+                                            jnp.asarray(valid)))
+    np.testing.assert_array_equal(labels, want)
+    got = api.euclidean_cluster(api.PointCloud.from_numpy(pts, device="cpu"),
+                                0.5, 5, 100_000)
+    assert got == japi.euclidean_cluster(japi.PointCloud.from_numpy(pts),
+                                         0.5, 5, 100_000)
+    assert len(got) > 5

@@ -218,12 +218,33 @@ def test_engine_knn_matches_jax(case, monkeypatch):
     _close_rows(got, want, k)
 
 
-def test_engine_knn_large_cloud_not_ported():
-    class Big:
-        shape = (1 << 24, 3)
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.knn(Big(), None, Big(), None, 4)
+def test_engine_knn_large_cloud_not_ported(monkeypatch):
+    """Clouds of `CELLGRID_MAX_N` points or more: the int64-keyed grid
+    (`_knn_int64`) in both packages, the limit lowered to 4096 in both so a
+    5,000-point cloud takes it. Distances bitwise, indices where valid."""
+    monkeypatch.setattr(engine, "CELLGRID_MAX_N", 4096)
+    monkeypatch.setattr(jengine, "CELLGRID_MAX_N", 4096)
+    calls = []
+    orig = engine._knn_int64
+    monkeypatch.setattr(engine, "_knn_int64",
+                        lambda *a: calls.append(1) or orig(*a))
+    pxyz, pvalid = _cloud(21, 5000, box=8.0, far=40)
+    qxyz, qvalid = _cloud(22, 700, box=9.0)
+    for k, cross in ((10, False), (6, True)):
+        q, qv = (qxyz, qvalid) if cross else (pxyz, pvalid)
+        tp, tv = torch.from_numpy(pxyz), torch.from_numpy(pvalid)
+        tq, tqv = ((torch.from_numpy(q), torch.from_numpy(qv)) if cross
+                   else (tp, tv))
+        got = [a.numpy() for a in engine.knn(tp, tv, tq, tqv, k)]
+        jp, jv = jnp.asarray(pxyz), jnp.asarray(pvalid)
+        jq, jqv = (jnp.asarray(q), jnp.asarray(qv)) if cross else (jp, jv)
+        want = [np.asarray(a) for a in jengine.knn(jp, jv, jq, jqv, k)]
+        np.testing.assert_array_equal(got[2], want[2])
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(np.where(got[2], got[1], -1),
+                                      np.where(want[2], want[1], -1))
+        assert got[2].any()
+    assert len(calls) == 2
 
 
 def test_api_knn_and_queries_match_jax():
