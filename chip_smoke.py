@@ -91,7 +91,28 @@ Phases:
    sor_certified and clusters reported, not gated; seed 0 equal to the
    port's CPU run: centroids, keep mask, plane, clusters; stage times and
    the frame p50), and the large clustering (hops, p50, clusters equal to a
-   query_pairs + connected-components oracle; phase8.json).
+   query_pairs + connected-components oracle; phase8.json);
+9. the host C++ (built, serving the host index; index and reader times)
+   and the int64-keyed grid at 2^24 points: `knn` and `euclidean_cluster`
+   against cKDTree oracles (phase9.json);
+10. the cell-grid kNN rungs at 100K uniform points in a 10 m box: `knn` k
+   30 on the cloud's own points (`slab_knn`), 1,000 other queries at k 10
+   (`point_knn`) and `engine.radius_count` at r 0.5
+   (`point_radius_count`): the rungs taken (spied, with the rows each
+   pass flags), p50 over 5 calls and device ms, beside the brute force the
+   parent commit ran on the same inputs (outputs equal: distances and
+   counts bitwise, index sets where the kth is untied; its p50 and device
+   ms), and cKDTree oracles (phase10.json);
+11. multi-device on the one card: the tiled and sharded KITTI (bench
+   frames of seeds 0-1) and aerial (the bench frame, RANSAC seeds 0-1)
+   batches at world 1 (NCCL, mesh (1, 1)) and world 2 (two spawned gloo
+   ranks on the card, mesh (1, 2); `parallel/comm.py` stages each
+   collective through the host, reported): each path's kernels launched,
+   batch p50s, ms inside collectives, flags, kept counts; the tiled
+   outputs against the unsharded pipeline on the card by the tiled
+   tests' rules (and world 2 against world 1), the sharded ones equal to
+   the unsharded pipeline; route, voxel and obstacle overflow flags must
+   be clean, and at world 2 the halo overflow flag too (phase11.json).
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; each of its kernels must have launched. Prints the kernels'
@@ -1899,6 +1920,533 @@ def phase9(card_line, K, add):
                                                     default=str))
 
 
+# ── The cell-grid kNN rungs and engine.radius_count (phase 10) ──────────────
+
+RUNG_QUERIES = 1000
+RUNG_RADIUS = 0.5
+GIVE_UP_CAP = 4  # the fused sweep's rescue cap where it must give up
+GIVE_UP_FAR = 5000  # far queries: the cross sweep gives up above 4,096
+RUNG_NAMES = ("build_cellgrid", "point_knn", "slab_knn", "point_radius_count",
+              "bruteforce_knn", "bruteforce_radius_count",
+              "_knn_sweep_same_cloud", "_knn_sweep_cross")
+
+
+def rung_spy(engine):
+    """A Spy recording the rungs `engine.knn` and `engine.radius_count`
+    take, in order: each grid built (capacity, cell cap, overflow), each
+    grid kNN pass with its flagged rows, each brute force with its valid
+    queries, each sweep and grid count."""
+    taken = []
+
+    def hook(name, orig, a, k):
+        out = orig(*a, **k)
+        if name == "build_cellgrid":
+            taken.append(("grid", k["m_per_cell"], k["cell_cap"],
+                          bool(out.overflow)))
+        elif name in ("point_knn", "slab_knn"):
+            taken.append((name, int((~out[3]).sum())))
+        elif name.startswith("bruteforce"):
+            taken.append((name, int(a[3].sum())))
+        else:
+            taken.append((name,))
+        return out
+
+    return Spy([(engine, n) for n in RUNG_NAMES], hook), taken
+
+
+def rung_text(taken) -> str:
+    """The rungs, the grids folded into the pass that follows them."""
+    out = []
+    for t in taken:
+        if t[0] == "grid":
+            out.append(f"grid(m {t[1]}, cap {t[2]}{', overflow' if t[3] else ''})")
+        elif len(t) == 2:
+            out.append(f"{t[0]}[{'flagged' if 'knn' in t[0] and 'brute' not in t[0] else 'queries'} {t[1]}]")
+        else:
+            out.append(t[0])
+    return " -> ".join(out)
+
+
+def oracle_counts(tree, queries, counts, r):
+    """Rows whose count lies outside the float64 cKDTree's counts at r(1 -
+    1e-6) and r(1 + 1e-6) (the f32 and float64 judgments may differ only
+    for pairs that near the radius); the rows with such a pair."""
+    q = queries.astype(np.float64)
+    lo = tree.query_ball_point(q, r * (1 - 1e-6), return_length=True,
+                               workers=-1)
+    hi = tree.query_ball_point(q, r * (1 + 1e-6), return_length=True,
+                               workers=-1)
+    return int(((counts < lo) | (counts > hi)).sum()), int((lo != hi).sum())
+
+
+def parent_sweep_knn(pxyz, pvalid, qxyz, qvalid, k: int):
+    """The parent commit's `engine.knn` where a sweep gives up (k <= 24,
+    more than `BRUTE_THRESHOLD` points): same cloud, on `knn_fused`'s
+    rescue-cap overflow, the two-pass sweep again and the brute force of
+    every row it left flagged; across clouds, the cross sweep and the brute
+    force of every flagged query, however many."""
+    from pointclouds_tpu_torch.ops.fusedops import fused_rescue_cap, knn_fused
+    from pointclouds_tpu_torch.spatial import engine
+    from pointclouds_tpu_torch.spatial.sweep import sweep_knn_two_pass
+
+    n = pxyz.shape[0]
+    wr = engine._sweep_wr(n)
+    if qxyz is pxyz:
+        cap = fused_rescue_cap(n)
+        d, i, nv, exact = knn_fused(pxyz, pvalid, k=k, wr=wr, cap=cap)
+        if bool(exact):
+            return d, i, nv
+        cell = engine.estimate_cell_size(pxyz, pvalid, k)
+        d, i, nv, ok = sweep_knn_two_pass(pxyz, pvalid, np.float32(cell), k=k,
+                                          fix_cap=cap, wr=wr)
+    else:
+        cell = engine.estimate_cell_size(pxyz, pvalid, k)
+        d, i, nv, ok = engine.sweep_knn_cross_two_pass(
+            pxyz, pvalid, qxyz, qvalid, np.float32(cell), k=k, wr=wr,
+            fix_cap=fused_rescue_cap(max(n, qxyz.shape[0])))
+    rows = engine._residual(qxyz, qvalid, ok).nonzero(as_tuple=True)[0]
+    if rows.numel() == 0:
+        return d, i, nv
+    sub, sv, sq = engine._subset(rows, qxyz, qvalid)
+    return engine._patch_rows((d, i, nv), sub, sv,
+                              engine.bruteforce_knn(pxyz, pvalid, sq, sv, k))
+
+
+def give_up_queries():
+    """`RUNG_QUERIES` queries in the cloud's box beside `GIVE_UP_FAR`
+    queries 20-60 m from it: more than max(Q / 4, 4096) rows the cross
+    sweep cannot certify."""
+    far = bench_cloud(GIVE_UP_FAR, seed=6, box=40.0) + np.float32(20.0)
+    return np.vstack([bench_cloud(RUNG_QUERIES, seed=7), far])
+
+
+def phase10(card_line):
+    """The cell-grid rungs at 100K uniform points in a 10 m box: `knn` k 30
+    on the cloud's own points (the parent commit's brute force, now
+    `slab_knn`), 1,000 other queries at k 10 (`point_knn`),
+    `engine.radius_count` at r 0.5, and the two sweeps giving up at k 10
+    (the same-cloud one with its rescue cap cut to `GIVE_UP_CAP` rows,
+    the cross one with `GIVE_UP_FAR` far queries): rungs (spied), p50
+    over 5 calls and device ms, beside the parent commit's path on the
+    same inputs (the brute force, p50 over 3 calls and device ms, or, where
+    a sweep gives up, `parent_sweep_knn`), outputs equal to the brute
+    force (one call of it where it is not the parent's path; for the
+    counts, of `bruteforce_radius_count`), and against cKDTree oracles."""
+    from scipy.spatial import cKDTree
+
+    from pointclouds_tpu_torch import api
+    from pointclouds_tpu_torch.ops import fusedops
+    from pointclouds_tpu_torch.spatial import engine
+
+    pts = bench_cloud(100_000)
+    cloud = api.PointCloud.from_numpy(pts)
+    arrs = cloud._arrs
+    queries = bench_cloud(RUNG_QUERIES, seed=5)
+    far = give_up_queries()
+    tree = cKDTree(pts.astype(np.float64))
+
+    def via(knn_fn, call):
+        # ``call`` with `engine.knn` replaced by ``knn_fn``.
+        def run():
+            with Spy([(api._engine, "knn")],
+                     lambda name, orig, a, k: knn_fn(*a, **k)):
+                return call()
+        return run
+
+    def capped(call):
+        # ``call`` with the fused sweep's rescue cap cut: it gives up.
+        def run():
+            with Spy([(fusedops, "fused_rescue_cap")],
+                     lambda name, orig, a, k: GIVE_UP_CAP):
+                return call()
+        return run
+
+    def radius():
+        return engine.radius_count(arrs.xyz, arrs.valid, arrs.xyz,
+                                   arrs.valid, RUNG_RADIUS)
+
+    def radius_brute():
+        return engine.bruteforce_radius_count(arrs.xyz, arrs.valid, arrs.xyz,
+                                              arrs.valid, RUNG_RADIUS)
+
+    same_k10 = capped(lambda: api.knn(cloud, pts, 10))
+
+    def cross_far():
+        return api.knn(cloud, far, 10)
+
+    # (name, k, queries, call, the parent's path or None for the brute
+    # force, the rungs that must lead)
+    cases = [
+        ("knn k30 same 100K", 30, pts, lambda: api.knn(cloud, pts, 30), None,
+         ("slab_knn",)),
+        (f"knn k10 cross {RUNG_QUERIES}", 10, queries,
+         lambda: api.knn(cloud, queries, 10), None, ("point_knn",)),
+        (f"radius_count r{RUNG_RADIUS} 100K", None, pts, radius, None,
+         ("point_radius_count",)),
+        (f"knn k10 same 100K, rescue cap {GIVE_UP_CAP}", 10, pts, same_k10,
+         via(parent_sweep_knn, same_k10),
+         ("_knn_sweep_same_cloud", "slab_knn")),
+        (f"knn k10 cross {len(far)}, {GIVE_UP_FAR} far", 10, far, cross_far,
+         via(parent_sweep_knn, cross_far), ("_knn_sweep_cross", "point_knn")),
+    ]
+    record = dict(card=card_line)
+    for name, k, q, call, parent, lead in cases:
+        spy, taken = rung_spy(engine)
+        with spy:
+            out = call()
+            torch.cuda.synchronize()
+        plain = radius_brute if k is None else via(engine.bruteforce_knn,
+                                                   call)
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        btimes = [(time.perf_counter() - t0) * 1e3]
+        ms, times = p50_ms(call)
+        dev = device_ms(call, reps=3)
+        bdev = None
+        if k is not None and parent is None:  # the parent's path: 3 more
+            btimes = p50_ms(plain, reps=3)[1]
+            bdev = device_ms(plain, reps=1)
+        bms = float(np.percentile(btimes, 50))
+        extra = {}
+        if parent is not None:
+            pms, ptimes = p50_ms(parent, reps=3)
+            extra = dict(parent_p50_ms=pms, parent_times_ms=ptimes,
+                         parent_device_ms=device_ms(parent, reps=1))
+        if k is None:
+            got_c, want_c = out.cpu().numpy(), want.cpu().numpy()
+            equal = bool((got_c == want_c).all())
+            bad, near = oracle_counts(tree, q, got_c[:len(q)], RUNG_RADIUS)
+            gate = dict(brute_equal=equal, oracle_rows_off=bad,
+                        rows_near_radius=near, mean_count=float(got_c.mean()))
+            ok = equal and bad == 0
+        else:
+            idx, dist = out
+            widx, wdist = want
+            d_equal = bool(np.array_equal(dist, wdist))
+            sets = int((np.sort(idx, 1) != np.sort(widx, 1)).any(1).sum())
+            bad_d, bad_i, tied = oracle_knn(pts, q, idx, dist, k, tree)
+            gate = dict(brute_distances_equal=d_equal,
+                        brute_index_sets_differ=sets, oracle_distances_off=bad_d,
+                        oracle_sets_differ=bad_i, tied=tied)
+            ok = d_equal and sets <= tied and not bad_d and not bad_i
+        names = tuple(t[0] for t in taken if t[0] != "grid")
+        gate["rungs_lead"] = names[:len(lead)] == lead
+        ok = ok and gate["rungs_lead"]
+        if parent is not None:
+            what = (f"the parent's path (sweep, then the brute force of the "
+                    f"flagged rows) p50 {extra['parent_p50_ms']:.3f} ms, "
+                    f"device {ms_text(extra['parent_device_ms'], 3)} ms; "
+                    f"brute force (one call, for the equality)")
+        elif k is not None:
+            what = "brute force (the parent's path) p50"
+        else:
+            what = "brute force (one call, for the equality)"
+        log(f"phase 10 {name}: rungs {rung_text(taken)}; p50 {ms:.3f} ms over "
+            f"5 calls ({', '.join(f'{t:.3f}' for t in times)}), device "
+            f"{ms_text(dev, 3)} ms; {what} {bms:.3f} ms, device "
+            f"{ms_text(bdev, 3)} ms; gates {gate} [{card_line}]")
+        record[name] = dict(rungs=taken, p50_ms=ms, times_ms=times,
+                            device_ms=dev, brute_p50_ms=bms,
+                            brute_times_ms=btimes, brute_device_ms=bdev,
+                            **extra, **gate)
+        if not ok:
+            raise AssertionError(f"phase 10 {name}: {gate}")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "phase10.json").write_text(json.dumps(record, indent=1,
+                                                     default=str))
+
+
+# ── Multi-device on the one card (phase 11) ─────────────────────────────────
+
+MESH_SEEDS = (0, 1)
+MESH_REPS = 3
+# The tiled and sharded pipelines at the bench frames' configurations (the
+# sharded entries take the reference's fixed kwargs, so their RANSAC scores
+# every hypothesis in full).
+TILED_KITTI = dict(sor_k=20, ransac_iters=500, ransac_subsample=4096,
+                   obstacle_cap=8192)
+SHARDED_KITTI = dict(sor_k=20, ransac_iters=500, obstacle_cap=8192)
+TILED_AERIAL = dict(ransac_iters=300, ransac_subsample=4096,
+                    obstacle_cap=196_608)
+SHARDED_AERIAL = dict(ransac_iters=300, obstacle_cap=196_608)
+MESH_PATHS = {
+    "tiled kitti": ["segmented_scan_sums", "sweep_select_rows",
+                    "rescue_select", "cluster_multisweep"],
+    "tiled aerial": ["segmented_scan_sums", "sweep_moments",
+                     "cluster_multisweep_windows"],
+    "sharded kitti": ["segmented_scan_sums", "sweep_select_rows",
+                      "rescue_select", "cluster_multisweep"],
+    "sharded aerial": ["segmented_scan_sums", "sweep_moments",
+                       "cluster_multisweep_windows"],
+}
+
+
+def mesh_batches():
+    """Host batches: the KITTI bench frames velodyne_scene(s, 122,000) for
+    s in 0-1, and the aerial bench frame aerial_scene(42) twice."""
+    from pointclouds_tpu_torch.core.cloud import make_cloud_arrays
+    from pointclouds_tpu_torch.pipelines.scenes import (
+        aerial_scene,
+        velodyne_scene,
+    )
+
+    def stack(clouds):
+        arrs = [make_cloud_arrays(c, device="cpu") for c in clouds]
+        return (torch.stack([a.xyz for a in arrs]).numpy(),
+                torch.stack([a.valid for a in arrs]).numpy())
+
+    return dict(kitti=stack([velodyne_scene(s, KITTI_POINTS)
+                             for s in MESH_SEEDS]),
+                aerial=stack([aerial_scene(42, 1.0)] * len(MESH_SEEDS)))
+
+
+def mesh_paths(mesh, batches):
+    """The tiled and sharded KITTI and aerial batches on ``mesh`` (inputs on
+    the card): per path, its outputs (numpy), launches (counts zeroed just
+    before the first call, read just after), the collectives' calls,
+    host-staged calls and ms in that call, and the batch's p50 over
+    `MESH_REPS` more calls."""
+    import torch.distributed as dist
+
+    from pointclouds_tpu_torch.parallel import comm, sharding, tiles
+    from pointclouds_tpu_torch.spatial import kernels as K
+
+    seeds = np.asarray(MESH_SEEDS)
+    kx, kv = (torch.from_numpy(a).cuda() for a in batches["kitti"])
+    ax, av = (torch.from_numpy(a).cuda() for a in batches["aerial"])
+    kargs = (np.float32(0.15), np.float32(2.0), np.float32(0.15), seeds,
+             np.float32(0.8))
+    paths = {
+        "tiled kitti": lambda: tiles.tiled_kitti_pipeline(
+            mesh, kx.shape[1], **TILED_KITTI)(kx, kv, *kargs),
+        "tiled aerial": lambda: tiles.tiled_aerial_pipeline(
+            mesh, ax.shape[1], **TILED_AERIAL)(
+            ax, av, np.float32(0.5), np.float32(0.3), seeds, np.float32(2.0),
+            VIEWPOINT),
+        "sharded kitti": lambda: sharding.sharded_kitti_pipeline(
+            mesh, **SHARDED_KITTI)(kx, kv, *kargs),
+        "sharded aerial": lambda: sharding.sharded_aerial_pipeline(
+            mesh, **SHARDED_AERIAL)(
+            ax, av, np.float32(0.5), np.float32(3.0), np.float32(0.3), seeds,
+            np.float32(2.0), VIEWPOINT),
+    }
+    res = {}
+    comm.TIMED = True
+    t0 = time.perf_counter()
+    for name, run in paths.items():
+        comm.reset_stats()
+        K.reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        stats = {c: dict(s) for c, s in comm.STATS.items()}
+        ms, times = p50_ms(run, reps=MESH_REPS)
+        log(f"phase 11 rank {dist.get_rank()} of {dist.get_world_size()}: "
+            f"{name} done ({time.perf_counter() - t0:.1f} s)")
+        res[name] = dict(out={f: getattr(out, f).cpu().numpy()
+                              for f in out._fields},
+                         launches=launches, comm=stats, p50_ms=ms,
+                         times_ms=times)
+    return res
+
+
+def phase11_rank(rank, world, batches):
+    """One rank of phase 11's world 2 (gloo, both ranks on the card)."""
+    from pointclouds_tpu_torch.parallel import sharding
+
+    torch.cuda.set_device(0)
+    return mesh_paths(sharding.mesh_of(1, world), batches)
+
+
+def frame_view(kind, out, b=None):
+    """One frame of a tiled (``b`` its index) or unsharded output as the
+    tiled tests compare it: valid centroids, kept count, plane, clusters as
+    sets of coordinates, and (aerial) the normals of the valid rows."""
+    from pointclouds_tpu_torch.parallel._compare import clusters_as_sets
+
+    if b is None:  # an unsharded pipeline output
+        o = {f: getattr(out, f).cpu().numpy() for f in out._fields}
+        ds = o["downsampled_valid"]
+        obs = (o["centroids"][o["obstacle_src"]], o["obstacle_valid"],
+               o["labels"])
+        kept = int(o["cleaned_valid"].sum()) if kind == "kitti" else None
+    else:
+        o = {f: v[b] for f, v in out.items()}
+        ds = o["downsampled_valid"]
+        obs = (o["obstacle_xyz"], o["obstacle_valid"], o["labels"])
+        kept = int(o["cleaned_count"]) if kind == "kitti" else None
+    normals = ((o["normals"][ds], o["normals_ok"][ds]) if kind == "aerial"
+               else None)
+    return dict(cents=o["centroids"][ds], kept=kept, plane=o["plane_normal"],
+                clusters=clusters_as_sets(*obs, 10 if kind == "kitti" else 20),
+                normals=normals)
+
+
+def tiles_rules(kind, got, want) -> dict:
+    """`tests/test_tiles.py`'s (KITTI) or `tests/test_tiles_aerial.py`'s
+    rules between two frame views, from `parallel/_compare.py`, which the
+    port's tiled tests share."""
+    from pointclouds_tpu_torch.parallel import _compare as cmp
+
+    res = dict(centroids=cmp.centroid_sets_close(got["cents"], want["cents"]),
+               plane=cmp.plane_close(got["plane"], want["plane"]),
+               clusters=got["clusters"] == want["clusters"],
+               n_clusters=len(got["clusters"]))
+    if kind == "kitti":
+        res["kept"] = (got["kept"], want["kept"])
+        res["kept_ok"] = cmp.kept_close(got["kept"], want["kept"])
+    else:
+        res["normals"] = cmp.normals_match(got["cents"], *got["normals"],
+                                           want["cents"], *want["normals"])
+    res["ok"] = all(v for k, v in res.items()
+                    if k in ("centroids", "plane", "clusters", "kept_ok",
+                             "normals"))
+    return res
+
+
+def mesh_refs(batches):
+    """The unsharded pipelines on the card for each frame of the batches,
+    at the tiled paths' configurations and the sharded paths'. The tiled
+    aerial path's reference takes the plain voxel front end, as
+    `tests/test_tiles_aerial.py`'s does: its rows, and so RANSAC's sample
+    order, are canonical, as the tiled tail's `position_rows` make them
+    (the fused front end emits sweep order and draws other hypotheses)."""
+    import pointclouds_tpu_torch as pc
+
+    refs = {}
+    for i, s in enumerate(MESH_SEEDS):
+        kx, kv = (torch.from_numpy(a[i]).cuda() for a in batches["kitti"])
+        ax, av = (torch.from_numpy(a[i]).cuda() for a in batches["aerial"])
+        kpos = (np.float32(0.15), np.float32(2.0), np.float32(0.15), s,
+                np.float32(0.8))
+        refs[("tiled kitti", i)] = pc.kitti_obstacle_pipeline(
+            kx, kv, *kpos, **TILED_KITTI)
+        refs[("sharded kitti", i)] = pc.kitti_obstacle_pipeline(
+            kx, kv, *kpos, **SHARDED_KITTI)
+        apos = (np.float32(0.5), np.float32(3.0), np.float32(0.3), s,
+                np.float32(2.0), VIEWPOINT)
+        refs[("tiled aerial", i)] = pc.aerial_pipeline(ax, av, *apos,
+                                                       **TILED_AERIAL)
+        refs[("sharded aerial", i)] = pc.aerial_pipeline(
+            ax, av, *apos, backend="sweep", **SHARDED_AERIAL)
+    return refs
+
+
+def mesh_report(card_line, wname, points, res, refs, w1=None) -> tuple:
+    """Log and check one world's paths: kernels launched, the tiled
+    outputs against the unsharded pipeline by the tiled tests' rules (and,
+    given ``w1``, against world 1's), the sharded outputs equal to the
+    unsharded pipeline, the route, voxel and obstacle overflow flags clean,
+    and the halo overflow flag too where the mesh's points axis is above 1
+    (at one tile the port mirrors the reference's flag, which may be set
+    spuriously there: no halo is exchanged). Returns (record, failures)."""
+    record, failures = {}, []
+    for path, r in res.items():
+        kind = path.split()[1]
+        missing = [k for k in MESH_PATHS[path] if r["launches"][k] <= 0]
+        if missing:
+            failures.append(f"{wname} {path}: {missing} never launched")
+        out = r["out"]
+        checks = []
+        for i in range(len(MESH_SEEDS)):
+            ref = refs[(path, i)]
+            if path.startswith("sharded"):
+                equal = all(np.array_equal(out[f][i],
+                                           getattr(ref, f).cpu().numpy())
+                            for f in ref._fields)
+                checks.append(dict(equal_to_unsharded=equal, ok=equal))
+                continue
+            c = tiles_rules(kind, frame_view(kind, out, i),
+                            frame_view(kind, ref))
+            if w1 is not None:
+                c["vs_world_1"] = tiles_rules(
+                    kind, frame_view(kind, out, i),
+                    frame_view(kind, w1[path]["out"], i))
+                c["ok"] = c["ok"] and c["vs_world_1"]["ok"]
+            checks.append(c)
+        flags = out["flags"].tolist() if "flags" in out else None
+        staged = {c: st["staged"] for c, st in r["comm"].items()
+                  if st["staged"]}
+        comm_ms = sum(st["ms"] for st in r["comm"].values())
+        kept = out["cleaned_count"].tolist() if "cleaned_count" in out else None
+        cert = (out["sor_certified"].tolist() if "sor_certified" in out
+                else None)
+        log(f"phase 11 {wname} {path}: batch of {len(MESH_SEEDS)} p50 "
+            f"{r['p50_ms']:.3f} ms ({r['p50_ms'] / len(MESH_SEEDS):.3f} a "
+            f"frame; {', '.join(f'{t:.3f}' for t in r['times_ms'])}); "
+            f"collectives {comm_ms:.3f} ms in the first call ("
+            + ", ".join(f"{c} {st['calls']}x {st['ms']:.3f}"
+                        for c, st in r["comm"].items())
+            + f"), host-staged {staged or 'none'}; flags (route, ds, halo, "
+            f"obstacle) {flags}; cleaned_count {kept} sor_certified {cert}; "
+            f"launches { {k: v for k, v in r['launches'].items() if v} }; "
+            f"checks {checks} [{card_line}]")
+        if not all(c["ok"] for c in checks):
+            failures.append(f"{wname} {path}: {checks}")
+        gated = [0, 1, 2, 3] if points > 1 else [0, 1, 3]
+        if flags is not None and np.asarray(flags)[:, gated].any():
+            failures.append(f"{wname} {path}: overflow flags {flags}")
+        record[path] = dict(p50_ms=r["p50_ms"], times_ms=r["times_ms"],
+                            launches=r["launches"], comm=r["comm"],
+                            flags=flags, checks=checks, staged=staged,
+                            cleaned_count=kept, sor_certified=cert)
+    return record, failures
+
+
+def phase11(card_line, add):
+    """Multi-device on the one card: the tiled and sharded KITTI and aerial
+    bench batches at world 1 (NCCL, mesh (1, 1), in this process) and
+    world 2 (two spawned gloo ranks on the card, mesh (1, 2), the
+    collectives staged through the host), each path's kernels launched,
+    the tiled outputs held against the unsharded pipeline on the card by
+    the tiled tests' rules and world 2 against world 1, the sharded ones
+    equal to the unsharded pipeline, the overflow flags clean: the halo
+    flag is left out only at world 1, a single tile, where the port mirrors
+    the reference's spurious flag (phase11.json)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from pointclouds_tpu_torch.parallel import launch, sharding
+
+    t_start = time.perf_counter()
+    batches = mesh_batches()
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{launch.free_port()}",
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        w1 = mesh_paths(sharding.mesh_of(1, 1), batches)
+    finally:
+        dist.destroy_process_group()
+    refs = mesh_refs(batches)
+    log(f"phase 11 world 1 and the unsharded runs: "
+        f"{time.perf_counter() - t_start:.1f} s")
+    record = dict(card=card_line)
+    record["world 1"], failures = mesh_report(
+        card_line, "world 1 nccl (1, 1)", 1, w1, refs)
+    t2 = time.perf_counter()
+    w2 = launch.run_ranks(phase11_rank, 2, batches, timeout=600.0,
+                          threads=4)
+    log(f"phase 11 world 2: {time.perf_counter() - t2:.1f} s")
+    for path in MESH_PATHS:  # every rank returns the whole output
+        for f, v in w2[0][path]["out"].items():
+            if not np.array_equal(v, w2[1][path]["out"][f]):
+                failures.append(f"world 2 {path}: ranks differ in {f}")
+    record["world 2"], fails = mesh_report(
+        card_line, "world 2 gloo (1, 2)", 2, w2[0], refs, w1)
+    failures += fails
+    for res in (w1, *w2):
+        for r in res.values():
+            add(r["launches"])
+    log(f"phase 11 wall {time.perf_counter() - t_start:.1f} s")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "phase11.json").write_text(json.dumps(record, indent=1,
+                                                     default=str))
+    if failures:
+        raise AssertionError("phase 11: " + "; ".join(failures))
+
+
 # ── A/B: this checkout's kernels and frame against other checkouts' ──────
 
 AB_INPUTS = ROOT / "build" / "chip_smoke_ab" / "inputs.pt"
@@ -2506,6 +3054,12 @@ def main() -> int:
 
     # ── Phase 9: the int64-keyed grid at 2^24 points, the host C++ ──
     phase9(card_line, K, add)
+
+    # ── Phase 10: the cell-grid kNN rungs and engine.radius_count ──
+    phase10(card_line)
+
+    # ── Phase 11: multi-device on the one card ──
+    phase11(card_line, add)
 
     for r in rows:
         r["launches"] = launches_total[r["name"]]

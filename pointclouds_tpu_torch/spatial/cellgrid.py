@@ -1,10 +1,12 @@
 """Cell-centric dense grid: the cell-grid SOR backends, their coarse second
-pass and the collapsed cell-graph clustering.
+pass, the collapsed cell-graph clustering, and the kNN and radius-count
+queries of the engine's cell-grid rungs.
 
 Counterpart of `pointclouds_tpu/spatial/cellgrid.py` (`ring_offsets`,
 `CellGrid`, `build_cellgrid`, `cert_cell2`, the neighbour-block gathers,
 the selection helper, `cell_sor_mean_dists`, `point_sor_mean_dists`,
-`cell_knn_subset`, `cell_graph_adjacency`, `cell_graph_labels`). Points are
+`cell_knn_subset`, `cell_graph_adjacency`, `cell_graph_labels`, and the
+pointwise queries `point_knn`, `point_radius_count`, `slab_knn`). Points are
 scattered once into dense ``[C, M, ...]`` per-cell blocks; a dense
 linear-id -> slot table gives each cell its ring of neighbour slots, and
 each cell (or point) gathers its neighbour blocks as its candidate slab.
@@ -16,7 +18,9 @@ always True: a superset of the rows the reference certifies, with equal
 values on those). Squared distances take the forms XLA's CPU backend gives
 the reference (measured bitwise): ``jnp.sum(diff * diff, -1)`` as
 fma(dz, dz, fma(dy, dy, dx*dx)) on the XLA paths, the Pallas kernel's
-fma(dz, dz, fma(dx, dx, dy*dy)) inside ``sor_select``.
+fma(dz, dz, fma(dx, dx, dy*dy)) inside ``sor_select``. The rungs' queries
+are XLA code in the reference (a k-step argmin), torch ops here: one exact
+top-k on (d2, row) keys, ties to the smaller row.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch
 
 from ..core.cloud import stable_argsort
 from .grid import scalar_like
-from .kernels import fma_f32, segmented_select, sor_select
+from .kernels import (_sqrt_f32, _topk_lex, fma_f32, segmented_select,
+                      sor_select)
 
 _INT32_MIN = -(2**31)
 # An empty xyzw slot: no coordinates, row id -1 (invalid).
@@ -239,6 +244,16 @@ def gather_neighbor_xyzw(grid: CellGrid, slots):
     nb = grid.cell_xyzw[flat].reshape(slots.shape + (m, 4))
     w = torch.where((slots >= cap)[..., None], -1.0, nb[..., 3])
     return nb[..., :3], w >= 0.0
+
+
+def _xyzw_rows(grid: CellGrid, slots):
+    """[..., K M, 4] packed candidate blocks (xyz and row id) of ``slots``
+    [..., K]; absent slots as empty xyzw (row id -1)."""
+    cap, m, _ = grid.cell_xyzw.shape
+    nb = grid.cell_xyzw[torch.clamp(slots, max=cap - 1).long()]
+    nb = torch.where((slots >= cap)[..., None, None],
+                     _PAD_XYZW.to(nb.device), nb)
+    return nb.reshape(slots.shape[:-1] + (slots.shape[-1] * m, 4))
 
 
 def _chunk_cells(grid: CellGrid, chunk: int) -> None:
@@ -453,11 +468,8 @@ def point_sor_mean_dists(grid: CellGrid, xyz, valid, *, k: int,
     km = grid.neighbor_slots.shape[1] * m
     cell2 = cert_cell2(grid)
 
-    # Stage 1: every cell's candidate slab, flat [C, KM * 4].
-    nslots = grid.neighbor_slots.reshape(-1)
-    slab = grid.cell_xyzw[torch.clamp(nslots, 0, cap - 1).long()]
-    slab = torch.where((nslots >= cap)[:, None, None], _PAD_XYZW.to(dev),
-                       slab).reshape(cap, km * 4)
+    # Stage 1: every cell's candidate slab, [C, KM, 4].
+    slab = _xyzw_rows(grid, grid.neighbor_slots)
 
     # Stage 2: each point's slab row -> one work row.
     q_use = valid & torch.isfinite(xyz).all(dim=-1)
@@ -468,7 +480,7 @@ def point_sor_mean_dists(grid: CellGrid, xyz, valid, *, k: int,
     work = torch.full((n, km_pad), torch.inf, dtype=torch.float32, device=dev)
     for s in range(0, n, qchunk):
         e = min(s + qchunk, n)
-        row = slab[slot[s:e]].reshape(e - s, km, 4)
+        row = slab[slot[s:e]]
         cv = (row[..., 3] >= 0.0) & use[s:e, None]
         d2 = _sum_sq(row[..., :3] - xyz[s:e, None, :])
         work[s:e, :km] = torch.where(cv, d2, torch.inf)
@@ -480,3 +492,146 @@ def point_sor_mean_dists(grid: CellGrid, xyz, valid, *, k: int,
     point_ok = (count >= want) & (kth <= cell2) & seg_ok & use
     certified = ~(q_use & ~point_ok).any()
     return mean, point_ok, certified
+
+
+# ── General (cross-cloud) pointwise queries ──────────────────────────────────
+#
+# The queries need not be the grid's own points: each query's 27 neighbour
+# cells come from the dense table by its cell coordinates, and each (query,
+# cell) pair fetches that cell's xyzw block. `engine.knn` and
+# `engine.radius_count` take these rungs.
+
+
+def _query_neighbor_slots(grid: CellGrid, qxyz):
+    """[Q, 27] neighbour cell slots of arbitrary query positions (cell_cap
+    where absent or out of range)."""
+    cap = grid.cell_xyz.shape[0]
+    table_size = grid.table.shape[0] - 1
+    c = torch.floor(qxyz / grid.cell_size)
+    c = torch.clamp(c, -1e9, 1e9).to(torch.int32)
+    rel = c - grid.min_coord[None, :]
+    noff = torch.from_numpy(NEIGHBOR_OFFSETS).to(qxyz.device)
+    nrel = rel[:, None, :] + noff[None, :, :]  # [Q, 27, 3]
+    in_bounds = ((nrel >= 0) & (nrel < grid.extent[None, None, :])).all(
+        dim=-1)
+    ext = grid.extent
+    nlin = (nrel[..., 0] * ext[1] + nrel[..., 1]) * ext[2] + nrel[..., 2]
+    nlin = torch.where(in_bounds, nlin, table_size)
+    slots = _take_fill(grid.table, nlin.reshape(-1)).reshape(nlin.shape)
+    return torch.where(slots < grid.num_cells, slots, cap)
+
+
+def _knn_rows(rows, qx, qu, kk: int):
+    """Exact kk smallest (d2, row id) of each query over its candidate
+    rows [q, W, 4] (ties to the smaller original row: the port's rule, where
+    the reference's k-step argmin keeps candidate order). Returns (d2 f32[q,
+    kk] ascending, +inf past the candidates; row ids i64[q, kk]; valid
+    candidates found i32[q])."""
+    ids = rows[..., 3]
+    cv = (ids >= 0.0) & qu[:, None]
+    d2 = _sum_sq(rows[..., :3] - qx[:, None, :])
+    work = torch.where(cv, d2, torch.inf)
+    pos = torch.where(cv, ids, 2.0**31).to(torch.int64)
+    vals, rid = _topk_lex(work, kk, pos=pos)
+    return vals, rid, cv.sum(dim=1).to(torch.int32)
+
+
+def _knn_result(d2k, ids, found, q_use, grid: CellGrid, k: int, kk: int,
+                in_grid=None):
+    """(dists, idx, nvalid, point_ok) from the selected d2 and row ids, with
+    the reference's certificate: min(k, grid points) found and the kth d2
+    within `cert_cell2`; invalid queries certified; fewer candidate slots
+    than k padded and flagged."""
+    nvalid = torch.isfinite(d2k)
+    dists = torch.where(nvalid, _sqrt_f32(torch.clamp(d2k, min=0.0)),
+                        torch.inf)
+    idx = torch.where(nvalid, ids, 0).to(torch.int32)
+    want = torch.clamp(grid.cell_mask.sum(), max=k)
+    kth_col = torch.clamp(want - 1, 0, kk - 1)
+    kth_d2 = torch.where(nvalid, d2k, torch.inf)[:, kth_col]
+    point_ok = (found >= want) & (kth_d2 <= cert_cell2(grid))
+    if in_grid is not None:
+        point_ok = point_ok & q_use & in_grid
+    point_ok = point_ok | ~q_use
+    if kk < k:  # fewer candidate slots than k: pad and let the flags retry
+        padc = k - kk
+        dists = torch.nn.functional.pad(dists, (0, padc), value=torch.inf)
+        idx = torch.nn.functional.pad(idx, (0, padc))
+        nvalid = torch.nn.functional.pad(nvalid, (0, padc))
+        point_ok = torch.zeros_like(point_ok)
+    return dists, idx, nvalid, point_ok
+
+
+def point_knn(grid: CellGrid, qxyz, qvalid, *, k: int, qchunk: int = 2048):
+    """K nearest grid points of each query over its 27-cell neighbourhood.
+
+    Returns (dists f32[Q, k] Euclidean ascending (+inf beyond results),
+    idx i32[Q, k] original rows (0 where invalid), nvalid bool[Q, k],
+    point_ok bool[Q]): the per-query certificate, min(k, grid points)
+    found and the kth distance within one cell less the f32 margin; True
+    for invalid queries, whose empty result is final. Queries run in
+    chunks of ``qchunk``: one chunk gathers [qchunk, 27 M, 4]."""
+    nq = qxyz.shape[0]
+    dev = qxyz.device
+    m = grid.cell_xyzw.shape[1]
+    kk = min(k, 27 * m)
+    finite = torch.isfinite(qxyz).all(dim=-1)
+    q_use = qvalid & finite
+    slots = _query_neighbor_slots(grid, torch.where(finite[:, None], qxyz,
+                                                    0.0))
+    d2k = torch.empty((nq, kk), dtype=torch.float32, device=dev)
+    ids = torch.empty((nq, kk), dtype=torch.int64, device=dev)
+    found = torch.empty(nq, dtype=torch.int32, device=dev)
+    for s in range(0, nq, qchunk):
+        e = min(s + qchunk, nq)
+        d2k[s:e], ids[s:e], found[s:e] = _knn_rows(
+            _xyzw_rows(grid, slots[s:e]), qxyz[s:e], q_use[s:e], kk)
+    return _knn_result(d2k, ids, found, q_use, grid, k, kk)
+
+
+def point_radius_count(grid: CellGrid, qxyz, qvalid, radius, *,
+                       qchunk: int = 4096):
+    """Count of grid points within ``radius`` (inclusive) of each query,
+    int32[Q], r2 as `knn._radius_sq` forms it. Exact iff radius <= the
+    cell and no block truncated (``grid.overflow``)."""
+    from .knn import _radius_sq
+
+    nq = qxyz.shape[0]
+    dev = qxyz.device
+    r2 = _radius_sq(radius, dev)
+    finite = torch.isfinite(qxyz).all(dim=-1)
+    q_use = qvalid & finite
+    slots = _query_neighbor_slots(grid, torch.where(finite[:, None], qxyz,
+                                                    0.0))
+    counts = torch.empty(nq, dtype=torch.int32, device=dev)
+    for s in range(0, nq, qchunk):
+        e = min(s + qchunk, nq)
+        rows = _xyzw_rows(grid, slots[s:e])
+        ok = ((rows[..., 3] >= 0.0) & q_use[s:e, None]
+              & (_sum_sq(rows[..., :3] - qxyz[s:e, None, :]) <= r2))
+        counts[s:e] = ok.sum(dim=1).to(torch.int32)
+    return counts
+
+
+def slab_knn(grid: CellGrid, qxyz, qvalid, *, k: int, qchunk: int = 4096):
+    """Same-cloud kNN in the two-stage slab pattern: every cell's candidate
+    slab materialised once, then one slab row a query. The queries must be
+    the grid's own points (`point_slot`). Returns `point_knn`'s (dists,
+    idx, nvalid, point_ok); a point in no block is not certified."""
+    cap, m, _ = grid.cell_xyzw.shape
+    n = qxyz.shape[0]
+    dev = qxyz.device
+    kk = min(k, grid.neighbor_slots.shape[1] * m)
+    slab = _xyzw_rows(grid, grid.neighbor_slots)  # [C, 27 M, 4]
+    q_use = qvalid & torch.isfinite(qxyz).all(dim=-1)
+    in_grid = grid.point_slot < cap
+    slot = torch.clamp(grid.point_slot, max=cap - 1).long()
+    use = q_use & in_grid
+    d2k = torch.empty((n, kk), dtype=torch.float32, device=dev)
+    ids = torch.empty((n, kk), dtype=torch.int64, device=dev)
+    found = torch.empty(n, dtype=torch.int32, device=dev)
+    for s in range(0, n, qchunk):
+        e = min(s + qchunk, n)
+        d2k[s:e], ids[s:e], found[s:e] = _knn_rows(
+            slab[slot[s:e]], qxyz[s:e], use[s:e], kk)
+    return _knn_result(d2k, ids, found, q_use, grid, k, kk, in_grid=in_grid)

@@ -1,9 +1,12 @@
 """Whole-cloud neighbour ops with exactness certified on the host: the
-counterpart of the sweep-backed part of `pointclouds_tpu/spatial/engine.py`
-(`knn`, `cluster_labels`, `sor_means`, `radius_count_sweep`, `normals` and
-their helpers).
+counterpart of `pointclouds_tpu/spatial/engine.py` (`knn`,
+`radius_count`, `cluster_labels`, `sor_means`, `radius_count_sweep`,
+`normals` and their helpers).
 
-`knn` and `cluster_labels` are the API's entries; the others are the exact
+`knn` and `cluster_labels` are the API's entries; `knn` and `radius_count`
+take the reference's ladder, the sweeps then the cell grid's three passes
+(`cellgrid.point_knn`, `slab_knn`, `point_radius_count`) then the brute
+force. The others are the exact
 multi-dispatch paths that the fused API ops (`ops/fusedops.py`) fall back
 to when their static rescue capacity overflows: one sweep, one host read of
 its certificate or flags, then a brute-force rescue of the flagged rows, of
@@ -11,9 +14,7 @@ any number. `cluster_labels` takes the reference's cell-graph rung
 (`cellgrid.py`), then its int64-keyed grid rung (`radius_neighbors` +
 `segmentation.propagate_labels`). Clouds of 2^24 points or more, past the
 sweep kernels' f32 positions, go to the int64-keyed grid (`grid.py`,
-`knn.grid_knn`) as in the JAX package. Where the JAX package's `knn` and
-radius counts take their cell-grid rungs (not ported) the port takes the
-exact brute force.
+`knn.grid_knn`) as in the JAX package.
 
 On the TPU the JAX package picks the Pallas kernels or their XLA mirrors
 (`_kernel_preference`, VMEM gates) and degrades to the mirrors when a
@@ -31,12 +32,20 @@ import torch
 from ..ops.filters import sor_mean_dists_from_knn
 from ..ops.normals import normals_from_knn, normals_from_moment_rows
 from . import sweep
-from .cellgrid import build_cellgrid, cell_graph_adjacency, cell_graph_labels
+from .cellgrid import (
+    build_cellgrid,
+    cell_graph_adjacency,
+    cell_graph_labels,
+    point_knn,
+    point_radius_count,
+    slab_knn,
+)
 from .grid import build_grid
 from .knn import (
     bruteforce_knn,
     bruteforce_radius_count,
     grid_knn,
+    grid_radius_count,
     grid_radius_neighbors,
 )
 from .sweep import (
@@ -44,7 +53,6 @@ from .sweep import (
     sweep_cluster_labels,
     sweep_knn_cross_two_pass,
     sweep_knn_moments,
-    sweep_knn_two_pass,
     sweep_radius_count,
     sweep_sor_two_pass,
 )
@@ -121,14 +129,20 @@ def _rescue_cap(count: int, n: int) -> int:
     return n
 
 
-def _flagged_subset(residual, n: int):
-    """Rows of ``residual`` padded to a `_rescue_cap` bucket: (rows i64[cap]
-    with padding = n, the scatter's drop slot; sub_valid bool[cap])."""
-    rows = residual.nonzero(as_tuple=True)[0]  # host read: the flagged rows
+def _pad_rows(rows, n: int):
+    """Row indices i64 padded to a `_rescue_cap` bucket with n, the
+    scatter's drop slot (the reference pads with row 0, so that a flagged
+    row 0 could take its unpatched row back): (rows i64[cap], sub_valid
+    bool[cap])."""
     cap = _rescue_cap(rows.numel(), n)
-    sub = torch.full((cap,), n, dtype=torch.int64, device=residual.device)
+    sub = torch.full((cap,), n, dtype=torch.int64, device=rows.device)
     sub[: rows.numel()] = rows
-    return sub, torch.arange(cap, device=residual.device) < rows.numel()
+    return sub, torch.arange(cap, device=rows.device) < rows.numel()
+
+
+def _flagged_subset(residual, n: int):
+    """The rows of ``residual`` (one host read), padded by `_pad_rows`."""
+    return _pad_rows(residual.nonzero(as_tuple=True)[0], n)
 
 
 def _residual(xyz, valid, point_ok):
@@ -227,7 +241,13 @@ def knn(pxyz, pvalid, qxyz, qvalid, k: int):
     """Exact batched kNN: (dists f32[Q, k] Euclidean ascending, idx i32[Q,
     k], nvalid bool[Q, k]). A query identical to a stored point returns it
     at distance 0. Passing the point tensors themselves as the queries
-    selects the same-cloud sweep."""
+    selects the same-cloud paths.
+
+    The reference's ladder: the brute force for small clouds or k >= n,
+    the int64-keyed grid from 2^24 points; for k <= 24 the same-cloud
+    sweep, or the cross-cloud sweep for more than `BRUTE_THRESHOLD`
+    queries, each giving up (None) where it fits badly; then the cell
+    grid (`_knn_cellgrid`)."""
     n = pxyz.shape[0]
     if k <= 0:
         raise ValueError("k must be >= 1 at the engine level")
@@ -235,12 +255,109 @@ def knn(pxyz, pvalid, qxyz, qvalid, k: int):
         return bruteforce_knn(pxyz, pvalid, qxyz, qvalid, k)
     if n >= CELLGRID_MAX_N:
         return _knn_int64(pxyz, pvalid, qxyz, qvalid, k)
+    same_cloud = qxyz is pxyz and qvalid is pvalid
     if k <= _SWEEP_KNN_MAX_K:
-        if qxyz is pxyz and qvalid is pvalid:
-            return _knn_sweep_same_cloud(pxyz, pvalid, k)
-        if qxyz.shape[0] > BRUTE_THRESHOLD:
-            return _knn_sweep_cross(pxyz, pvalid, qxyz, qvalid, k)
-    return bruteforce_knn(pxyz, pvalid, qxyz, qvalid, k)
+        out = None
+        if same_cloud:
+            out = _knn_sweep_same_cloud(pxyz, pvalid, k)
+        elif qxyz.shape[0] > BRUTE_THRESHOLD:
+            out = _knn_sweep_cross(pxyz, pvalid, qxyz, qvalid, k)
+        if out is not None:
+            return out
+    return _knn_cellgrid(pxyz, pvalid, qxyz, qvalid, k, same_cloud)
+
+
+def _subset_cap(count: int) -> int:
+    """The reference's padded size of a flagged subset, a power of two of
+    at least 1024: its coarse pass runs only where this is at most the
+    cloud's size."""
+    return max(1024, 1 << int(np.ceil(np.log2(max(count, 1)))))
+
+
+def _subset(rows, qxyz, qvalid):
+    """Flagged query ``rows`` padded by `_pad_rows`: (rows, their query
+    validity, their coordinates)."""
+    nq = qxyz.shape[0]
+    sub, sub_valid = _pad_rows(rows, nq)
+    safe = torch.clamp(sub, max=nq - 1)
+    return sub, qvalid[safe] & sub_valid, qxyz[safe]
+
+
+def _patch_rows(out, sub, sv, patch):
+    """``out`` (dists, idx, nvalid) with the ``sub`` rows replaced by
+    ``patch``'s rows (``sv``: the valid ones; padding slots are dropped)."""
+    sv = sv[:, None]
+    d, i, v = out
+    d3, i3, v3 = patch
+    return (_set_rows(d, sub, torch.where(sv, d3, 0.0)),
+            _set_rows(i, sub, torch.where(sv, i3, 0)),
+            _set_rows(v, sub, sv & v3))
+
+
+def _knn_cellgrid(pxyz, pvalid, qxyz, qvalid, k: int, same_cloud: bool):
+    """The reference's three cell-grid passes. Pass 1: a grid at the
+    estimated kth-neighbour cell, the per-cell capacity grown over
+    `M_LADDER` from the first with 27 M >= k + 1 (the brute force where the
+    table overflows or no capacity holds); the same cloud rebuilt at the
+    tight cell cap for `slab_knn`, other queries through `point_knn`.
+    Pass 2: the flagged rows at a 2.5x cell and the largest capacity, when
+    their padded subset is no larger than the cloud. Pass 3: the brute
+    force of the rows still flagged. One host read a pass: its flags."""
+    n = pxyz.shape[0]
+    cell = estimate_cell_size(pxyz, pvalid, k)
+    cap = _cell_cap(n)
+    m_i = 0
+    # Enough block slots that the 27-cell slab can hold k results at all.
+    while 27 * M_LADDER[min(m_i, len(M_LADDER) - 1)] < k + 1:
+        m_i += 1
+    grid = None
+    for _ in range(MAX_TRIES):
+        m = M_LADDER[min(m_i, len(M_LADDER) - 1)]
+        g = build_cellgrid(pxyz, pvalid, cell, m_per_cell=m, cell_cap=cap)
+        # host read: both flags
+        table_over, over = torch.stack([g.table_overflow, g.overflow]
+                                       ).tolist()
+        if table_over:
+            return bruteforce_knn(pxyz, pvalid, qxyz, qvalid, k)
+        if not over:
+            grid = g
+            break
+        m_i += 1
+    if grid is None:
+        return bruteforce_knn(pxyz, pvalid, qxyz, qvalid, k)
+
+    if same_cloud:
+        # A tight cell cap (the slab scales with it), then the slab pass.
+        m = M_LADDER[min(m_i, len(M_LADDER) - 1)]
+        tight = max(2048, 1 << int(np.ceil(np.log2(max(
+            int(grid.num_cells), 1)))))  # host read: the cell count
+        if tight < cap:
+            grid = build_cellgrid(pxyz, pvalid, cell, m_per_cell=m,
+                                  cell_cap=tight)
+        dists, idx, nvalid, point_ok = slab_knn(grid, qxyz, qvalid, k=k)
+    else:
+        dists, idx, nvalid, point_ok = point_knn(grid, qxyz, qvalid, k=k)
+    del grid
+    out = (dists, idx, nvalid)
+    rows = (~point_ok).nonzero(as_tuple=True)[0]  # host read: flagged rows
+    if rows.numel() == 0:
+        return out
+
+    if _subset_cap(rows.numel()) <= n:  # a real subset of the cloud
+        coarse = build_cellgrid(pxyz, pvalid, cell * 2.5,
+                                m_per_cell=M_LADDER[-1], cell_cap=cap)
+        # host read: both flags
+        if not torch.stack([coarse.overflow, coarse.table_overflow]
+                           ).any().item():
+            sub, sv, sq = _subset(rows, qxyz, qvalid)
+            d2, i2, v2, ok2 = point_knn(coarse, sq, sv, k=k)
+            out = _patch_rows(out, sub, sv, (d2, i2, v2))
+            rows = sub[sv & ~ok2]  # host read: the rows still flagged
+    if rows.numel():
+        sub, sv, sq = _subset(rows, qxyz, qvalid)
+        out = _patch_rows(out, sub, sv,
+                          bruteforce_knn(pxyz, pvalid, sq, sv, k))
+    return out
 
 
 def _knn_int64(pxyz, pvalid, qxyz, qvalid, k: int):
@@ -265,44 +382,25 @@ def _knn_int64(pxyz, pvalid, qxyz, qvalid, k: int):
     return bruteforce_knn(pxyz, pvalid, qxyz, qvalid, k)
 
 
-def _brute_flagged(pxyz, pvalid, qxyz, knn_out, residual, k: int):
-    """``knn_out`` with the ``residual`` query rows replaced by their exact
-    brute-force kNN (one host read: the flagged rows)."""
-    if not bool(residual.any()):  # host read: any flagged row
-        return knn_out
-    nq = qxyz.shape[0]
-    sub, sub_valid = _flagged_subset(residual, nq)
-    d3, i3, v3 = bruteforce_knn(pxyz, pvalid, qxyz[torch.clamp(sub, max=nq - 1)],
-                                sub_valid, k)
-    sv = sub_valid[:, None]
-    d, i, v = knn_out
-    return (_set_rows(d, sub, torch.where(sv, d3, 0.0)),
-            _set_rows(i, sub, torch.where(sv, i3, 0)),
-            _set_rows(v, sub, sv & v3))
-
-
 def _knn_sweep_same_cloud(pxyz, pvalid, k: int):
-    """All-points kNN by the fused sweep (`fusedops.knn_fused`); on its
-    rescue-cap overflow, the sweep again and the exact brute force of every
-    row it left flagged."""
+    """All-points kNN by the fused sweep (`fusedops.knn_fused`); None when
+    more rows stayed flagged than its rescue holds (the sweep fits the
+    cloud badly: the caller takes the cell grid)."""
     from ..ops.fusedops import fused_rescue_cap, knn_fused
 
     n = pxyz.shape[0]
-    wr, cap = _sweep_wr(n), fused_rescue_cap(n)
-    d, i, nv, exact = knn_fused(pxyz, pvalid, k=k, wr=wr, cap=cap)
-    if bool(exact):  # host read: the rescue-cap test
-        return d, i, nv
-    cell = estimate_cell_size(pxyz, pvalid, k)
-    d, i, nv, ok = sweep_knn_two_pass(pxyz, pvalid, np.float32(cell), k=k,
-                                      fix_cap=cap, wr=wr)
-    return _brute_flagged(pxyz, pvalid, pxyz, (d, i, nv),
-                          _residual(pxyz, pvalid, ok), k)
+    d, i, nv, exact = knn_fused(pxyz, pvalid, k=k, wr=_sweep_wr(n),
+                                cap=fused_rescue_cap(n))
+    if not bool(exact):  # host read: the rescue-cap test
+        return None
+    return d, i, nv
 
 
 def _knn_sweep_cross(pxyz, pvalid, qxyz, qvalid, k: int):
     """Cross-cloud kNN: the point cloud sorted once, the queries sorted
     into its cell frame (`sweep.sweep_knn_cross_two_pass`), then the exact
-    brute force of every query it left flagged."""
+    brute force of the queries it left flagged; None when more than
+    max(Q / 4, 4096) are flagged (the caller takes the cell grid)."""
     from ..ops.fusedops import fused_rescue_cap
 
     n, qn = pxyz.shape[0], qxyz.shape[0]
@@ -310,8 +408,53 @@ def _knn_sweep_cross(pxyz, pvalid, qxyz, qvalid, k: int):
     d, i, nv, ok = sweep_knn_cross_two_pass(
         pxyz, pvalid, qxyz, qvalid, np.float32(cell), k=k, wr=_sweep_wr(n),
         fix_cap=fused_rescue_cap(max(n, qn)))
-    return _brute_flagged(pxyz, pvalid, qxyz, (d, i, nv),
-                          _residual(qxyz, qvalid, ok), k)
+    rows = _residual(qxyz, qvalid, ok).nonzero(as_tuple=True)[0]  # host read
+    if rows.numel() == 0:
+        return d, i, nv
+    if rows.numel() > max(qn // 4, 4096):
+        return None  # the sweep fits this pair badly
+    sub, sv, sq = _subset(rows, qxyz, qvalid)
+    return _patch_rows((d, i, nv), sub, sv,
+                       bruteforce_knn(pxyz, pvalid, sq, sv, k))
+
+
+def radius_count(pxyz, pvalid, qxyz, qvalid, radius: float):
+    """Exact count of the points within ``radius`` (inclusive) of each
+    query, int32[Q]: zeros for a radius <= 0 or not finite; the brute force
+    up to `BRUTE_THRESHOLD` points; from 2^24 points the int64-keyed grid
+    (`knn.grid_radius_count`); otherwise the cell grid at a cell just above
+    the radius (`cellgrid.point_radius_count`), the per-cell capacity grown
+    over `M_LADDER`, and the brute force where the table overflows or no
+    capacity holds."""
+    n = pxyz.shape[0]
+    if radius <= 0 or not np.isfinite(radius):
+        return torch.zeros(qxyz.shape[0], dtype=torch.int32,
+                           device=qxyz.device)
+    if n <= BRUTE_THRESHOLD:
+        return bruteforce_radius_count(pxyz, pvalid, qxyz, qvalid, radius)
+    ext = _extent(pxyz, pvalid)
+    max_abs = ext[2] if ext else 0.0
+    cell = _fp_safe_radius_cell(radius, max_abs)
+    if n >= CELLGRID_MAX_N:
+        for attempt in range(MAX_TRIES):
+            m = M_LADDER[min(attempt, len(M_LADDER) - 1)]
+            counts, overflow = grid_radius_count(
+                build_grid(pxyz, pvalid, cell), qxyz, qvalid, radius, m)
+            if not bool(overflow):  # host read: the capacity held
+                return counts
+        return bruteforce_radius_count(pxyz, pvalid, qxyz, qvalid, radius)
+    cap = _cell_cap(n)
+    for attempt in range(MAX_TRIES):
+        m = M_LADDER[min(attempt, len(M_LADDER) - 1)]
+        grid = build_cellgrid(pxyz, pvalid, cell, m_per_cell=m, cell_cap=cap)
+        # host read: both flags
+        table_over, over = torch.stack([grid.table_overflow, grid.overflow]
+                                       ).tolist()
+        if table_over:
+            break
+        if not over:
+            return point_radius_count(grid, qxyz, qvalid, radius)
+    return bruteforce_radius_count(pxyz, pvalid, qxyz, qvalid, radius)
 
 
 # ── Euclidean clustering ─────────────────────────────────────────────────────

@@ -100,7 +100,7 @@ def test_bruteforce_cluster_labels_match_jax():
     assert len(np.unique(got[valid & np.isfinite(pts).all(1)])) > 5
 
 
-def test_cluster_labels_large_cloud_not_ported(monkeypatch):
+def test_cluster_labels_large_cloud_int64_grid(monkeypatch):
     """Clouds of `CELLGRID_MAX_N` points or more skip the sweep and
     cell-graph rungs and take the int64-keyed grid's lists with label
     propagation, in both packages: the limit lowered to 4096 in both so a

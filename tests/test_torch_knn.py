@@ -187,8 +187,11 @@ def test_engine_knn_matches_jax(case, monkeypatch):
     pxyz[-8:] = [[25.0 + 4.0 * j + 0.37 * j * j, 5.0, 5.0] for j in range(8)]
     pvalid[-8:] = True
     k = 30 if case == "brute_k" else 6
-    if case == "overflow":  # the fused rescue cap overflows: engine path
+    if case == "overflow":
+        # The fused rescue cap overflows in both packages: the same-cloud
+        # sweep gives up and both take the cell grid's passes.
         monkeypatch.setattr(fusedops, "fused_rescue_cap", lambda n: 4)
+        monkeypatch.setattr(jfused, "fused_rescue_cap", lambda n: 4)
         assert not bool(fusedops.knn_fused(*to_torch((pxyz, pvalid)), k=k,
                                            wr=16, cap=4)[3])
     if case == "cross":
@@ -218,7 +221,7 @@ def test_engine_knn_matches_jax(case, monkeypatch):
     _close_rows(got, want, k)
 
 
-def test_engine_knn_large_cloud_not_ported(monkeypatch):
+def test_engine_knn_large_cloud_int64_grid(monkeypatch):
     """Clouds of `CELLGRID_MAX_N` points or more: the int64-keyed grid
     (`_knn_int64`) in both packages, the limit lowered to 4096 in both so a
     5,000-point cloud takes it. Distances bitwise, indices where valid."""
