@@ -112,7 +112,19 @@ Phases:
    outputs against the unsharded pipeline on the card by the tiled
    tests' rules (and world 2 against world 1), the sharded ones equal to
    the unsharded pipeline; route, voxel and obstacle overflow flags must
-   be clean, and at world 2 the halo overflow flag too (phase11.json).
+   be clean, and at world 2 the halo overflow flag too (phase11.json);
+12. the JAX package's last public functions to get a twin: the two-sort
+   voxel front end and its sort 3 on the KITTI frame (kernel 1; bitwise
+   equal to the CPU run and to the fused front end's rows),
+   `sweep_sor_mean_dists` on its centroids at k 20 in the 0.45 m sor cell
+   (kernel 9; means bitwise equal to the CPU run where both certify), the
+   masked ICP pair on phase 7's 10K clouds (kernel 15; equal to the API's
+   ICP within 1e-5), `radius_within_mask` / `radius_indices` on the 100K
+   cloud for 8 queries (a cKDTree oracle), the cell-graph radius blocks
+   and their propagation on the 100K slab at r 0.5 over the clustering
+   rung's grid (labels equal to `cell_graph_labels`' and the oracle's),
+   `aabb`, and the launch floor of `utils/profiling.py` in µs
+   (phase12.json).
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; each of its kernels must have launched. Prints the kernels'
@@ -268,6 +280,9 @@ PATHS = {
     # The int64-keyed grid at 2^24 points (phase 9): torch ops, no kernel.
     "knn_huge": [],
     "cluster_huge": [],
+    # The two-sort voxel front end and pass 1 of the SOR sweep (phase 12).
+    "frontend": ["segmented_scan_sums"],
+    "sor_mean": ["sweep_select"],
 }
 KITTI_STAGES = ["voxel_downsample_sweep_fused", "structure_from_sorted",
                 "sweep_sor_two_pass", "sor_keep_mask_thr",
@@ -2447,6 +2462,313 @@ def phase11(card_line, add):
         raise AssertionError("phase 11: " + "; ".join(failures))
 
 
+# ── The last twins of the JAX package's public functions (phase 12) ──────
+
+PHASE12_FACTOR = 3  # the KITTI sor cell: 3 voxels
+PHASE12_K = KITTI["sor_k"]
+RADIUS_R = 0.5
+RADIUS_QUERIES = 8
+
+
+def same_bits(a, b) -> bool:
+    """Equal shapes, dtypes and bits (float32 compared as int32: -0.0 and
+    NaN payloads count)."""
+    a, b = a.cpu(), b.cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def frontend_rows(kdata, device):
+    """`voxel_downsample_sweep_frontend` on the KITTI frame, then sort 3
+    (`sweep_sort_compacted`) of its first ds_cap rows."""
+    from pointclouds_tpu_torch.core.cloud import make_cloud_arrays
+    from pointclouds_tpu_torch.ops import filters
+
+    c = make_cloud_arrays(kdata, device=device)
+    fe = filters.voxel_downsample_sweep_frontend(
+        c.xyz, c.valid, np.float32(KITTI["voxel"]), factor=PHASE12_FACTOR)
+    cap = KITTI["ds_cap"]
+    rows = filters.sweep_sort_compacted(
+        *(fe[k][:cap] for k in ("cxm", "cym", "czm", "canon", "out_valid")),
+        fe["ext_v"], fe["extent"], factor=PHASE12_FACTOR)
+    return c, fe, rows
+
+
+def phase12_frontend(kdata, K, add, gates):
+    """The two-sort front end (kernel 1) on the KITTI bench frame: equal
+    to the CPU run key by key and to the fused front end's rows. Returns
+    the sweep-order rows for the SOR pass."""
+    from pointclouds_tpu_torch.ops import filters
+
+    (c, fe, rows), launches = path_launches(
+        K, "frontend", lambda: frontend_rows(kdata, "cuda"))
+    add(launches)
+    _, fe_cpu, rows_cpu = frontend_rows(kdata, "cpu")
+    fused = filters.voxel_downsample_sweep_fused(
+        c.xyz, c.valid, np.float32(KITTI["voxel"]), factor=PHASE12_FACTOR,
+        ds_cap=KITTI["ds_cap"])
+    nvox = int(fe["out_valid"].sum())
+    cpu_equal = (all(same_bits(fe[k], fe_cpu[k]) for k in fe)
+                 and all(same_bits(a, b) for a, b in zip(rows, rows_cpu)))
+    fused_equal = all(same_bits(a, fused[k]) for a, k in zip(
+        rows, ("centroids", "out_valid", "slin", "canon")))
+    ms, _ = p50_ms(lambda: frontend_rows(kdata, "cuda"))
+    gates["frontend"] = dict(voxels=nvox, cpu_equal=cpu_equal,
+                             fused_equal=fused_equal, p50_ms=ms,
+                             table_overflow=bool(fe["table_overflow"]),
+                             ds_overflow=bool(fused["ds_overflow"]))
+    log(f"phase 12 front end + sort 3 (KITTI frame, {nvox} voxels): bitwise "
+        f"equal to the CPU run {cpu_equal}, to the fused front end's rows "
+        f"{fused_equal}; p50 {ms:.3f} ms [{gates['card']}]")
+    if not (cpu_equal and fused_equal) or nvox > KITTI["ds_cap"]:
+        raise AssertionError("phase 12 front end differs or overflows")
+    return rows
+
+
+def phase12_sor(rows, K, add, gates):
+    """`sweep_sor_mean_dists` (kernel 9) on the frame's centroids at k 20,
+    at the KITTI pipeline's sor cell (3 voxels, 0.45 m; without the
+    pipeline's per-query coverage, so fewer rows certify) and the default
+    window budget: means bitwise equal to the CPU run wherever both
+    certify."""
+    from pointclouds_tpu_torch.spatial import sweep
+
+    cen, val = rows[0], rows[1]
+    cell = np.float32(KITTI["voxel"] * PHASE12_FACTOR)
+    wr = 4
+    call = lambda: sweep.sweep_sor_mean_dists(cen, val, cell, k=PHASE12_K,
+                                              wr=wr)
+    (mean, ok, cert), launches = path_launches(K, "sor_mean", call)
+    add(launches)
+    cmean, cok, ccert = sweep.sweep_sor_mean_dists(cen.cpu(), val.cpu(), cell,
+                                                   k=PHASE12_K, wr=wr)
+    mean, ok = mean.cpu(), ok.cpu()
+    both = ok & cok
+    equal = same_bits(mean[both], cmean[both])
+    nval = int(val.sum())
+    share = int(ok.sum()) / max(nval, 1)
+    ms, _ = p50_ms(call)
+    gates["sweep_sor_mean_dists"] = dict(
+        rows=nval, cell=float(cell), wr=wr, certified_share=share,
+        certified=bool(cert),
+        cpu_certified=bool(ccert), ok_equal=torch.equal(ok, cok),
+        means_bitwise=equal, p50_ms=ms)
+    log(f"phase 12 sweep_sor_mean_dists k {PHASE12_K} cell {cell} wr {wr} on "
+        f"{nval} centroids: certified share {share:.6f} (CPU "
+        f"{int(cok.sum()) / max(nval, 1):.6f}), means bitwise equal where "
+        f"both certify {equal}; p50 {ms:.3f} ms [{gates['card']}]")
+    if not equal or int(both.sum()) == 0:
+        raise AssertionError("phase 12 sweep_sor_mean_dists differs")
+
+
+def masked_result(api, got):
+    """The masked ICP 6-tuple as the API's IcpResult."""
+    rot, trans, fit, rmse, conv, iters = (v.cpu() for v in got)
+    return api.IcpResult(converged=bool(conv), fitness=float(fit),
+                         rmse=float(rmse), num_iterations=int(iters),
+                         translation=trans.tolist(), rotation=rot.tolist())
+
+
+def phase12_icp(K, add, gates):
+    """The masked ICP pair (kernel 15) on phase 7's 10K clouds, untrimmed:
+    equal to the API's ICP on the card (iterations and convergence equal,
+    rotation and translation within 1e-5, fitness and rmse within rtol
+    1e-5)."""
+    from pointclouds_tpu_torch import api
+    from pointclouds_tpu_torch.ops import registration
+    from pointclouds_tpu_torch.utils import profiling
+
+    src, tgt = icp_clouds(api)
+    tgt_n = api.estimate_normals(tgt, 10)
+    s, t, tn = src._arrs, tgt._arrs, tgt_n._arrs
+    scal = (50, np.float32(1e-5), np.float32(np.inf))
+    calls = {
+        "point_to_point": (
+            lambda: registration.icp_point_to_point_masked(
+                s.xyz, s.valid, t.xyz, t.valid, *scal),
+            lambda: api.icp_point_to_point(src, tgt, max_iterations=50)),
+        "point_to_plane": (
+            lambda: registration.icp_point_to_plane_masked(
+                s.xyz, s.valid, tn.xyz, tn.valid, tn.normals, *scal),
+            lambda: api.icp_point_to_plane(src, tgt_n, max_iterations=50)),
+    }
+    for name, (masked, api_call) in calls.items():
+        got, launches = path_launches(K, "icp", masked)
+        add(launches)
+        res, m = api_call(), masked_result(api, got)
+        close = bool(icp_close(m, res)
+                     and np.isclose(m.fitness, res.fitness, rtol=1e-5)
+                     and np.isclose(m.rmse, res.rmse, rtol=1e-5, atol=1e-6))
+        lo, p50 = profiling.time_fn(masked, reps=3)
+        api_lo, api_p50 = profiling.time_fn(api_call, reps=3)
+        gates[f"icp_{name}_masked"] = dict(
+            masked=repr(m), translation=m.translation, api=repr(res),
+            equal_to_api=close, rows=int(s.xyz.shape[0]),
+            min_ms=lo, p50_ms=p50, api_min_ms=api_lo, api_p50_ms=api_p50)
+        log(f"phase 12 icp_{name}_masked ({s.xyz.shape[0]} rows, untrimmed): "
+            f"{m} translation {m.translation}; equal to the API's {res}: "
+            f"{close}; "
+            f"time_fn min/p50 {lo:.3f}/{p50:.3f} ms (API, trimmed: "
+            f"{api_lo:.3f}/{api_p50:.3f} ms) [{gates['card']}]")
+        if not (close and m.converged):
+            raise AssertionError(f"phase 12 icp_{name}_masked differs")
+
+
+def phase12_radius(gates):
+    """`radius_within_mask` and `radius_indices` on phase 6's 100K cloud for
+    a handful of queries against a float64 cKDTree query_ball_point; rows
+    within 1e-6 of the radius are ties, counted and let differ."""
+    from scipy.spatial import cKDTree
+
+    from pointclouds_tpu_torch.core.cloud import make_cloud_arrays
+    from pointclouds_tpu_torch.spatial import engine, knn
+
+    pts = bench_cloud(100_000)
+    c = make_cloud_arrays(pts, device="cuda")
+    rng = np.random.default_rng(12)
+    queries = np.vstack([pts[:RADIUS_QUERIES // 2],
+                         rng.random((RADIUS_QUERIES - RADIUS_QUERIES // 2,
+                                     3)) * 10]).astype(np.float32)
+    tree = cKDTree(pts.astype(np.float64))
+    p64 = pts.astype(np.float64)
+    bad = ties = found = 0
+    for q in queries:
+        idx = engine.radius_indices(c.xyz, c.valid, q, RADIUS_R)
+        mask = knn.radius_within_mask(
+            c.xyz, c.valid, torch.from_numpy(q).cuda(),
+            np.float32(RADIUS_R)).cpu().numpy()
+        want = np.sort(tree.query_ball_point(q.astype(np.float64),
+                                             RADIUS_R * (1 + 1e-6)))
+        d = np.linalg.norm(p64[want] - q.astype(np.float64), axis=1)
+        near = np.abs(d - RADIUS_R) <= 1e-6 * RADIUS_R
+        ties += int(near.sum())
+        sure = set(want[~near].tolist())
+        got = set(idx.tolist())
+        bad += len(sure - got) + len(got - set(want.tolist()))
+        bad += int(not np.array_equal(np.nonzero(mask)[0], idx))
+        found += len(idx)
+    ms, _ = p50_ms(lambda: engine.radius_indices(c.xyz, c.valid, queries[0],
+                                                 RADIUS_R))
+    gates["radius"] = dict(queries=RADIUS_QUERIES, found=found,
+                           differ=bad, ties=ties, p50_ms=ms)
+    log(f"phase 12 radius_indices / radius_within_mask r {RADIUS_R} on 100K "
+        f"points, {RADIUS_QUERIES} queries: {found} rows found, {bad} "
+        f"differ from the cKDTree oracle ({ties} rows within 1e-6 of the "
+        f"radius); p50 {ms:.3f} ms a query [{gates['card']}]")
+    if bad:
+        raise AssertionError("phase 12 radius search differs from the oracle")
+
+
+def phase12_cell_graph(gates):
+    """`cell_radius_neighbor_blocks` + `cell_propagate_labels` on the 100K
+    slab at r 0.5 over the clustering rung's grid (cell r/2 less the f32
+    margin, ring 2, the first M of engine.M_LADDER that holds): labels
+    equal to `cell_graph_labels`' and clusters to the query_pairs +
+    connected-components oracle."""
+    from pointclouds_tpu_torch.core.cloud import make_cloud_arrays
+    from pointclouds_tpu_torch.spatial import cellgrid, engine
+
+    slab = slab_cloud()
+    c = make_cloud_arrays(slab, device="cuda")
+    r = np.float32(LARGE_R)
+    ext = engine._extent(c.xyz, c.valid)
+    cell = float(r) * 0.5 * (1.0 - 1e-5) - ext[2] * 3e-7
+    cap = engine._cell_cap(c.xyz.shape[0])
+    for m in engine.M_LADDER:
+        grid = cellgrid.build_cellgrid(c.xyz, c.valid, cell, m_per_cell=m,
+                                       cell_cap=cap, ring=2)
+        if not bool(grid.overflow):
+            break
+    if bool(grid.overflow) or bool(grid.table_overflow):
+        raise AssertionError("phase 12: the slab's cell grid overflows")
+
+    def run():
+        nb, within = cellgrid.cell_radius_neighbor_blocks(grid, r)
+        return cellgrid.cell_propagate_labels(grid, nb, within)
+
+    labels = run()
+    torch.cuda.synchronize()
+    ms, _ = p50_ms(run, reps=3)
+    want = cellgrid.cell_graph_labels(
+        grid, cellgrid.cell_graph_adjacency(grid, r))
+    same = torch.equal(labels, want)
+    got = canonical_clusters(labels[:len(slab)].cpu().numpy(), *CLUSTER_SIZES)
+    oracle, near = oracle_clusters(slab, float(r))
+    gates["cell_graph"] = dict(m_per_cell=m, cells=int(grid.num_cells),
+                               cell_cap=cap, clusters=len(got),
+                               equal_to_cell_graph_labels=same,
+                               oracle_equal=got == oracle,
+                               pairs_near_radius=near, p50_ms=ms)
+    log(f"phase 12 cell_radius_neighbor_blocks + cell_propagate_labels "
+        f"(slab 100K, r {r}, M {m}, {int(grid.num_cells)} cells): "
+        f"{len(got)} clusters, labels equal to cell_graph_labels' {same}, "
+        f"to the oracle {got == oracle} ({near} pairs within 1e-6 of the "
+        f"radius); p50 {ms:.3f} ms [{gates['card']}]")
+    if not same or (got != oracle and near == 0):
+        raise AssertionError("phase 12 cell-graph labels differ")
+
+
+def phase12_aabb(gates):
+    """`aabb` on phase 6's 100K cloud with non-finite and invalid rows, and
+    on an all-invalid cloud: equal to numpy's masked min and max."""
+    from pointclouds_tpu_torch.core.cloud import aabb
+
+    pts = bench_cloud(100_000)
+    pts[::97] = np.nan
+    valid = np.ones(len(pts), bool)
+    valid[::13] = False
+    use = valid & np.isfinite(pts).all(axis=1)
+    x, v = torch.from_numpy(pts).cuda(), torch.from_numpy(valid).cuda()
+    mn, mx, empty = (t.cpu().numpy() for t in aabb(x, v))
+    ok = (np.array_equal(mn, pts[use].min(axis=0))
+          and np.array_equal(mx, pts[use].max(axis=0)) and not empty)
+    _, _, none = aabb(x, torch.zeros_like(v))
+    ok = ok and bool(none)
+    gates["aabb"] = dict(min=mn.tolist(), max=mx.tolist(), equal=ok)
+    log(f"phase 12 aabb: min {mn.tolist()} max {mx.tolist()}, equal to "
+        f"numpy's and empty when all invalid: {ok}")
+    if not ok:
+        raise AssertionError("phase 12 aabb differs")
+
+
+def phase12(card_line, K, add, kdata):
+    """The JAX package's last public functions on the card: the two-sort
+    voxel front end (kernel 1), `sweep_sor_mean_dists` (kernel 9), the
+    masked ICP pair (kernel 15), the single-query radius search, the
+    cell-graph radius blocks with their propagation, `aabb`, and the
+    timing helpers of `utils/profiling.py` (the launch floor)
+    (phase12.json)."""
+    from pointclouds_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    gates = dict(card=card_line)
+    rows = phase12_frontend(kdata, K, add, gates)
+    phase12_sor(rows, K, add, gates)
+    phase12_icp(K, add, gates)
+    phase12_radius(gates)
+    phase12_cell_graph(gates)
+    phase12_aabb(gates)
+    floor = profiling.measure_dispatch_floor()
+    floors = [profiling.measure_dispatch_floor(reps=50) for _ in range(3)]
+    x = torch.ones(8, device="cuda")
+    lo, p50 = profiling.time_fn(lambda: x + 1, reps=50, warmup=5)
+    gates["launch_floor"] = dict(
+        measure_dispatch_floor_ms=floor, floors_50_reps_ms=floors,
+        time_fn_add_min_ms=lo, time_fn_add_p50_ms=p50)
+    log(f"phase 12 launch floor (measure_dispatch_floor: a + 1 on 8 floats "
+        f"and a synchronize, median of 10): {floor * 1e3:.2f} us; three more "
+        f"medians of 50: {[round(f * 1e3, 2) for f in floors]} us; time_fn "
+        f"min/p50 {lo * 1e3:.2f}/{p50 * 1e3:.2f} us [{card_line}]")
+    gates["wall_s"] = time.perf_counter() - t0
+    log(f"phase 12 wall {gates['wall_s']:.1f} s")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "phase12.json").write_text(json.dumps(gates, indent=1,
+                                                     default=str))
+
+
 # ── A/B: this checkout's kernels and frame against other checkouts' ──────
 
 AB_INPUTS = ROOT / "build" / "chip_smoke_ab" / "inputs.pt"
@@ -3060,6 +3382,9 @@ def main() -> int:
 
     # ── Phase 11: multi-device on the one card ──
     phase11(card_line, add)
+
+    # ── Phase 12: the last twins of the JAX package's public functions ──
+    phase12(card_line, K, add, kdata)
 
     for r in rows:
         r["launches"] = launches_total[r["name"]]

@@ -115,6 +115,16 @@ def gather_cloud(arrs: CloudTensors, indices: torch.Tensor,
     return _map_rows(arrs, lambda a: a[idx], valid)
 
 
+def aabb(xyz: torch.Tensor, valid: torch.Tensor):
+    """Masked axis-aligned bounding box over the valid, finite points
+    (non-finite points are skipped). Returns (min f32[3], max f32[3],
+    is_empty bool[]); an empty box is (+inf, -inf, True)."""
+    use = (valid & torch.isfinite(xyz).all(dim=-1))[:, None]
+    mn = torch.where(use, xyz, torch.inf).amin(dim=0)
+    mx = torch.where(use, xyz, -torch.inf).amax(dim=0)
+    return mn, mx, ~use.any()
+
+
 def apply_rigid(xyz: torch.Tensor, rotation: torch.Tensor,
                 translation: torch.Tensor) -> torch.Tensor:
     """R @ p + t for every point, with each coordinate's dot product in

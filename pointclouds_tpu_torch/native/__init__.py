@@ -166,6 +166,12 @@ def _load_pcquery():
     return mod
 
 
+def get_lib():
+    """The I/O runtime (libpcio) through ctypes, or None where there is no
+    compiler."""
+    return _load()
+
+
 def available() -> bool:
     """True where the C++ libraries are built (a compiler exists); False
     where the numpy paths serve."""

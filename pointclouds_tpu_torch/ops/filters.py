@@ -1,13 +1,18 @@
-"""Voxel downsample (plain, and fused with the sweep SOR ordering), the
-passthrough mask and the SOR keep mask: the counterparts of
+"""Voxel downsample (plain, fused with the sweep SOR ordering, and the
+two-sort front end with its sort into sweep order), the passthrough mask
+and the SOR keep mask: the counterparts of
 `pointclouds_tpu/ops/filters.py`'s `_segment_sums`,
 `voxel_downsample_masked`, `voxel_scan_sor_epilogue`,
-`voxel_downsample_sweep_fused`, `passthrough_mask`, `sor_keep_mask(_thr)`
-and `sor_mean_dists_from_knn`.
+`voxel_downsample_sweep_fused`, `voxel_downsample_sweep_frontend`,
+`sweep_sort_compacted`, `passthrough_mask`, `sor_keep_mask(_thr)` and
+`sor_mean_dists_from_knn`.
 
 Centroid values are bitwise equal to the JAX package's: the canonical-key
 stable sort groups each voxel's points in the same order, and the
 segmented scan kernel replays the reference's f32 add tree.
+
+Dropped keyword argument: ``use_kernel`` (the device of the input tensors
+picks the CUDA kernel or its plain version).
 """
 
 from __future__ import annotations
@@ -30,6 +35,20 @@ def _segment_sums(first, sx, sy, sz, scnt):
                                sz.contiguous(), scnt.contiguous())
 
 
+def _scan_sorted(skey, invalid, sx, sy, sz):
+    """The shared scan of rows stably sorted by voxel key (``invalid`` keys
+    last): coordinates zeroed on invalid rows, segment starts and ends,
+    and the per-segment sums (kernel ``segmented_scan_sums``). Returns
+    (suse, first, is_end, (cx, cy, cz, ccnt))."""
+    suse = skey != invalid
+    sx, sy, sz = (torch.where(suse, v, 0.0) for v in (sx, sy, sz))
+    ones = torch.ones(1, dtype=torch.bool, device=skey.device)
+    first = torch.cat([ones, skey[1:] != skey[:-1]])
+    is_end = torch.cat([first[1:], ones])
+    return suse, first, is_end, _segment_sums(first, sx, sy, sz,
+                                              suse.to(torch.float32))
+
+
 def voxel_downsample_masked(xyz, valid, voxel_size):
     """Masked voxel-grid centroid downsample. ``voxel_size`` is taken as
     float32.
@@ -43,13 +62,8 @@ def voxel_downsample_masked(xyz, valid, voxel_size):
                       INVALID_KEY)
     order = stable_argsort(key)
     skey = key[order]
-    suse = skey != INVALID_KEY
-    sx, sy, sz = (torch.where(suse, xyz[order, i], 0.0) for i in range(3))
-    ones = torch.ones(1, dtype=torch.bool, device=xyz.device)
-    first = torch.cat([ones, skey[1:] != skey[:-1]])
-    is_end = torch.cat([first[1:], ones])
-    cx, cy, cz, ccnt = _segment_sums(first, sx, sy, sz,
-                                     suse.to(torch.float32))
+    _, first, is_end, (cx, cy, cz, ccnt) = _scan_sorted(
+        skey, INVALID_KEY, *(xyz[order, i] for i in range(3)))
 
     # Segment totals to the leading rows, in ascending key order.
     ends = stable_argsort((~is_end).to(torch.int32))
@@ -70,15 +84,8 @@ def voxel_scan_sor_epilogue(skey, sx, sy, sz, ext_v, esc, *, factor: int,
     compaction sort. Returns dict(centroids f32[ds_cap, 3], out_valid,
     slin i32 ascending sor ids (table_size sentinel), canon i32,
     ds_overflow bool)."""
-    suse = skey != INVALID32
-    sx = torch.where(suse, sx, 0.0)
-    sy = torch.where(suse, sy, 0.0)
-    sz = torch.where(suse, sz, 0.0)
-    scnt = suse.to(torch.float32)
-    ones = torch.ones(1, dtype=torch.bool, device=skey.device)
-    first = torch.cat([ones, skey[1:] != skey[:-1]])
-    is_end = torch.cat([first[1:], ones])
-    cx, cy, cz, ccnt = _segment_sums(first, sx, sy, sz, scnt)
+    suse, _, is_end, (cx, cy, cz, ccnt) = _scan_sorted(skey, INVALID32, sx,
+                                                       sy, sz)
 
     # The only post-scan sort: sor-cell id for segment ends (table_size
     # otherwise); equal sor keys keep canonical voxel order.
@@ -105,20 +112,15 @@ def voxel_scan_sor_epilogue(skey, sx, sy, sz, ext_v, esc, *, factor: int,
                 canon=ecanon[:ds_cap], ds_overflow=ds_overflow)
 
 
-def voxel_downsample_sweep_fused(xyz, valid, voxel_size, *, factor: int,
-                                 ds_cap: int, table_size: int = 1 << 21):
-    """Voxel-centroid downsample emitting rows directly in sor-cell-major
-    sweep order (sor cell = ``factor`` voxels). ``voxel_size`` is taken as
-    float32, as the JAX pipeline receives it.
-
-    Returns a dict: centroids f32[ds_cap, 3], out_valid bool[ds_cap], slin
-    i32[ds_cap] (ascending; table_size on invalid rows), canon i32[ds_cap]
-    (canonical voxel rank), ds_overflow bool, extent i32[3] (sor grid),
-    hi_cells f32, table_overflow bool, mn_v i32[3] (voxel-lattice origin).
-    """
-    x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+def _canonical_sort(xyz, valid, voxel_size, factor: int, table_size: int):
+    """Sort 1 of the sweep front ends: the voxel lattice's origin ``mn_v``
+    and extent ``ext_v``, the sor grid's extent ``esc`` (``factor`` voxels
+    a cell), whether either grid outgrows its table, and the rows stably
+    sorted by canonical voxel rank (lex (ix, iy, iz), the
+    `voxel_downsample_masked` order; invalid rows 2^31-1, last) as
+    ``skey``, ``sx``, ``sy``, ``sz``, with ``hi_cells``, the |coord| /
+    sor-cell bound of the certificate margin."""
     use = valid & torch.isfinite(xyz).all(dim=1)
-
     c = cell_coords(xyz, voxel_size)
     big32 = 2**30
     mn_v = torch.where(use[:, None], c, big32).amin(dim=0)
@@ -136,22 +138,97 @@ def voxel_downsample_sweep_fused(xyz, valid, voxel_size, *, factor: int,
     ckey64 = (rel64[:, 0] * ext64[1] + rel64[:, 1]) * ext64[2] + rel64[:, 2]
     ckey = torch.where(use, torch.clamp(ckey64, 0, 2**31 - 2),
                        INVALID32).to(torch.int32)
-
-    # Sort 1, canonical order: the same per-voxel accumulation order as the
-    # JAX package, so centroids stay bitwise equal.
+    # Canonical order: the same per-voxel accumulation order as the JAX
+    # package, so centroids stay bitwise equal.
     order = stable_argsort(ckey)
-    ep = voxel_scan_sor_epilogue(
-        ckey[order], x[order], y[order], z[order], ext_v, esc, factor=factor,
-        ds_cap=ds_cap, table_size=table_size,
-    )
     hi_v = torch.maximum(mn_v.abs(), (mn_v + ext_v).abs()).amax().to(
         torch.float32)
     # (hi_v + f) / f as the reference computes it: XLA folds the division
     # by the constant into a multiply by its float32 reciprocal.
     hi_cells = (hi_v + float(factor)) * scalar_like(np.float32(1.0 / factor),
                                                     hi_v)
-    return dict(ep, extent=esc, hi_cells=hi_cells,
-                table_overflow=table_overflow, mn_v=mn_v)
+    return dict(mn_v=mn_v, ext_v=ext_v, esc=esc,
+                table_overflow=table_overflow, hi_cells=hi_cells,
+                skey=ckey[order], sx=xyz[order, 0], sy=xyz[order, 1],
+                sz=xyz[order, 2])
+
+
+def voxel_downsample_sweep_fused(xyz, valid, voxel_size, *, factor: int,
+                                 ds_cap: int, table_size: int = 1 << 21):
+    """Voxel-centroid downsample emitting rows directly in sor-cell-major
+    sweep order (sor cell = ``factor`` voxels). ``voxel_size`` is taken as
+    float32, as the JAX pipeline receives it.
+
+    Returns a dict: centroids f32[ds_cap, 3], out_valid bool[ds_cap], slin
+    i32[ds_cap] (ascending; table_size on invalid rows), canon i32[ds_cap]
+    (canonical voxel rank), ds_overflow bool, extent i32[3] (sor grid),
+    hi_cells f32, table_overflow bool, mn_v i32[3] (voxel-lattice origin).
+    """
+    g = _canonical_sort(xyz, valid, voxel_size, factor, table_size)
+    ep = voxel_scan_sor_epilogue(
+        g["skey"], g["sx"], g["sy"], g["sz"], g["ext_v"], g["esc"],
+        factor=factor, ds_cap=ds_cap, table_size=table_size,
+    )
+    return dict(ep, extent=g["esc"], hi_cells=g["hi_cells"],
+                table_overflow=g["table_overflow"], mn_v=g["mn_v"])
+
+
+def voxel_downsample_sweep_frontend(xyz, valid, voxel_size, *,
+                                    factor: int = 3,
+                                    table_size: int = 1 << 21):
+    """The two-sort voxel front end: sort 1 and the segmented scan of
+    `voxel_downsample_sweep_fused` (kernel ``segmented_scan_sums``), then
+    sort 2, the compaction of the voxels to the leading rows in canonical
+    order, the `voxel_downsample_masked` order and values (bitwise).
+    `sweep_sort_compacted` is its sort 3, into sweep order.
+
+    Returns a dict: centroids_canon f32[N, 3] and out_valid bool[N]
+    (compacted, canonical order), canon i32[N] (canonical voxel rank;
+    2^31-1 on invalid rows), cxm, cym, czm f32[N] (the centroids'
+    columns), ext_v i32[3] (voxel grid), extent i32[3] (sor grid),
+    hi_cells f32, table_overflow bool."""
+    n = xyz.shape[0]
+    g = _canonical_sort(xyz, valid, voxel_size, factor, table_size)
+    skey = g["skey"]
+    _, first, is_end, (cx, cy, cz, ccnt) = _scan_sorted(
+        skey, INVALID32, g["sx"], g["sy"], g["sz"])
+
+    # Sort 2: segment ends to the front in canonical order, the rank key
+    # riding along.
+    ends = stable_argsort((~is_end).to(torch.int32))
+    in_range = torch.arange(n, device=xyz.device) < first.sum()
+    counts = torch.where(in_range, ccnt[ends], 0.0)
+    out_valid = counts > 0.0
+    denom = torch.clamp(counts, min=1.0)
+    cxm, cym, czm = cx[ends] / denom, cy[ends] / denom, cz[ends] / denom
+    canon = torch.where(out_valid, skey[ends], INVALID32).to(torch.int32)
+    return dict(centroids_canon=torch.stack([cxm, cym, czm], dim=1),
+                out_valid=out_valid, canon=canon, cxm=cxm, cym=cym, czm=czm,
+                ext_v=g["ext_v"], extent=g["esc"], hi_cells=g["hi_cells"],
+                table_overflow=g["table_overflow"])
+
+
+def sweep_sort_compacted(cxm, cym, czm, canon, out_valid, ext_v, esc, *,
+                         factor: int = 3, table_size: int = 1 << 21):
+    """Sort 3 of the two-sort front end: the compacted (usually
+    ds_cap-sliced) voxel rows into sor-cell-major sweep order, the sor cell
+    decoded from the canonical rank. Returns (centroids f32[N, 3], valid
+    bool[N], slin i32[N] ascending (table_size on invalid rows, at the
+    tail), canon i32[N]): `structure_from_sorted`'s input."""
+    ck = torch.where(out_valid, canon, 0)
+    r0 = ck // (ext_v[1] * ext_v[2])
+    r1 = (ck // ext_v[2]) % ext_v[1]
+    r2 = ck % ext_v[2]
+    lin_sc = ((r0 // factor) * esc[1] + r1 // factor) * esc[2] + r2 // factor
+    lin_sc = torch.clamp(lin_sc, 0, table_size - 1)
+    sorkey = torch.where(out_valid, lin_sc, table_size).to(torch.int32)
+    order = stable_argsort(sorkey)
+    skey = sorkey[order]
+    svalid = skey != table_size
+    centroids = torch.stack([torch.where(svalid, c[order], 0.0)
+                             for c in (cxm, cym, czm)], dim=1)
+    scanon = torch.where(out_valid, canon, INVALID32).to(torch.int32)[order]
+    return centroids, svalid, skey, scanon
 
 
 def passthrough_mask(xyz, valid, axis_index: int, lo, hi):

@@ -1,7 +1,13 @@
 """Rigid registration, point-to-point and point-to-plane ICP: the
 counterpart of `pointclouds_tpu/ops/registration.py` on its kernel branch
-(`_nn_1` through `nn_argmin`), and the planar packing of a cloud for the
-kernels.
+(`_nn_1` through `nn_argmin`), with its packed (`icp_*_packed`, f32[16])
+and masked (`icp_*_masked`, the 6-tuple, untrimmed) entries, and the
+planar packing of a cloud for the kernels.
+
+Dropped: ``use_kernel`` and ``interpret`` (the device of the input
+tensors picks the CUDA kernel or its plain version), the `IcpCarry` of
+the reference's `lax.while_loop` (the loop runs on the host) and
+`nn_kernel_fits` (a VMEM residency gate; the card's kernel has none).
 
 The loop is the JAX package's `lax.while_loop` as a host loop with one
 host read per iteration (its stop flag). Its semantics are the
@@ -282,3 +288,30 @@ def icp_point_to_plane_packed(src_xyz, src_valid, tgt_xyz, tgt_valid,
                      _trim(tgt_rows, tgt_xyz), _trim(tgt_rows, tgt_valid),
                      _trim(tgt_rows, tgt_normals), max_iterations, tolerance,
                      max_dist, point_to_plane=True)
+
+
+def _unpack_icp(out):
+    """f32[16] -> the JAX package's 6-tuple: rotation f32[3, 3],
+    translation f32[3], fitness f32[], rmse f32[], converged bool[],
+    iterations i32[]."""
+    return (out[:9].reshape(3, 3), out[9:12], out[12], out[13],
+            out[14] > 0.5, out[15].to(torch.int32))
+
+
+def icp_point_to_point_masked(src_xyz, src_valid, tgt_xyz, tgt_valid,
+                              max_iterations: int, tolerance, max_dist):
+    """Point-to-point ICP on the whole padded clouds (no trim): `_icp_loop`
+    unpacked to (rot, trans, fitness, rmse, converged, iterations)."""
+    return _unpack_icp(_icp_loop(src_xyz, src_valid, tgt_xyz, tgt_valid,
+                                 None, max_iterations, tolerance, max_dist,
+                                 point_to_plane=False))
+
+
+def icp_point_to_plane_masked(src_xyz, src_valid, tgt_xyz, tgt_valid,
+                              tgt_normals, max_iterations: int, tolerance,
+                              max_dist):
+    """Point-to-plane ICP on the whole padded clouds (no trim): `_icp_loop`
+    unpacked to (rot, trans, fitness, rmse, converged, iterations)."""
+    return _unpack_icp(_icp_loop(src_xyz, src_valid, tgt_xyz, tgt_valid,
+                                 tgt_normals, max_iterations, tolerance,
+                                 max_dist, point_to_plane=True))

@@ -5,8 +5,10 @@ queries of the engine's cell-grid rungs.
 Counterpart of `pointclouds_tpu/spatial/cellgrid.py` (`ring_offsets`,
 `CellGrid`, `build_cellgrid`, `cert_cell2`, the neighbour-block gathers,
 the selection helper, `cell_sor_mean_dists`, `point_sor_mean_dists`,
-`cell_knn_subset`, `cell_graph_adjacency`, `cell_graph_labels`, and the
-pointwise queries `point_knn`, `point_radius_count`, `slab_knn`). Points are
+`cell_knn_subset`, the radius blocks and their label propagation
+`cell_radius_neighbor_blocks`, `cell_propagate_labels`,
+`cell_graph_adjacency`, `cell_graph_labels`, and the pointwise queries
+`point_knn`, `point_radius_count`, `slab_knn`). Points are
 scattered once into dense ``[C, M, ...]`` per-cell blocks; a dense
 linear-id -> slot table gives each cell its ring of neighbour slots, and
 each cell (or point) gathers its neighbour blocks as its candidate slab.
@@ -226,7 +228,8 @@ def cert_cell2(grid: CellGrid):
 def gather_neighbor_blocks(grid: CellGrid, slots):
     """[..., M, 3] coordinates and [..., M] mask of the neighbour blocks
     ``slots`` (absent slots, >= C, masked out). The reference also gathers
-    the blocks' row ids; no caller here reads them."""
+    the blocks' row ids; only `cell_radius_neighbor_blocks` reads them,
+    and gathers them itself."""
     cap, m, _ = grid.cell_xyz.shape
     flat = torch.clamp(slots, 0, cap - 1).reshape(-1).long()
     absent = slots >= cap
@@ -385,6 +388,78 @@ def cell_knn_subset(grid: CellGrid, qxyz, qrows, qvalid, *, k: int):
     total, count, kth = _smallest_k_sum_count(d2, nbm, k + 1)
     mean, want = _means(total, count, k, grid)
     return mean, (count >= want) & (kth <= cert_cell2(grid))
+
+
+def cell_radius_neighbor_blocks(grid: CellGrid, radius, *,
+                                chunk: int = CELL_CHUNK):
+    """Per-cell candidate blocks for radius queries: (nb_idx i32[C, KM],
+    the original rows of each cell's K neighbour blocks, K = 27 at ring 1,
+    and within bool[C, M, KM], whether candidate j lies within ``radius``
+    (inclusive, float32) of the cell's point i). Complete where the ring
+    spans the radius (ring 1: cell >= radius). The cells go in chunks of
+    at most ``chunk`` (fewer where their pairs pass `_PAIR_CHUNK`); cells
+    past num_cells hold no point, so their rows stay False (one host
+    read)."""
+    _chunk_cells(grid, chunk)
+    caps, m, _ = grid.cell_xyz.shape
+    kk = grid.neighbor_slots.shape[1]
+    dev = grid.cell_xyz.device
+    r = scalar_like(radius, grid.cell_xyz)
+    r2 = r * r
+    # Absent slots read the last cell's rows, as the reference's clamped
+    # gather does; `within` masks them out.
+    nb_idx = grid.cell_idx[torch.clamp(grid.neighbor_slots, 0, caps - 1)
+                           .long()].reshape(caps, kk * m)
+    within = torch.zeros((caps, m, kk * m), dtype=torch.bool, device=dev)
+    occupied = int(grid.num_cells)
+    step = min(chunk, _cell_rows(m * kk * m))
+    for s in range(0, min(caps, occupied), step):
+        sl = slice(s, min(s + step, caps))
+        nb_xyz, nb_mask = gather_neighbor_blocks(grid, grid.neighbor_slots[sl])
+        c = nb_xyz.shape[0]
+        d2 = _sum_sq(grid.cell_xyz[sl][:, :, None, :]
+                     - nb_xyz.reshape(c, kk * m, 3)[:, None])
+        within[sl] = (grid.cell_mask[sl][:, :, None]
+                      & nb_mask.reshape(c, kk * m)[:, None, :] & (d2 <= r2))
+    return nb_idx, within
+
+
+def cell_propagate_labels(grid: CellGrid, nb_idx, within):
+    """Connected-component labels by min-label propagation over the blocks
+    of `cell_radius_neighbor_blocks`, each round followed by two pointer
+    jumps, until a round changes no label (one host read a round). Labels
+    are original rows (the smallest of each component); invalid points
+    keep their own row. Returns i32[N]. Cells past num_cells hold no
+    point and are skipped (one host read)."""
+    n = grid.point_slot.shape[0]
+    _, m, width = within.shape
+    dev = within.device
+    big = torch.tensor([n], dtype=torch.int32, device=dev)
+    occupied = min(int(grid.num_cells), within.shape[0])
+    cm = grid.cell_mask[:occupied]
+    rows = torch.where(cm, grid.cell_idx[:occupied], n).long()  # [C', M]
+    nbl = nb_idx[:occupied].long()
+    labels = torch.arange(n, dtype=torch.int32, device=dev)
+    step = _cell_rows(m * width)
+    while True:
+        ext = torch.cat([labels, big])
+        new_min = torch.empty((occupied, m), dtype=torch.int32, device=dev)
+        for s in range(0, occupied, step):
+            sl = slice(s, min(s + step, occupied))
+            cand = torch.where(within[sl], ext[nbl[sl]][:, None, :], big)
+            new_min[sl] = cand.amin(dim=-1)
+        new_min = torch.minimum(new_min, ext[rows])
+        upd = torch.full((n + 1,), n, dtype=torch.int32, device=dev)
+        upd.scatter_reduce_(0, rows.reshape(-1),
+                            torch.where(cm, new_min, big).reshape(-1),
+                            reduce="amin")
+        new = torch.minimum(labels, upd[:n])
+        for _ in range(2):
+            new = torch.minimum(new, new[new.long()])
+        changed = bool((new != labels).any())  # host read: the stop test
+        labels = new
+        if not changed:
+            return labels
 
 
 # ── Collapsed cell-graph clustering ──────────────────────────────────────────

@@ -1,7 +1,7 @@
 """Whole-cloud neighbour ops with exactness certified on the host: the
 counterpart of `pointclouds_tpu/spatial/engine.py` (`knn`,
 `radius_count`, `cluster_labels`, `sor_means`, `radius_count_sweep`,
-`normals` and their helpers).
+`normals`, the single-query `radius_indices` and their helpers).
 
 `knn` and `cluster_labels` are the API's entries; `knn` and `radius_count`
 take the reference's ladder, the sweeps then the cell grid's three passes
@@ -47,6 +47,7 @@ from .knn import (
     grid_knn,
     grid_radius_count,
     grid_radius_neighbors,
+    radius_within_mask,
 )
 from .sweep import (
     _set_rows,
@@ -571,6 +572,17 @@ def _cell_graph_rung(xyz, valid, radius: float):
         return cell_graph_labels(
             grid, cell_graph_adjacency(grid, np.float32(radius)))
     return None
+
+
+def radius_indices(pxyz, pvalid, query, radius: float):
+    """Original-order indices (ascending) of the valid points within
+    ``radius`` (inclusive, taken as float32 and squared in float32) of one
+    query point, as a host int array. One pass over the cloud on its
+    device (`knn.radius_within_mask`); only the [N] bool mask comes back
+    to the host."""
+    q = torch.as_tensor(np.asarray(query, np.float32), device=pxyz.device)
+    mask = radius_within_mask(pxyz, pvalid, q, np.float32(radius))
+    return np.nonzero(mask.cpu().numpy())[0]
 
 
 def radius_neighbors(xyz, valid, radius: float):

@@ -6,7 +6,9 @@ torch ops here. The brute force serves small clouds (at most
 `engine.BRUTE_THRESHOLD` points) and the engine's exact fallbacks; the grid
 queries (`grid_knn`, `grid_radius_count`, `grid_radius_neighbors`) serve
 clouds of 2^24 points or more and the clustering rung before the brute
-force, and return the flags by which the engine retries. Distances are
+force, and return the flags by which the engine retries;
+`radius_within_mask` is the single-query radius search of
+`engine.radius_indices`. Distances are
 Euclidean, ascending; an invalid or non-finite query gets no results.
 
 The exact squared distance is pinned to the form XLA's CPU backend gives
@@ -115,6 +117,16 @@ def bruteforce_radius_count(pxyz, pvalid, qxyz, qvalid, radius):
                & (_d2_sum(qc[:, None, :], pxyz[None, :, :]) <= r2))
         counts[s:s + step] = hit.sum(dim=1).to(torch.int32)
     return counts
+
+
+def radius_within_mask(pxyz, pvalid, query, radius):
+    """bool[N] mask of the valid, finite points within ``radius``
+    (inclusive) of one query f32[3]: one pass of direct f32 differences
+    over the whole cloud, d2 in the pinned form, r2 as `_radius_sq`
+    forms it (an f32 radius is squared in f32)."""
+    puse = pvalid & torch.isfinite(pxyz).all(dim=-1)
+    d2 = _d2_sum(pxyz, query.to(pxyz.dtype)[None, :])
+    return puse & (d2 <= _radius_sq(radius, pxyz.device))
 
 
 # ── Grid backend ─────────────────────────────────────────────────────────────

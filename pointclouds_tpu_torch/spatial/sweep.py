@@ -5,8 +5,9 @@ Counterpart of `pointclouds_tpu/spatial/sweep.py`, ported for the paths of
 the KITTI and aerial pipelines and of the per-op API:
 the structure built on rows already sorted by sor cell
 (`structure_from_sorted`) or sorted here (`_sorted_structure`), SOR pass 1
-over flat per-block row lists or the nine windows, the AABB-pruned exact
-rescue with optional lower bounds (`sweep_sor_two_pass`), radius counts
+over flat per-block row lists or the nine windows (on its own:
+`sweep_sor_mean_dists`), the AABB-pruned exact rescue with optional lower
+bounds (`sweep_sor_two_pass`), radius counts
 with and without their rescue (`sweep_radius_count(_two_pass)`), kNN
 moments with and without the exact rescue (`sweep_knn_moments(_rows)`,
 `sweep_moments_two_pass_rows`), the cluster labels over row lists or the
@@ -19,6 +20,11 @@ Points sorted by linearized cell id (z fastest) pack 128 to a planar row
 queries the union of their 27-cell neighbourhoods is nine contiguous row
 windows, flattened into one candidate row list per block. Every neighbour
 query is certified exact or flagged, as in the reference.
+
+Dropped keyword arguments: ``use_kernel`` and ``interpret`` (the device of
+the input tensors picks the CUDA kernel or its plain version) and
+``per_seg`` (the Pallas kernels' per-segment certificate width; the CUDA
+kernels select exactly, so every segment is certified).
 """
 
 from __future__ import annotations
@@ -364,6 +370,32 @@ def _rescue_structure(planar, order, flagged, fix_cap: int, n: int, radius,
     return planar_g, q_planar, active.contiguous(), qvalid, qsel
 
 
+def _unsort(packed, s, n: int):
+    """Sorted-frame channels [C, NALL] -> row order [C, n]: a slice on the
+    identity permutation of a prebuilt structure, else one gather."""
+    return packed[:, :n] if s["inv"] is None else packed[:, s["inv"]]
+
+
+def sweep_sor_mean_dists(xyz, valid, cell_size, *, k: int, wr: int = 4,
+                         table_size: int = SWEEP_TABLE_SIZE):
+    """Pass 1 of the SOR sweep on its own: the mean distance to the k
+    nearest neighbours of each point (self included in the k+1
+    extraction) over its block's nine windows, with no rescue.
+
+    Returns (mean f32[N], +inf where unresolved or invalid; point_ok
+    bool[N]; certified bool[]) in row order, the contract of
+    `cellgrid.point_sor_mean_dists`: a row is certified only when its
+    (k+1)-th neighbour lies within one margin-shrunk ``cell_size``."""
+    n = xyz.shape[0]
+    cell_size = scalar_like(cell_size, xyz)
+    s = _sorted_structure(xyz, valid, cell_size, wr, table_size)
+    p = _sweep_pass1(cell_size, k=k, prebuilt=s, row_cap=None)
+    ok_s = p["point_ok_s"]
+    certified = ~(p["use_s"] & ~ok_s).any()
+    res = _unsort(torch.stack([p["mean_s"], ok_s.to(torch.float32)]), s, n)
+    return res[0], res[1] > 0.5, certified
+
+
 def sweep_sor_two_pass(xyz, valid, cell_size, *, k: int,
                        fix_cap: int = 4096, rescue_cells: float = 4.0,
                        wr: int = 4, table_size: int = SWEEP_TABLE_SIZE,
@@ -425,7 +457,7 @@ def sweep_sor_two_pass(xyz, valid, cell_size, *, k: int,
     merged = merged[:, :nall]
     # Flagged rows beyond fix_cap stay point_ok=False.
     certified = ~(use_s & ~(merged[1] > 0.5)).any()
-    res = merged[:, :n] if s["inv"] is None else merged[:, s["inv"]]
+    res = _unsort(merged, s, n)
     out = (res[0], res[1] > 0.5, certified)
     return out + (res[2],) if with_lb else out
 
