@@ -284,13 +284,6 @@ PATHS = {
     "frontend": ["segmented_scan_sums"],
     "sor_mean": ["sweep_select"],
 }
-KITTI_STAGES = ["voxel_downsample_sweep_fused", "structure_from_sorted",
-                "sweep_sor_two_pass", "sor_keep_mask_thr",
-                "ransac_plane_masked", "sweep_cluster_labels"]
-AERIAL_STAGES = ["voxel_downsample_sweep_fused", "structure_from_sorted",
-                 "sweep_knn_moments_rows", "normals_from_moment_rows",
-                 "ransac_plane_masked", "compaction_order",
-                 "sweep_cluster_labels"]
 SEEDS = range(5)
 KITTI_FRAMES = 20
 AERIAL_FRAMES = 10
@@ -503,14 +496,12 @@ def select_work(name, args, kwargs) -> str:
     if name == "cluster_propagate":
         return propagate_work(*args[:3])
     if name in ("cluster_multisweep", "cluster_multisweep_windows"):
-        w = getattr(importlib.import_module(
-            "pointclouds_tpu_torch.spatial.kernels"),
-            "WINDOW_ROUNDS" if name.endswith("windows") else "LIST_ROUNDS",
-            None)
-        return "" if w is None else (
-            f"last call: {w['host_reads']} host reads, "
-            f"{w['pairs_visited']} pairs walked (frontier and row prune), "
-            f"labels lowered per round {w.get('lowered')}")
+        rec = traced_call(name, args, kwargs)
+        return "" if rec is None else (
+            f"one call: {rec.count('cluster.rounds')} rounds, "
+            f"{rec.count('cluster.round_batches')} host reads, "
+            f"{rec.count('cluster.pairs_visited')} pairs walked (frontier "
+            f"and row prune)")
     if name in ("rescue_select", "rescue_knn_idx",
                 "rescue_radius_count_groups"):
         q, active = args[1], args[2]
@@ -532,6 +523,22 @@ def select_work(name, args, kwargs) -> str:
                 f"{pts.shape[0] * 128} points: {walked} pairs walked, "
                 f"{real * valid} counted")
     return ""
+
+
+def traced_call(name, args, kwargs):
+    """The frame record of one traced call of kernel wrapper ``name`` (None
+    in a tree without the port's tracing)."""
+    prof = importlib.import_module("pointclouds_tpu_torch.utils.profiling")
+    if not hasattr(prof, "set_tracing"):
+        return None
+    kmod = importlib.import_module("pointclouds_tpu_torch.spatial.kernels")
+    prof.set_tracing(True)
+    try:
+        with prof.frame(name, args[0].device):
+            getattr(kmod, name)(*args, **kwargs)
+    finally:
+        prof.set_tracing(False)
+    return prof.last_frame()
 
 
 def propagate_work(pts, labels, starts) -> str:
@@ -595,28 +602,6 @@ def kernel_row(name, args, kwargs, K, card_line, library=None, label=""):
                 library_ms=lib_ms, **extra)
 
 
-def stage_timer(mod, stages):
-    """Wrap the pipeline's stage functions in its module so each records a
-    CUDA event pair; returns (spy, read)."""
-    events = {s: [] for s in stages}
-
-    def hook(name, orig, a, k):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        r = orig(*a, **k)
-        e1.record()
-        events[name].append((e0, e1))
-        return r
-
-    def read():
-        torch.cuda.synchronize()
-        return {s: float(np.median([a.elapsed_time(b) for a, b in ev]))
-                for s, ev in events.items() if ev}
-
-    return Spy([(mod, s) for s in stages], hook), read
-
-
 def path_launches(K, name, run):
     """Run ``run`` with the launch counts set to 0 just before and read just
     after; every kernel of the path must have launched."""
@@ -631,18 +616,31 @@ def path_launches(K, name, run):
     return result, launches
 
 
-def timed_frames(run, frames, mod, stages, card_line, what):
-    """Frame p50 (host clock ending in a synchronize) and each stage's
-    median (CUDA events); logs both and returns (stages, p50)."""
+def timed_frames(run, frames, card_line, what):
+    """Frame p50 (host clock ending in a synchronize, tracing off), then
+    each stage's median over as many traced frames (CUDA-event ms of the
+    program's stage spans; none in a tree without the port's tracing);
+    logs both and returns (stages, p50)."""
     times = []
-    spy, read = stage_timer(mod, stages)
-    with spy:
-        for f in range(frames):
-            t0 = time.perf_counter()
-            run(f)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        st = read()
+    for f in range(frames):
+        t0 = time.perf_counter()
+        run(f)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    st = {}
+    prof = importlib.import_module("pointclouds_tpu_torch.utils.profiling")
+    if hasattr(prof, "set_tracing"):
+        recs = []
+        prof.set_tracing(True)
+        try:
+            for f in range(frames):
+                run(f)
+                recs.append(prof.last_frame())
+        finally:
+            prof.set_tracing(False)
+        stages = dict.fromkeys(s.name for s in recs[0].spans[1:] if s.card)
+        st = {s: float(np.median([r.span_ms(s) for r in recs]))
+              for s in stages}
     log(f"{what} stage ms (median, CUDA events): " + ", ".join(
         f"{s}={v:.3f}" for s, v in st.items()) + f" [{card_line}]")
     p50 = float(np.percentile(times, 50))
@@ -1507,11 +1505,6 @@ def large_cloud(api):
     return api.PointCloud.from_numpy(large_points())
 
 
-CELLGRID_STAGES = ["voxel_downsample_masked", "build_cellgrid",
-                   "point_sor_mean_dists", "cell_sor_mean_dists",
-                   "cell_knn_subset", "sor_keep_mask", "ransac_plane_masked",
-                   "cell_graph_adjacency", "cell_graph_labels"]
-
 
 def brute_captures(overflow, clean):
     """Kernel 13's other SOR ops, as (label, cloud): the overflow cloud
@@ -1595,7 +1588,7 @@ def kitti_summary(pc, out) -> dict:
                 obstacle_overflow=bool(out.obstacle_overflow))
 
 
-def phase8(card_line, K, pc, kitti_mod, kdata, add):
+def phase8(card_line, K, pc, kdata, add):
     """The KITTI bench frame through the cell-grid backends (seeds 0-4:
     launches, flags, certificate and clusters reported; seed 0 equal to the
     port's CPU run), then `euclidean_cluster` on the large cloud through
@@ -1630,8 +1623,7 @@ def phase8(card_line, K, pc, kitti_mod, kdata, add):
             raise AssertionError(f"kitti {backend}: differs from the CPU run")
         timed_frames(lambda f: run_kitti(pc, kdata, f % len(SEEDS),
                                          cloud=kcloud, sor_backend=backend),
-                     len(SEEDS), kitti_mod, CELLGRID_STAGES, card_line,
-                     f"kitti {backend}")
+                     len(SEEDS), card_line, f"kitti {backend}")
         record["kitti"][backend] = dict(seeds=per_seed, launches=launches,
                                         cpu_equal=same)
 
@@ -2220,11 +2212,13 @@ def mesh_paths(mesh, batches):
     """The tiled and sharded KITTI and aerial batches on ``mesh`` (inputs on
     the card): per path, its outputs (numpy), launches (counts zeroed just
     before the first call, read just after), the collectives' calls,
-    host-staged calls and ms in that call, and the batch's p50 over
-    `MESH_REPS` more calls."""
+    host-staged calls and CUDA-event ms in that call (traced: its
+    ``comm.<op>`` spans and counters), and the batch's p50 over
+    `MESH_REPS` more calls, untraced."""
     import torch.distributed as dist
 
-    from pointclouds_tpu_torch.parallel import comm, sharding, tiles
+    from pointclouds_tpu_torch.parallel import sharding, tiles
+    from pointclouds_tpu_torch.utils import profiling
     from pointclouds_tpu_torch.spatial import kernels as K
 
     seeds = np.asarray(MESH_SEEDS)
@@ -2247,15 +2241,22 @@ def mesh_paths(mesh, batches):
             np.float32(2.0), VIEWPOINT),
     }
     res = {}
-    comm.TIMED = True
     t0 = time.perf_counter()
     for name, run in paths.items():
-        comm.reset_stats()
         K.reset_launch_counts()
-        out = run()
+        profiling.set_tracing(True)
+        try:
+            with profiling.frame(name, kx.device):
+                out = run()
+        finally:
+            profiling.set_tracing(False)
         torch.cuda.synchronize()
         launches = dict(K.LAUNCHES)
-        stats = {c: dict(s) for c, s in comm.STATS.items()}
+        rec = profiling.last_frame()
+        stats = {n[5:]: dict(calls=rec.count(f"{n}.calls"),
+                             staged=rec.count(f"{n}.staged"),
+                             ms=rec.span_ms(n))
+                 for n in rec.names() if n.startswith("comm.")}
         ms, times = p50_ms(run, reps=MESH_REPS)
         log(f"phase 11 rank {dist.get_rank()} of {dist.get_world_size()}: "
             f"{name} done ({time.perf_counter() - t0:.1f} s)")
@@ -2885,8 +2886,6 @@ def ab_child(tree: Path, inputs: Path, kernels_only=False) -> dict:
     sys.path.insert(0, str(tree))
     import pointclouds_tpu_torch as pc
     from pointclouds_tpu_torch import api
-    from pointclouds_tpu_torch.pipelines import aerial as aerial_mod
-    from pointclouds_tpu_torch.pipelines import kitti as kitti_mod
     from pointclouds_tpu_torch.pipelines.scenes import (
         aerial_scene,
         velodyne_scene,
@@ -2924,7 +2923,7 @@ def ab_child(tree: Path, inputs: Path, kernels_only=False) -> dict:
     run_kitti(pc, kdata, 0, cloud=kcloud)
     res["stages"], res["frame_p50_ms"] = timed_frames(
         lambda f: run_kitti(pc, kdata, f, cloud=kcloud), KITTI_FRAMES,
-        kitti_mod, KITTI_STAGES, card_line, "kitti")
+        card_line, "kitti")
     res["kitti_device_ms"] = device_ms(
         lambda: run_kitti(pc, kdata, 0, cloud=kcloud), 3)
     noisy = api.PointCloud.from_numpy(noisy_cloud(NOISY_BOX))
@@ -2954,14 +2953,13 @@ def ab_child(tree: Path, inputs: Path, kernels_only=False) -> dict:
     run_kitti(pc, kdata, 0, cloud=kcloud, sor_backend="xla")
     res["xla_stages"], res["xla_p50_ms"] = timed_frames(
         lambda f: run_kitti(pc, kdata, f % len(SEEDS), cloud=kcloud,
-                            sor_backend="xla"), len(SEEDS), kitti_mod,
-        CELLGRID_STAGES, card_line, "kitti xla")
+                            sor_backend="xla"), len(SEEDS), card_line,
+        "kitti xla")
     pallas = lambda f: run_kitti(pc, kdata, f % len(SEEDS),  # noqa: E731
                                  cloud=kcloud, sor_backend="pallas")
     pallas(0)
     res["pallas_stages"], res["pallas_p50_ms"] = timed_frames(
-        pallas, len(SEEDS), kitti_mod, CELLGRID_STAGES, card_line,
-        "kitti pallas")
+        pallas, len(SEEDS), card_line, "kitti pallas")
     res["pallas_device_ms"] = device_ms(lambda: pallas(0), 3)
     u1m = api.PointCloud.from_numpy(bench_cloud(1_000_000))
     vox = lambda: api.voxel_downsample(u1m, 0.5)  # noqa: E731
@@ -2972,7 +2970,7 @@ def ab_child(tree: Path, inputs: Path, kernels_only=False) -> dict:
     run_aerial(pc, adata, 0, cloud=acloud)
     res["aerial_stages"], res["aerial_p50_ms"] = timed_frames(
         lambda f: run_aerial(pc, adata, f, cloud=acloud), AERIAL_FRAMES,
-        aerial_mod, AERIAL_STAGES, card_line, "aerial")
+        card_line, "aerial")
     res["aerial_device_ms"] = device_ms(
         lambda: run_aerial(pc, adata, 0, cloud=acloud), 3)
     u100k = bench_cloud(100_000)
@@ -2996,9 +2994,8 @@ def ab_child(tree: Path, inputs: Path, kernels_only=False) -> dict:
 def ab_frames_text(r) -> str:
     """The frame and op numbers of one A/B child's run, for the log."""
     return (
-        f"sweep_sor_two_pass {r['stages']['sweep_sor_two_pass']:.3f} ms, "
-        f"sweep_cluster_labels (KITTI) "
-        f"{r['stages']['sweep_cluster_labels']:.3f} ms, "
+        f"stages (KITTI): sor {ms_text(r['stages'].get('sor'), 3)} ms, "
+        f"cluster {ms_text(r['stages'].get('cluster'), 3)} ms, "
         f"KITTI frame p50 {r['frame_p50_ms']:.3f} ms (device "
         f"{ms_text(r.get('kitti_device_ms'), 3)}), SOR noisy 100K op "
         f"p50 {r['sor_op_p50_ms']:.3f} ms, SOR overflow op p50 "
@@ -3013,21 +3010,17 @@ def ab_frames_text(r) -> str:
         f"point-to-point 10K op p50 "
         f"{r['icp_op_p50_ms']:.3f} ms (device "
         f"{ms_text(r['icp_device_ms'], 3)}, {r['icp_device_launches']} "
-        f"device launches), point_sor_mean_dists "
-        f"{r['xla_stages']['point_sor_mean_dists']:.3f} ms, "
-        f"cell_knn_subset {r['xla_stages']['cell_knn_subset']:.3f} ms, "
-        f"KITTI xla frame p50 {r['xla_p50_ms']:.3f} ms, "
-        f"cell_sor_mean_dists "
-        f"{r['pallas_stages']['cell_sor_mean_dists']:.3f} ms, KITTI "
+        f"device launches), sor (xla) "
+        f"{ms_text(r['xla_stages'].get('sor'), 3)} ms, "
+        f"KITTI xla frame p50 {r['xla_p50_ms']:.3f} ms, sor (pallas) "
+        f"{ms_text(r['pallas_stages'].get('sor'), 3)} ms, KITTI "
         f"pallas frame p50 {r['pallas_p50_ms']:.3f} ms (device "
         f"{ms_text(r['pallas_device_ms'], 3)}), voxel 1M op p50 "
         f"{r['voxel_1m_p50_ms']:.3f} ms (device "
-        f"{ms_text(r['voxel_1m_device_ms'], 3)}), voxel stage (KITTI) "
-        f"{r['stages']['voxel_downsample_sweep_fused']:.3f} ms, "
-        f"normals_from_moment_rows "
-        f"{r['aerial_stages']['normals_from_moment_rows']:.3f} ms, "
-        f"sweep_cluster_labels (aerial) "
-        f"{r['aerial_stages']['sweep_cluster_labels']:.3f} ms, "
+        f"{ms_text(r['voxel_1m_device_ms'], 3)}), frontend (KITTI) "
+        f"{ms_text(r['stages'].get('frontend'), 3)} ms, normals (aerial) "
+        f"{ms_text(r['aerial_stages'].get('normals'), 3)} ms, cluster "
+        f"(aerial) {ms_text(r['aerial_stages'].get('cluster'), 3)} ms, "
         f"aerial frame p50 {r['aerial_p50_ms']:.3f} ms (device "
         f"{ms_text(r['aerial_device_ms'], 3)}), normals 100K op "
         f"p50 {r['normals_op_p50_ms']:.3f} ms, knn 100K op p50 "
@@ -3100,7 +3093,6 @@ def main() -> int:
     t_start = time.perf_counter()
     import pointclouds_tpu_torch as pc
     from pointclouds_tpu_torch.pipelines import aerial as aerial_mod
-    from pointclouds_tpu_torch.pipelines import kitti as kitti_mod
     from pointclouds_tpu_torch.pipelines.scenes import (
         aerial_scene,
         velodyne_scene,
@@ -3277,7 +3269,7 @@ def main() -> int:
             raise AssertionError(f"kitti seed {seed}: clusters differ")
     kcloud = pc.make_cloud_arrays(kdata, device="cuda")
     timed_frames(lambda f: run_kitti(pc, kdata, f, cloud=kcloud),
-                 KITTI_FRAMES, kitti_mod, KITTI_STAGES, card_line, "kitti")
+                 KITTI_FRAMES, card_line, "kitti")
 
     # ── Phase 4: aerial end to end ──
     rounds = []
@@ -3323,8 +3315,7 @@ def main() -> int:
         raise AssertionError("aerial seed 0: clusters differ from CPU")
     acloud = pc.make_cloud_arrays(adata, device="cuda")
     timed_frames(lambda f: run_aerial(pc, adata, f, cloud=acloud),
-                 AERIAL_FRAMES, aerial_mod, AERIAL_STAGES, card_line,
-                 "aerial")
+                 AERIAL_FRAMES, card_line, "aerial")
 
     # ── Phase 5: the pipelines' default kwargs ──
     kd, launches = path_launches(K, "kitti_default", lambda: run_kitti(
@@ -3372,7 +3363,7 @@ def main() -> int:
     phase7(card_line, K, add)
 
     # ── Phase 8: the cell-grid KITTI backends, the large-cloud hop loop ──
-    rows += phase8(card_line, K, pc, kitti_mod, kdata, add)
+    rows += phase8(card_line, K, pc, kdata, add)
 
     # ── Phase 9: the int64-keyed grid at 2^24 points, the host C++ ──
     phase9(card_line, K, add)

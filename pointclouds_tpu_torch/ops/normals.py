@@ -17,7 +17,18 @@ import numpy as np
 import torch
 
 from ..spatial.kernels import _sqrt_f32, fma_f32
+from ..utils import profiling
 from .segmentation import _dot3
+
+
+def _viewpoint(viewpoint, xyz):
+    """``viewpoint`` as f32 on ``xyz``'s device; an upload (which waits for
+    the card's stream) only where it is not there yet."""
+    if torch.is_tensor(viewpoint) and viewpoint.device == xyz.device:
+        return viewpoint.to(torch.float32)
+    with profiling.host_read("normals.viewpoint"):
+        return torch.as_tensor(viewpoint, dtype=torch.float32,
+                               device=xyz.device)
 
 _PP_EPS = 1e-12  # relative analogue of the reference's 1e-30 absolute cutoff
 _LEN_EPS = 1e-16
@@ -108,7 +119,7 @@ def normals_from_knn(xyz, nbr_idx, nbr_valid, viewpoint, query_xyz=None):
     one at a time, so the result does not depend on the device."""
     if query_xyz is None:
         query_xyz = xyz
-    vp = torch.as_tensor(viewpoint, dtype=torch.float32, device=xyz.device)
+    vp = _viewpoint(viewpoint, xyz)
     pts = xyz[nbr_idx.long()]  # [Q, k, 3]
     use = nbr_valid[:, :, None]
     cnt = nbr_valid.to(torch.float32).sum(dim=1)
@@ -141,7 +152,7 @@ def normals_from_moment_rows(m1r, m2r, cnt, xyz, viewpoint):
     rows (m1r f32[3, N], m2r f32[6, N] in xx, yy, zz, xy, xz, yz order,
     cnt f32[N]); rows with no neighbour get (0, 0, 1), others are flipped
     to face ``viewpoint``."""
-    vp = torch.as_tensor(viewpoint, dtype=torch.float32, device=xyz.device)
+    vp = _viewpoint(viewpoint, xyz)
     denom = torch.clamp(cnt, min=1.0)
     mx, my, mz = m1r[0] / denom, m1r[1] / denom, m1r[2] / denom
     # cov = M2 - cnt * mean mean^T (query-relative moments)

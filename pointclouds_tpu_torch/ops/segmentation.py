@@ -21,6 +21,7 @@ import torch
 
 from ..core.cloud import compaction_order
 from ..spatial.kernels import _sqrt_f32, fma_f32, ransac_score_counts
+from ..utils import profiling
 from ..utils.threefry import mod_u64, random_bits64
 from .registration import _to_planar
 
@@ -116,7 +117,8 @@ def _ransac_sequential_scan(xyz, use_pt, normal, d, degenerate, threshold,
     Returns (best_iter, best_count, n_evaluated) as Python ints."""
     c_len = max(1, min(chunk, iterations))
     nch = -(-iterations // c_len)
-    n64 = max(float(int(cnt)), 1.0)
+    with profiling.host_read("ransac.scan_count"):
+        n64 = max(float(int(cnt)), 1.0)
     threshold = float(np.float32(threshold))
     bc, bi, ne = 0, 0, 0
     # Host loop: one read of each chunk's counts, and it stops at the
@@ -125,7 +127,8 @@ def _ransac_sequential_scan(xyz, use_pt, normal, d, degenerate, threshold,
         base = ci * c_len
         sl = slice(base, base + c_len)
         c = _inlier_counts(xyz, use_pt, normal[sl], d[sl], threshold)
-        c = torch.where(degenerate[sl], -1, c).cpu().numpy()
+        with profiling.host_read("ransac.scan_chunk"):
+            c = torch.where(degenerate[sl], -1, c).cpu().numpy()
         c = np.concatenate([c, np.full(c_len - len(c), -1, np.int64)])
         pre = np.maximum(bc, np.concatenate(
             [[-(2**31) + 1], np.maximum.accumulate(c)[:-1]]))
@@ -164,79 +167,96 @@ def ransac_plane_masked(xyz, valid, threshold, seed, iterations: int, *,
     ``threshold`` is taken as float32."""
     threshold = float(np.float32(threshold))
     dev = xyz.device
-    cnt = valid.sum()
-    samples = _sample_three_distinct(seed, iterations, cnt)
-    if position_rows is not None:
-        order = position_rows.long()
-    elif assume_compact:
-        order = None  # position p is row p
-    else:
-        order = compaction_order(valid)
-    flat = samples.reshape(-1)
-    idx = flat if order is None else order[flat]
-    p = xyz[idx].reshape(iterations, 3, 3)
+    with profiling.span("ransac.hypotheses"):
+        cnt = valid.sum()
+        samples = _sample_three_distinct(seed, iterations, cnt)
+        if position_rows is not None:
+            order = position_rows.long()
+        elif assume_compact:
+            order = None  # position p is row p
+        else:
+            order = compaction_order(valid)
+        flat = samples.reshape(-1)
+        idx = flat if order is None else order[flat]
+        p = xyz[idx].reshape(iterations, 3, 3)
 
-    v1 = p[:, 1] - p[:, 0]
-    v2 = p[:, 2] - p[:, 0]
-    nrm = torch.stack([fma_f32(v1[:, j], v2[:, k], -(v1[:, k] * v2[:, j]))
-                       for j, k in ((1, 2), (2, 0), (0, 1))], dim=1)
-    length = _sqrt_f32(_dot3(nrm, nrm))
-    degenerate = length < 1e-10
-    safe_len = torch.where(degenerate, 1.0, length)
-    normal = nrm / safe_len[:, None]
-    d = -_dot3(normal, p[:, 0])
+        v1 = p[:, 1] - p[:, 0]
+        v2 = p[:, 2] - p[:, 0]
+        nrm = torch.stack([fma_f32(v1[:, j], v2[:, k], -(v1[:, k] * v2[:, j]))
+                           for j, k in ((1, 2), (2, 0), (0, 1))], dim=1)
+        length = _sqrt_f32(_dot3(nrm, nrm))
+        degenerate = length < 1e-10
+        safe_len = torch.where(degenerate, 1.0, length)
+        normal = nrm / safe_len[:, None]
+        d = -_dot3(normal, p[:, 0])
 
     use_pt = valid & torch.isfinite(xyz).all(dim=-1)
     if score_subsample is not None and iterations > rescore_top:
-        m = score_subsample
-        ar = torch.arange(m, dtype=torch.int64, device=dev)
-        pos = ar * (cnt // m) + (ar * (cnt % m)) // m
-        distinct = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                              pos[1:] != pos[:-1]])
-        sub_rows = pos if order is None else order[pos]
-        sub_use = use_pt[sub_rows] & distinct
-        sub_counts = _inlier_counts(xyz[sub_rows], sub_use, normal, d,
-                                    threshold)
-        sub_counts = torch.where(degenerate, -1, sub_counts)
-        # Leaders, ties toward the EARLIER hypothesis (first-max reduce).
-        ii = torch.arange(iterations, dtype=torch.int64, device=dev)
-        top_idx = torch.topk(sub_counts * iterations + (iterations - 1 - ii),
-                             rescore_top).indices
-        full_counts = _inlier_counts(xyz, use_pt, normal[top_idx], d[top_idx],
-                                     threshold)
-        full_counts = torch.where(degenerate[top_idx], -1, full_counts)
-        best_count = full_counts.max()
-        best = torch.where(full_counts == best_count, top_idx,
-                           iterations).min()
+        with profiling.span("ransac.score"):
+            m = score_subsample
+            ar = torch.arange(m, dtype=torch.int64, device=dev)
+            pos = ar * (cnt // m) + (ar * (cnt % m)) // m
+            distinct = torch.cat([torch.ones(1, dtype=torch.bool,
+                                             device=dev),
+                                  pos[1:] != pos[:-1]])
+            sub_rows = pos if order is None else order[pos]
+            sub_use = use_pt[sub_rows] & distinct
+            sub_counts = _inlier_counts(xyz[sub_rows], sub_use, normal, d,
+                                        threshold)
+            sub_counts = torch.where(degenerate, -1, sub_counts)
+            # Leaders, ties toward the EARLIER hypothesis (first-max
+            # reduce).
+            ii = torch.arange(iterations, dtype=torch.int64, device=dev)
+            top_idx = torch.topk(
+                sub_counts * iterations + (iterations - 1 - ii),
+                rescore_top).indices
+            full_counts = _inlier_counts(xyz, use_pt, normal[top_idx],
+                                         d[top_idx], threshold)
+            full_counts = torch.where(degenerate[top_idx], -1, full_counts)
+            best_count = full_counts.max()
+            best = torch.where(full_counts == best_count, top_idx,
+                               iterations).min()
     else:
         # The reference's dispatch: a host read of the valid count.
-        sequential = adaptive and iterations >= 2 and (
-            iterations < _PARALLEL_MIN_ITERS
-            or int(cnt) < _PARALLEL_MIN_POINTS)
+        sequential = adaptive and iterations >= 2
+        if sequential and iterations >= _PARALLEL_MIN_ITERS:
+            with profiling.host_read("ransac.dispatch"):
+                sequential = int(cnt) < _PARALLEL_MIN_POINTS
         if sequential:
-            bi, bcount, _ = _ransac_sequential_scan(
-                xyz, use_pt, normal, d, degenerate, threshold, cnt,
-                iterations)
-            best = torch.tensor(bi, device=dev)
-            best_count = torch.tensor(bcount, device=dev)
+            with profiling.span("ransac.scan"):
+                bi, bcount, _ = _ransac_sequential_scan(
+                    xyz, use_pt, normal, d, degenerate, threshold, cnt,
+                    iterations)
+                with profiling.host_read("ransac.scan_upload"):
+                    best = torch.tensor(bi, device=dev)
+                with profiling.host_read("ransac.scan_upload"):
+                    best_count = torch.tensor(bcount, device=dev)
         else:
-            counts = _score_all(xyz, use_pt, normal, d, threshold,
-                                iterations)
-            counts = torch.where(degenerate, -1, counts)
-            best = torch.argmax(counts)  # first maximum
-            best_count = counts[best]
+            with profiling.span("ransac.score"):
+                counts = _score_all(xyz, use_pt, normal, d, threshold,
+                                    iterations)
+                counts = torch.where(degenerate, -1, counts)
+                best = torch.argmax(counts)  # first maximum
+                with profiling.host_read("ransac.best"):  # a 0-d index
+                    best_count = counts[best]
 
-    ok_model = (best_count > 0) & (cnt >= 3)
-    best_c = torch.clamp(best, max=iterations - 1)
-    best_normal = torch.where(ok_model, normal[best_c],
-                              torch.tensor([0.0, 0.0, 1.0], device=dev))
-    best_d = torch.where(ok_model, d[best_c], 0.0)
-    # The reference evaluates the final inlier test in float64 (its model
-    # normal is promoted there); so does the port.
-    x64, n64 = xyz.to(torch.float64), best_normal.to(torch.float64)
-    dist = torch.abs(x64[:, 0] * n64[0] + x64[:, 1] * n64[1]
-                     + x64[:, 2] * n64[2] + best_d.to(torch.float64))
-    inlier_mask = valid & (dist <= threshold) & (cnt >= 3)
+    with profiling.span("ransac.inliers"):
+        ok_model = (best_count > 0) & (cnt >= 3)
+        best_c = torch.clamp(best, max=iterations - 1)
+        # Indexing by a 0-d card tensor reads it to the host; so does the
+        # upload of the fallback normal.
+        with profiling.host_read("ransac.model"):
+            best_normal = torch.where(
+                ok_model, normal[best_c],
+                torch.tensor([0.0, 0.0, 1.0], device=dev))
+        with profiling.host_read("ransac.model"):
+            best_d = torch.where(ok_model, d[best_c], 0.0)
+        # The reference evaluates the final inlier test in float64 (its
+        # model normal is promoted there); so does the port.
+        x64, n64 = xyz.to(torch.float64), best_normal.to(torch.float64)
+        dist = torch.abs(x64[:, 0] * n64[0] + x64[:, 1] * n64[1]
+                         + x64[:, 2] * n64[2] + best_d.to(torch.float64))
+        inlier_mask = valid & (dist <= threshold) & (cnt >= 3)
     return best_normal, best_d, inlier_mask
 
 

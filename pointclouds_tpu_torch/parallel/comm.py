@@ -7,45 +7,30 @@ input. The group's backend runs the collective: NCCL for CUDA tensors,
 gloo for CPU ones. One branch stages through the host on purpose: gloo
 with a CUDA tensor (several ranks sharing one card, where NCCL refuses
 two ranks a device) copies the tensor to the host, runs the collective
-there and copies the result back; `STATS` counts those calls. A failed
-collective raises; no helper computes locally instead.
+there and copies the result back. With tracing on (`utils/profiling.py`)
+each call is span ``comm.<op>`` of the open frame and counts
+``comm.<op>.calls``, and ``comm.<op>.staged`` where it went through the
+host. A failed collective raises; no helper computes locally instead.
 """
 
 from __future__ import annotations
 
-import time
-
 import torch
 import torch.distributed as dist
 
-# Per collective: calls, calls staged through the host, and host ms spent
-# inside them (the card synchronised around each call when `TIMED`).
-STATS: dict = {}
-TIMED = False
+from ..utils import profiling
 
 
-def reset_stats() -> None:
-    STATS.clear()
-
-
-def _run(name: str, group, fn, t: torch.Tensor, *extra):
+def _run(op: str, group, fn, t: torch.Tensor, *extra):
     """``fn(t_host_or_device, *extra)`` -> result, with the host staging
-    branch and the bookkeeping."""
+    branch, in span ``comm.<op>``."""
     staged = t.is_cuda and dist.get_backend(group) == "gloo"
-    s = STATS.setdefault(name, dict(calls=0, staged=0, ms=0.0))
-    s["calls"] += 1
-    if TIMED and t.is_cuda:
-        torch.cuda.synchronize(t.device)
-    t0 = time.perf_counter()
-    if staged:
-        s["staged"] += 1
-        out = fn(t.cpu(), *extra).to(t.device)
-    else:
-        out = fn(t, *extra)
-    if TIMED and t.is_cuda:
-        torch.cuda.synchronize(t.device)
-    s["ms"] += (time.perf_counter() - t0) * 1e3
-    return out
+    with profiling.span(f"comm.{op}", card=True):
+        profiling.count(f"comm.{op}.calls")
+        if staged:
+            profiling.count(f"comm.{op}.staged")
+            return fn(t.cpu(), *extra).to(t.device)
+        return fn(t, *extra)
 
 
 def axis_index(group) -> int:

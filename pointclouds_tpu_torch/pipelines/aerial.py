@@ -26,6 +26,7 @@ from ..spatial.sweep import (
     sweep_knn_moments_rows,
     sweep_moments_two_pass_rows,
 )
+from ..utils import profiling
 
 
 class AerialPipelineOutput(NamedTuple):
@@ -80,73 +81,84 @@ def aerial_pipeline(
     voxel front end; any other string takes the plain voxel front end.
     """
     fused_front = backend in ("auto", "sweep", "sweep_xla")
-    voxel = scalar_like(np.float32(voxel_size), xyz)
     if ds_cap is None:
         ds_cap = xyz.shape[0]
     ds_cap = min(ds_cap, xyz.shape[0])
+    with profiling.frame("aerial", xyz.device):
+        voxel = scalar_like(np.float32(voxel_size), xyz)
 
-    # ── Step 1: voxel downsample ──
-    prebuilt = None
-    if (fused_front and normals_cell_factor is not None
-            and not normals_rescue and ds_cap % 128 == 0):
-        fe = voxel_downsample_sweep_fused(xyz, valid, voxel,
-                                          factor=normals_cell_factor,
-                                          ds_cap=ds_cap)
-        centroids, ds_valid = fe["centroids"], fe["out_valid"]
-        ds_overflow = fe["ds_overflow"]
-        prebuilt = structure_from_sorted(
-            centroids, ds_valid, fe["slin"], fe["extent"], fe["hi_cells"],
-            fe["table_overflow"], wr=4)
-        cell = voxel * float(normals_cell_factor)
-    else:
-        centroids_full, ds_valid_full = voxel_downsample_masked(xyz, valid,
-                                                                voxel)
-        centroids = centroids_full[:ds_cap]
-        ds_valid = ds_valid_full[:ds_cap]
-        ds_overflow = ds_valid_full[ds_cap:].any()
-        cell = scalar_like(np.float32(normals_cell), xyz)
+        # ── Step 1: voxel downsample ──
+        with profiling.span("frontend", card=True):
+            prebuilt = None
+            if (fused_front and normals_cell_factor is not None
+                    and not normals_rescue and ds_cap % 128 == 0):
+                fe = voxel_downsample_sweep_fused(xyz, valid, voxel,
+                                                  factor=normals_cell_factor,
+                                                  ds_cap=ds_cap)
+                centroids, ds_valid = fe["centroids"], fe["out_valid"]
+                ds_overflow = fe["ds_overflow"]
+                prebuilt = structure_from_sorted(
+                    centroids, ds_valid, fe["slin"], fe["extent"],
+                    fe["hi_cells"], fe["table_overflow"], wr=4)
+                cell = voxel * float(normals_cell_factor)
+            else:
+                centroids_full, ds_valid_full = voxel_downsample_masked(
+                    xyz, valid, voxel)
+                centroids = centroids_full[:ds_cap]
+                ds_valid = ds_valid_full[:ds_cap]
+                ds_overflow = ds_valid_full[ds_cap:].any()
+                cell = scalar_like(np.float32(normals_cell), xyz)
 
-    # ── Step 2: PCA normals from kNN moments, in row layout ──
-    if normals_rescue:
-        m1r, m2r, cnt, nok = sweep_moments_two_pass_rows(
-            centroids, ds_valid, cell, k=normals_k, fix_cap=normals_fix_cap)
-    else:
-        m1r, m2r, cnt, nok = sweep_knn_moments_rows(
-            centroids, ds_valid, cell, k=normals_k, prebuilt=prebuilt)
-    normals = normals_from_moment_rows(m1r, m2r, cnt, centroids, viewpoint)
+        # ── Step 2: PCA normals from kNN moments, in row layout ──
+        with profiling.span("normals", card=True):
+            if normals_rescue:
+                m1r, m2r, cnt, nok = sweep_moments_two_pass_rows(
+                    centroids, ds_valid, cell, k=normals_k,
+                    fix_cap=normals_fix_cap)
+            else:
+                m1r, m2r, cnt, nok = sweep_knn_moments_rows(
+                    centroids, ds_valid, cell, k=normals_k,
+                    prebuilt=prebuilt)
+            normals = normals_from_moment_rows(m1r, m2r, cnt, centroids,
+                                               viewpoint)
 
-    # ── Step 3: RANSAC ground plane (voxel rows are leading-compact) ──
-    pnormal, d, inlier_mask = ransac_plane_masked(
-        centroids, ds_valid, ransac_thresh, int(seed), ransac_iters,
-        assume_compact=True, score_subsample=ransac_subsample,
-        adaptive=(ransac_subsample is None))
+        # ── Step 3: RANSAC ground plane (voxel rows are leading-compact) ──
+        with profiling.span("ransac", card=True):
+            pnormal, d, inlier_mask = ransac_plane_masked(
+                centroids, ds_valid, ransac_thresh, int(seed), ransac_iters,
+                assume_compact=True, score_subsample=ransac_subsample,
+                adaptive=(ransac_subsample is None))
 
-    # ── Step 4+5: ground removal + clustering over the nine windows ──
-    obstacle_mask = ds_valid & ~inlier_mask
-    order = compaction_order(obstacle_mask)
-    obs_src = order[:obstacle_cap]
-    obs_valid = obstacle_mask[obs_src]
-    obs_xyz = centroids[obs_src]
-    overflow = obstacle_mask.sum() > obstacle_cap
-    labels, cluster_exact = sweep_cluster_labels(
-        obs_xyz, obs_valid, np.float32(cluster_r), wr=cluster_wr,
-        rep_labels=False, row_cap=None, sweeps=cluster_sweeps)
+        # ── Step 4: ground removal + obstacle compaction ──
+        with profiling.span("compact", card=True):
+            obstacle_mask = ds_valid & ~inlier_mask
+            order = compaction_order(obstacle_mask)
+            obs_src = order[:obstacle_cap]
+            obs_valid = obstacle_mask[obs_src]
+            obs_xyz = centroids[obs_src]
+            overflow = obstacle_mask.sum() > obstacle_cap
 
-    return AerialPipelineOutput(
-        centroids=centroids,
-        downsampled_valid=ds_valid,
-        normals=normals,
-        normals_ok=nok,
-        plane_normal=pnormal,
-        plane_d=d,
-        inlier_mask=inlier_mask,
-        obstacle_src=obs_src.to(torch.int32),
-        obstacle_valid=obs_valid,
-        labels=labels,
-        obstacle_overflow=overflow,
-        cluster_exact=cluster_exact,
-        ds_overflow=ds_overflow,
-    )
+        # ── Step 5: clustering over the nine windows ──
+        with profiling.span("cluster", card=True):
+            labels, cluster_exact = sweep_cluster_labels(
+                obs_xyz, obs_valid, np.float32(cluster_r), wr=cluster_wr,
+                rep_labels=False, row_cap=None, sweeps=cluster_sweeps)
+
+        return AerialPipelineOutput(
+            centroids=centroids,
+            downsampled_valid=ds_valid,
+            normals=normals,
+            normals_ok=nok,
+            plane_normal=pnormal,
+            plane_d=d,
+            inlier_mask=inlier_mask,
+            obstacle_src=obs_src.to(torch.int32),
+            obstacle_valid=obs_valid,
+            labels=labels,
+            obstacle_overflow=overflow,
+            cluster_exact=cluster_exact,
+            ds_overflow=ds_overflow,
+        )
 
 
 def extract_clusters(out: AerialPipelineOutput, min_size: int,

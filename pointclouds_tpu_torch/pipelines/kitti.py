@@ -40,6 +40,7 @@ from ..spatial.sweep import (
     sweep_cluster_labels,
     sweep_sor_two_pass,
 )
+from ..utils import profiling
 
 _INVALID32 = 2**31 - 1
 
@@ -114,110 +115,125 @@ def kitti_obstacle_pipeline(
     if ds_cap is None:
         ds_cap = xyz.shape[0]
     sweep_backend = sor_backend in ("auto", "sweep", "sweep_xla")
-    voxel = scalar_like(np.float32(voxel_size), xyz)
-    false = torch.zeros((), dtype=torch.bool, device=xyz.device)
+    with profiling.frame("kitti", xyz.device):
+        voxel = scalar_like(np.float32(voxel_size), xyz)
+        false = torch.zeros((), dtype=torch.bool, device=xyz.device)
 
-    # ── Step 1: voxel downsample ────────────────────────────────────────────
-    canon = None
-    prebuilt = None
-    if (sweep_backend and float(sor_cell_factor).is_integer()
-            and ds_cap % 128 == 0):
-        # Fused front end: rows emitted in sweep order.
-        factor = int(sor_cell_factor)
-        fe = voxel_downsample_sweep_fused(xyz, valid, voxel, factor=factor,
-                                          ds_cap=ds_cap)
-        centroids, ds_valid, canon = (fe["centroids"], fe["out_valid"],
-                                      fe["canon"])
-        ds_overflow = fe["ds_overflow"]
-        prebuilt = structure_from_sorted(
-            centroids, ds_valid, fe["slin"], fe["extent"], fe["hi_cells"],
-            fe["table_overflow"], wr=4,
-            grid_origin=(fe["mn_v"], float(np.float32(voxel_size)), factor),
+        # ── Step 1: voxel downsample ────────────────────────────────────────
+        with profiling.span("frontend", card=True):
+            canon = None
+            prebuilt = None
+            if (sweep_backend and float(sor_cell_factor).is_integer()
+                    and ds_cap % 128 == 0):
+                # Fused front end: rows emitted in sweep order.
+                factor = int(sor_cell_factor)
+                fe = voxel_downsample_sweep_fused(xyz, valid, voxel,
+                                                  factor=factor,
+                                                  ds_cap=ds_cap)
+                centroids, ds_valid, canon = (fe["centroids"],
+                                              fe["out_valid"], fe["canon"])
+                ds_overflow = fe["ds_overflow"]
+                prebuilt = structure_from_sorted(
+                    centroids, ds_valid, fe["slin"], fe["extent"],
+                    fe["hi_cells"], fe["table_overflow"], wr=4,
+                    grid_origin=(fe["mn_v"], float(np.float32(voxel_size)),
+                                 factor),
+                )
+            else:
+                # Compacted centroids in ascending cell-key order, cut to
+                # ds_cap.
+                centroids_full, ds_valid_full = voxel_downsample_masked(
+                    xyz, valid, voxel)
+                centroids = centroids_full[:ds_cap]
+                ds_valid = ds_valid_full[:ds_cap]
+                ds_overflow = ds_valid_full[ds_cap:].any()
+
+        # ── Step 2: statistical outlier removal ────────────────────────────
+        with profiling.span("sor", card=True):
+            sor_cell = voxel * sor_cell_factor
+            if sweep_backend:
+                mean_dists, point_ok, _, mean_lb = sweep_sor_two_pass(
+                    centroids, ds_valid, sor_cell, k=sor_k,
+                    fix_cap=sor_fix_cap, rescue_cells=8.0, prebuilt=prebuilt,
+                    row_cap=sor_row_cap, with_lb=True,
+                )
+                cleaned_valid, sor_thr = sor_keep_mask_thr(
+                    mean_dists, ds_valid, np.float32(sor_std))
+                # Keep-DECISION certificate: exact mean, or an upper bound
+                # that passes, or a proven lower bound above the threshold.
+                decision_ok = point_ok | cleaned_valid | (
+                    mean_lb.to(torch.float64) > sor_thr)
+                sor_certified = (decision_ok | ~ds_valid).all()
+                grid_flags = (false, false)
+            else:
+                mean_dists, sor_certified, grid_flags = _cellgrid_sor(
+                    centroids, ds_valid, sor_cell, sor_k=sor_k, sor_m=sor_m,
+                    sor_cell_cap=sor_cell_cap, sor_fix_cap=sor_fix_cap,
+                    sor_backend=sor_backend)
+                cleaned_valid = sor_keep_mask(mean_dists, ds_valid,
+                                              np.float32(sor_std))
+
+        # ── Step 3: RANSAC ground plane ────────────────────────────────────
+        # Canonical mini-sort (fused front end): position p -> the row
+        # holding the p-th cleaned centroid in canonical voxel order (the
+        # JAX package's sample order); otherwise the rows are in that order
+        # already.
+        position_rows = None
+        if canon is not None:
+            with profiling.span("compact", card=True):
+                position_rows = _canonical_order(cleaned_valid, canon)
+        with profiling.span("ransac", card=True):
+            normal, d, inlier_mask = ransac_plane_masked(
+                centroids, cleaned_valid, ransac_thresh, int(seed),
+                ransac_iters, score_subsample=ransac_subsample,
+                position_rows=position_rows,
+                # The reference's dispatch (sequential adaptive scan below
+                # 10K valid points) wherever every hypothesis is scored.
+                adaptive=(ransac_subsample is None),
+            )
+
+        # ── Step 4: ground removal + obstacle compaction ───────────────────
+        with profiling.span("compact", card=True):
+            obstacle_mask = cleaned_valid & ~inlier_mask
+            order = (compaction_order(obstacle_mask) if canon is None
+                     else _canonical_order(obstacle_mask, canon))
+            obs_src = order[:obstacle_cap]
+            obs_valid = obstacle_mask[obs_src]
+            obs_xyz = centroids[obs_src]
+            overflow = obstacle_mask.sum() > obstacle_cap
+
+        # ── Step 5: euclidean clustering ───────────────────────────────────
+        with profiling.span("cluster", card=True):
+            if sweep_backend:
+                labels, cluster_exact = sweep_cluster_labels(
+                    obs_xyz, obs_valid, np.float32(cluster_r),
+                    wr=cluster_wr, row_cap=cluster_row_cap,
+                )
+                cluster_flags = (~cluster_exact, false)
+            else:
+                # Collapsed cell graph: cell r/2, ring 2.
+                r = scalar_like(np.float32(cluster_r), xyz)
+                cgrid = build_cellgrid(obs_xyz, obs_valid, r * 0.5,
+                                       m_per_cell=cluster_m,
+                                       cell_cap=cluster_cell_cap, ring=2)
+                labels = cell_graph_labels(cgrid,
+                                           cell_graph_adjacency(cgrid, r))
+                cluster_flags = (cgrid.overflow, cgrid.table_overflow)
+        return KittiPipelineOutput(
+            centroids=centroids,
+            downsampled_valid=ds_valid,
+            cleaned_valid=cleaned_valid,
+            plane_normal=normal,
+            plane_d=d,
+            inlier_mask=inlier_mask,
+            obstacle_src=obs_src.to(torch.int32),
+            obstacle_valid=obs_valid,
+            labels=labels,
+            obstacle_overflow=overflow,
+            sor_certified=sor_certified,
+            grid_flags=torch.stack([*grid_flags, *cluster_flags,
+                                    ds_overflow]),
         )
-    else:
-        # Compacted centroids in ascending cell-key order, cut to ds_cap.
-        centroids_full, ds_valid_full = voxel_downsample_masked(xyz, valid,
-                                                                voxel)
-        centroids = centroids_full[:ds_cap]
-        ds_valid = ds_valid_full[:ds_cap]
-        ds_overflow = ds_valid_full[ds_cap:].any()
-
-    # ── Step 2: statistical outlier removal ────────────────────────────────
-    sor_cell = voxel * sor_cell_factor
-    if sweep_backend:
-        mean_dists, point_ok, _, mean_lb = sweep_sor_two_pass(
-            centroids, ds_valid, sor_cell, k=sor_k, fix_cap=sor_fix_cap,
-            rescue_cells=8.0, prebuilt=prebuilt, row_cap=sor_row_cap,
-            with_lb=True,
-        )
-        cleaned_valid, sor_thr = sor_keep_mask_thr(mean_dists, ds_valid,
-                                                   np.float32(sor_std))
-        # Keep-DECISION certificate: exact mean, or an upper bound that
-        # passes, or a proven lower bound above the threshold.
-        decision_ok = point_ok | cleaned_valid | (mean_lb.to(torch.float64)
-                                                  > sor_thr)
-        sor_certified = (decision_ok | ~ds_valid).all()
-        grid_flags = (false, false)
-    else:
-        mean_dists, sor_certified, grid_flags = _cellgrid_sor(
-            centroids, ds_valid, sor_cell, sor_k=sor_k, sor_m=sor_m,
-            sor_cell_cap=sor_cell_cap, sor_fix_cap=sor_fix_cap,
-            sor_backend=sor_backend)
-        cleaned_valid = sor_keep_mask(mean_dists, ds_valid,
-                                      np.float32(sor_std))
-
-    # ── Step 3: RANSAC ground plane ────────────────────────────────────────
-    # Canonical mini-sort (fused front end): position p -> the row holding
-    # the p-th cleaned centroid in canonical voxel order (the JAX package's
-    # sample order); otherwise the rows are in that order already.
-    position_rows = (None if canon is None
-                     else _canonical_order(cleaned_valid, canon))
-    normal, d, inlier_mask = ransac_plane_masked(
-        centroids, cleaned_valid, ransac_thresh, int(seed), ransac_iters,
-        score_subsample=ransac_subsample, position_rows=position_rows,
-        # The reference's dispatch (sequential adaptive scan below 10K
-        # valid points) wherever every hypothesis is scored.
-        adaptive=(ransac_subsample is None),
-    )
-
-    # ── Step 4: ground removal + obstacle compaction ───────────────────────
-    obstacle_mask = cleaned_valid & ~inlier_mask
-    order = (compaction_order(obstacle_mask) if canon is None
-             else _canonical_order(obstacle_mask, canon))
-    obs_src = order[:obstacle_cap]
-    obs_valid = obstacle_mask[obs_src]
-    obs_xyz = centroids[obs_src]
-    overflow = obstacle_mask.sum() > obstacle_cap
-
-    # ── Step 5: euclidean clustering ───────────────────────────────────────
-    if sweep_backend:
-        labels, cluster_exact = sweep_cluster_labels(
-            obs_xyz, obs_valid, np.float32(cluster_r), wr=cluster_wr,
-            row_cap=cluster_row_cap,
-        )
-        cluster_flags = (~cluster_exact, false)
-    else:
-        # Collapsed cell graph: cell r/2, ring 2.
-        r = scalar_like(np.float32(cluster_r), xyz)
-        cgrid = build_cellgrid(obs_xyz, obs_valid, r * 0.5,
-                               m_per_cell=cluster_m,
-                               cell_cap=cluster_cell_cap, ring=2)
-        labels = cell_graph_labels(cgrid, cell_graph_adjacency(cgrid, r))
-        cluster_flags = (cgrid.overflow, cgrid.table_overflow)
-    return KittiPipelineOutput(
-        centroids=centroids,
-        downsampled_valid=ds_valid,
-        cleaned_valid=cleaned_valid,
-        plane_normal=normal,
-        plane_d=d,
-        inlier_mask=inlier_mask,
-        obstacle_src=obs_src.to(torch.int32),
-        obstacle_valid=obs_valid,
-        labels=labels,
-        obstacle_overflow=overflow,
-        sor_certified=sor_certified,
-        grid_flags=torch.stack([*grid_flags, *cluster_flags, ds_overflow]),
-    )
 
 
 def _cellgrid_sor(centroids, ds_valid, sor_cell, *, sor_k: int, sor_m: int,

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..core.cloud import stable_argsort
+from ..utils import profiling
 from .grid import scalar_like
 from .kernels import (_sqrt_f32, _topk_lex, fma_f32, segmented_select,
                       sor_select)
@@ -159,8 +160,10 @@ def build_cellgrid(xyz, valid, cell_size, *, m_per_cell: int, cell_cap: int,
                              dev).reshape(cell_cap, m, 3)
     sxyzw = torch.cat([sxyz, torch.where(in_block, sidx.to(torch.float32),
                                          -1.0)[:, None]], dim=1)
-    cell_xyzw = _scatter_rows(flat + (4,), _PAD_XYZW.to(dev), torch.float32,
-                              at, sxyzw, dev).reshape(cell_cap, m, 4)
+    with profiling.host_read("cellgrid.upload"):  # the pad row
+        cell_xyzw = _scatter_rows(flat + (4,), _PAD_XYZW.to(dev),
+                                  torch.float32, at, sxyzw,
+                                  dev).reshape(cell_cap, m, 4)
     cell_idx = _scatter_rows(flat, n, torch.int32, at, sidx,
                              dev).reshape(cell_cap, m)
     cell_mask = _scatter_rows(flat, False, torch.bool, at, in_block,
@@ -177,7 +180,8 @@ def build_cellgrid(xyz, valid, cell_size, *, m_per_cell: int, cell_cap: int,
         (cell_cap, 3), 0, torch.int32,
         torch.clamp(torch.where(first, slot, cell_cap), max=cell_cap).long(),
         rel[order], dev)
-    noff = torch.from_numpy(ring_offsets(ring)).to(dev)
+    with profiling.host_read("cellgrid.upload"):
+        noff = torch.from_numpy(ring_offsets(ring)).to(dev)
     nrel = cell_rel[:, None, :] + noff[None, :, :]  # [C, K, 3]
     in_bounds = ((nrel >= 0) & (nrel < extent[None, None, :])).all(dim=-1)
     nlin = (nrel[..., 0] * extent[1] + nrel[..., 1]) * extent[2] + nrel[..., 2]
@@ -254,8 +258,9 @@ def _xyzw_rows(grid: CellGrid, slots):
     [..., K]; absent slots as empty xyzw (row id -1)."""
     cap, m, _ = grid.cell_xyzw.shape
     nb = grid.cell_xyzw[torch.clamp(slots, max=cap - 1).long()]
-    nb = torch.where((slots >= cap)[..., None, None],
-                     _PAD_XYZW.to(nb.device), nb)
+    with profiling.host_read("cellgrid.upload"):  # the pad row
+        nb = torch.where((slots >= cap)[..., None, None],
+                         _PAD_XYZW.to(nb.device), nb)
     return nb.reshape(slots.shape[:-1] + (slots.shape[-1] * m, 4))
 
 
@@ -332,7 +337,8 @@ def cell_sor_mean_dists(grid: CellGrid, *, k: int, chunk: int = CELL_CHUNK,
         kth = torch.zeros((caps, m), dtype=torch.float32, device=qm.device)
         # Cells past num_cells hold no query (their rows stay zero, as the
         # reference computes them): one host read bounds the work.
-        occupied = int(grid.num_cells)
+        with profiling.host_read("cellgrid.occupied"):
+            occupied = int(grid.num_cells)
         step = _cell_rows(m * km)
         for s in range(0, min(caps, occupied), step):
             sl = slice(s, min(s + step, caps))
@@ -372,8 +378,10 @@ def cell_knn_subset(grid: CellGrid, qxyz, qrows, qvalid, *, k: int):
     n = grid.point_slot.shape[0]
     dev = qxyz.device
     kk = grid.neighbor_slots.shape[1]
-    slot = torch.cat([grid.point_slot, torch.tensor([cap], dtype=torch.int32,
-                                                     device=dev)])
+    with profiling.host_read("cellgrid.upload"):
+        slot = torch.cat([grid.point_slot,
+                          torch.tensor([cap], dtype=torch.int32,
+                                       device=dev)])
     slot = slot[torch.clamp(qrows.long(), max=n)]
     nbs = torch.cat([grid.neighbor_slots,
                      torch.full((1, kk), cap, dtype=torch.int32, device=dev)])
@@ -481,7 +489,8 @@ def cell_graph_adjacency(grid: CellGrid, radius, *, chunk: int = 256):
     r2 = r * r
     adj = torch.zeros((caps, kk), dtype=torch.bool, device=dev)
     # Cells past num_cells hold no point: no edge (one host read).
-    occupied = int(grid.num_cells)
+    with profiling.host_read("cellgrid.occupied"):
+        occupied = int(grid.num_cells)
     step = _cell_rows(m * kk * m)
     for s in range(0, min(caps, occupied), step):
         sl = slice(s, min(s + step, caps))
@@ -503,7 +512,8 @@ def cell_graph_labels(grid: CellGrid, adjacency):
     cap = grid.cell_xyz.shape[0]
     n = grid.point_slot.shape[0]
     dev = adjacency.device
-    big = torch.tensor([cap], dtype=torch.int32, device=dev)
+    with profiling.host_read("cellgrid.upload"):
+        big = torch.tensor([cap], dtype=torch.int32, device=dev)
     nbr = torch.clamp(torch.where(adjacency, grid.neighbor_slots, cap), 0,
                       cap).long()
     lab = torch.arange(cap, dtype=torch.int32, device=dev)
@@ -512,7 +522,8 @@ def cell_graph_labels(grid: CellGrid, adjacency):
         m = torch.minimum(nl.amin(dim=1), lab)
         for _ in range(2):
             m = torch.minimum(m, torch.cat([m, big])[m.long()])
-        changed = bool((m != lab).any())
+        with profiling.host_read("cellgrid.labels_changed"):
+            changed = bool((m != lab).any())
         lab = m
         if not changed:
             break
@@ -521,8 +532,10 @@ def cell_graph_labels(grid: CellGrid, adjacency):
     min_row = torch.where(grid.cell_mask, grid.cell_idx, n).amin(dim=1)
     rep = torch.full((cap + 1,), n, dtype=torch.int32, device=dev)
     rep.scatter_reduce_(0, lab.long(), min_row, reduce="amin")
-    cell_rep = torch.cat([rep[lab.long()],
-                          torch.tensor([n], dtype=torch.int32, device=dev)])
+    with profiling.host_read("cellgrid.upload"):
+        cell_rep = torch.cat([rep[lab.long()],
+                              torch.tensor([n], dtype=torch.int32,
+                                           device=dev)])
     plab = cell_rep[torch.clamp(grid.point_slot, max=cap).long()]
     own = torch.arange(n, dtype=torch.int32, device=dev)
     return torch.where(plab >= n, own, plab)

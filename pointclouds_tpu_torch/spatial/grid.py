@@ -17,6 +17,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 BITS = 21
 BIAS = 1 << 20
 # Largest int64 key: sorts after every real cell key, so invalid points land
@@ -33,8 +35,13 @@ NEIGHBOR_OFFSETS = np.array(
 def scalar_like(value, like: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """``value`` as a 0-d tensor on ``like``'s device. Dividing by a tensor
     (not a Python number) keeps division IEEE-exact on CUDA, where a host
-    scalar divisor is applied as a multiply by its reciprocal."""
-    return torch.as_tensor(value, dtype=dtype, device=like.device)
+    scalar divisor is applied as a multiply by its reciprocal. A value not
+    yet on the card is uploaded from pageable memory, which waits for the
+    stream."""
+    if torch.is_tensor(value) and value.device == like.device:
+        return value.to(dtype)
+    with profiling.host_read("scalar_upload"):
+        return torch.as_tensor(value, dtype=dtype, device=like.device)
 
 
 def cell_coords(xyz: torch.Tensor, cell_size) -> torch.Tensor:

@@ -23,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 LAUNCHES = {
     "segmented_scan_sums": 0,
     "sweep_select_rows": 0,
@@ -401,10 +403,8 @@ def rescue_select(cand_planar, q_planar, active, *, k: int, gr: int = 8):
 # ── 4. Cluster min-label propagation ────────────────────────────────────────
 
 # Rounds `cluster_multisweep` launches between host reads of its per-round
-# change counts, and what its last CUDA call took (as kernel 8's
-# `WINDOW_ROUND_BATCH` and `WINDOW_ROUNDS`).
+# change counts (as kernel 8's `WINDOW_ROUND_BATCH`).
 LIST_ROUND_BATCH = 4
-LIST_ROUNDS = {"host_reads": 0, "pairs_visited": 0, "lowered": []}
 
 
 def _cluster_pad(pts_planar):
@@ -502,8 +502,10 @@ def cluster_multisweep(pts_planar, rowlist, r2, *, cap: int,
         raise ValueError("cluster_multisweep: more blocks than planar rows")
     r2 = float(r2)
     if not _on_cuda(pts_planar):
-        return cluster_multisweep_plain(pts_planar, rowlist, r2, cap=cap,
-                                        max_rounds=max_rounds)
+        out = cluster_multisweep_plain(pts_planar, rowlist, r2, cap=cap,
+                                       max_rounds=max_rounds)
+        profiling.count("cluster.rounds", out[2])
+        return out
     _check_aligned16("cluster_multisweep.pts", pts_planar)
 
     def launch(state, first, count):
@@ -512,18 +514,20 @@ def cluster_multisweep(pts_planar, rowlist, r2, *, cap: int,
                     max_rounds + 1, r2, first, count, _stream())
 
     return _label_rounds_cuda("cluster_multisweep", launch, LIST_ROUND_BATCH,
-                              LIST_ROUNDS, nb, nr, max_rounds, dev)
+                              nb, nr, max_rounds, dev)
 
 
-def _label_rounds_cuda(name, launch, batch: int, stats: dict, nb: int,
-                       nr: int, max_rounds: int, dev):
+def _label_rounds_cuda(name, launch, batch: int, nb: int, nr: int,
+                       max_rounds: int, dev):
     """Drive kernel ``name``'s one-launch rounds (csrc/cluster.cu) in
     batches of ``batch``, one ``launch(state pointers, first round,
     rounds)`` and one host read of the counts a batch, until a round
     changed nothing or ``max_rounds`` ran; the first launch also sets the
     state up (labels, round stamps per row and per query, per-round change
-    counts after the walked-pairs count). Records the call's host reads,
-    walked pairs and labels lowered per round in ``stats``."""
+    counts after the walked-pairs count). Counts the rounds, the host reads
+    of the counts (``cluster.round_batches``) and the query-candidate pairs
+    the hops walked, frontier and row prune applied
+    (``cluster.pairs_visited``), into the open frame."""
     nq = nb * 128
     lab = torch.empty(nr * 128, dtype=torch.int32, device=dev)
     stamp = torch.empty(nr, dtype=torch.int32, device=dev)
@@ -536,7 +540,8 @@ def _label_rounds_cuda(name, launch, batch: int, stats: dict, nb: int,
         n = min(batch, max_rounds - launched)
         launch(state, launched + 1, n)
         launched += n
-        got = counts[: launched + 1].tolist()  # host read: once a batch
+        with profiling.host_read("cluster.round_counts"):  # once a batch
+            got = counts[: launched + 1].tolist()
         reads += 1
         if 0 in got[1:]:
             rounds = got.index(0, 1)
@@ -544,8 +549,9 @@ def _label_rounds_cuda(name, launch, batch: int, stats: dict, nb: int,
         if launched >= max_rounds:
             break
     LAUNCHES[name] += rounds
-    stats.update(host_reads=reads, pairs_visited=128 * got[0],
-                 lowered=got[1:rounds + 1])
+    profiling.count("cluster.rounds", rounds)
+    profiling.count("cluster.round_batches", reads)
+    profiling.count("cluster.pairs_visited", 128 * got[0])
     # Lowered in the last round (none if it converged); all zero (`last`)
     # when no round ran.
     changed = last == rounds if rounds else last
@@ -796,10 +802,6 @@ def rescue_knn_idx(cand_planar, q_planar, active, *, k: int, gr: int = 8):
 # per-round change counts (csrc/cluster.cu): rounds after the first that
 # changed nothing return at once.
 WINDOW_ROUND_BATCH = 4
-# What its last CUDA call took: host reads of the counts, the
-# query-candidate pairs its hops walked (frontier and row prune applied)
-# and the labels each round lowered.
-WINDOW_ROUNDS = {"host_reads": 0, "pairs_visited": 0, "lowered": []}
 
 
 def cluster_multisweep_windows_plain(pts_planar, starts, r2, *,
@@ -841,8 +843,10 @@ def cluster_multisweep_windows(pts_planar, starts, r2, *,
         raise ValueError("cluster_multisweep_windows: more blocks than rows")
     r2 = float(r2)
     if not _on_cuda(pts_planar):
-        return cluster_multisweep_windows_plain(
+        out = cluster_multisweep_windows_plain(
             pts_planar, starts, r2, max_rounds=max_rounds, labels0=labels0)
+        profiling.count("cluster.rounds", out[2])
+        return out
     _check_aligned16("cluster_multisweep_windows.pts", pts_planar)
     labels0_ptr = None if labels0 is None else labels0.data_ptr()
 
@@ -852,8 +856,7 @@ def cluster_multisweep_windows(pts_planar, starts, r2, *,
                     max_rounds + 1, r2, first, count, _stream())
 
     return _label_rounds_cuda("cluster_multisweep_windows", launch,
-                              WINDOW_ROUND_BATCH, WINDOW_ROUNDS, nb, nr,
-                              max_rounds, dev)
+                              WINDOW_ROUND_BATCH, nb, nr, max_rounds, dev)
 
 
 # ── 9. Exact k-smallest selection over the windows (SOR, no row cap) ───────

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..core.cloud import compaction_order, stable_argsort
+from ..utils import profiling
 from .grid import scalar_like
 from .kernels import (
     cluster_multisweep,
@@ -72,9 +73,10 @@ def _window_starts(slin_p, suse_p, extent, nrows, nb, wr, table_size):
     per-block length certificate, for the same-cloud sweep."""
     blocks = slin_p[: nb * 128].reshape(nb, 128)
     has_valid = suse_p[: nb * 128].reshape(nb, 128).any(dim=1)
-    return _window_starts_from_bounds(blocks[:, 0], blocks[:, -1], has_valid,
-                                      slin_p, suse_p, extent, nrows, nb, wr,
-                                      table_size)
+    with profiling.span("windows"):
+        return _window_starts_from_bounds(blocks[:, 0], blocks[:, -1],
+                                          has_valid, slin_p, suse_p, extent,
+                                          nrows, nb, wr, table_size)
 
 
 def _window_starts_from_bounds(lo, hi, has_valid, slin_p, suse_p, extent,
@@ -114,7 +116,8 @@ def _window_starts_from_bounds(lo, hi, has_valid, slin_p, suse_p, extent,
                          device=dev)
         raw[torch.where(first, slin_p.long(), table_size + 1)] = torch.where(
             first, pos, 2**30)
-        raw[table_size + 1] = slin_p.shape[0]
+        with profiling.host_read("windows.table"):  # a scalar upload
+            raw[table_size + 1] = slin_p.shape[0]
         prefix = torch.flip(torch.cummin(torch.flip(raw, [0]), 0).values, [0])
         first_row = prefix[a.long()]
         last_row_raw = prefix[(zhi + 1).long()]
@@ -414,7 +417,18 @@ def sweep_sor_two_pass(xyz, valid, cell_size, *, k: int,
     cell_size = scalar_like(cell_size, xyz)
     s = prebuilt if prebuilt is not None else _sorted_structure(
         xyz, valid, cell_size, wr, table_size)
-    p = _sweep_pass1(cell_size, k=k, prebuilt=s, row_cap=row_cap)
+    with profiling.span("sor.pass1"):
+        p = _sweep_pass1(cell_size, k=k, prebuilt=s, row_cap=row_cap)
+    with profiling.span("sor.rescue"):
+        return _sor_rescue(xyz, s, p, cell_size, k=k, fix_cap=fix_cap,
+                           rescue_cells=rescue_cells, with_lb=with_lb)
+
+
+def _sor_rescue(xyz, s, p, cell_size, *, k: int, fix_cap: int,
+                rescue_cells: float, with_lb: bool):
+    """`sweep_sor_two_pass` after pass 1 ``p``: the exact rescue of the
+    flagged rows, merged back and unsorted to row order."""
+    n = xyz.shape[0]
     kp1 = k + 1
     use_s = p["use_s"]
     nall = use_s.shape[0]
@@ -606,40 +620,45 @@ def sweep_cluster_labels(xyz, valid, radius, *, wr: int = 7,
     n = xyz.shape[0]
     r32 = np.float32(radius)
     r2 = float(r32 * r32)
-    use_pre = valid & torch.isfinite(xyz).all(dim=-1)
-    hi_abs = torch.where(use_pre[:, None], xyz.abs(), 0.0).amax()
-    cell_size = cluster_cell_size(scalar_like(r32, xyz), hi_abs)
-
-    s = _sorted_structure(xyz, valid, cell_size, wr, table_size)
+    with profiling.span("cluster.structure"):
+        use_pre = valid & torch.isfinite(xyz).all(dim=-1)
+        hi_abs = torch.where(use_pre[:, None], xyz.abs(), 0.0).amax()
+        cell_size = cluster_cell_size(scalar_like(r32, xyz), hi_abs)
+        s = _sorted_structure(xyz, valid, cell_size, wr, table_size)
     planar, nrows, nb = s["planar"], s["nrows"], s["nb"]
     starts_skip = s["starts_skip"]
     nall = nrows * 128
-    exact = s["block_ok"][:nb].all() & ~s["table_overflow"]
-    if nrows * 8 * 128 * 4 > CLUSTER_RESIDENT_BYTES:
-        labels, iters = _hop_loop_labels(planar, starts_skip, r2, nb,
-                                         max_iters)
-        exact = exact & (iters < max_iters)
-        return _cluster_epilogue(labels, s, n, nall, exact, rep_labels)
-    if row_cap is not None:
-        rowlist, fits = _window_row_lists(starts_skip, row_cap, nrows)
-        labels, changed, _ = cluster_multisweep(
-            planar, rowlist, r2, cap=row_cap, max_rounds=max_iters)
-        exact = exact & fits[:nb].all()
-    else:
-        labels, changed, _ = cluster_multisweep_windows(
-            planar, starts_skip, r2, max_rounds=sweeps)
-        bursts = 0
-        # Host read: the completion loop's test of the last round's flags.
-        while bursts < _RESUME_BURSTS and bool(changed.any()):
+    with profiling.span("cluster.rounds"):
+        exact = s["block_ok"][:nb].all() & ~s["table_overflow"]
+        if nrows * 8 * 128 * 4 > CLUSTER_RESIDENT_BYTES:
+            labels, iters = _hop_loop_labels(planar, starts_skip, r2, nb,
+                                             max_iters)
+            exact = exact & (iters < max_iters)
+        elif row_cap is not None:
+            rowlist, fits = _window_row_lists(starts_skip, row_cap, nrows)
+            labels, changed, _ = cluster_multisweep(
+                planar, rowlist, r2, cap=row_cap, max_rounds=max_iters)
+            exact = exact & fits[:nb].all() & ~changed.any()
+        else:
             labels, changed, _ = cluster_multisweep_windows(
-                planar, starts_skip, r2, max_rounds=sweeps, labels0=labels)
-            bursts += 1
-    exact = exact & ~changed.any()
-    if nall > nb * 128:
-        labels = torch.cat([labels, torch.arange(nb * 128, nall,
-                                                 dtype=labels.dtype,
-                                                 device=labels.device)])
-    return _cluster_epilogue(labels, s, n, nall, exact, rep_labels)
+                planar, starts_skip, r2, max_rounds=sweeps)
+            bursts = 0
+            while bursts < _RESUME_BURSTS:
+                # The completion loop's test of the last round's flags.
+                with profiling.host_read("cluster.resume"):
+                    if not bool(changed.any()):
+                        break
+                labels, changed, _ = cluster_multisweep_windows(
+                    planar, starts_skip, r2, max_rounds=sweeps,
+                    labels0=labels)
+                bursts += 1
+            exact = exact & ~changed.any()
+    with profiling.span("cluster.epilogue"):
+        if labels.shape[0] < nall:  # the windows' rows, padded
+            labels = torch.cat([labels, torch.arange(nb * 128, nall,
+                                                     dtype=labels.dtype,
+                                                     device=labels.device)])
+        return _cluster_epilogue(labels, s, n, nall, exact, rep_labels)
 
 
 def _hop_loop_labels(planar, starts_skip, r2: float, nb: int,
@@ -681,8 +700,10 @@ def _hop_loop_labels(planar, starts_skip, r2: float, nb: int,
         active = ((cum[hi_rows] - cum[lo_rows]) > 0).any(dim=1)
         lab = new
         iters += 1
-        if not bool(changed.any()):  # host read: the loop's condition
-            break
+        with profiling.host_read("cluster.hop"):  # the loop's condition
+            if not bool(changed.any()):
+                break
+    profiling.count("cluster.rounds", iters)
     return lab, iters
 
 

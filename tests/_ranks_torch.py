@@ -69,3 +69,25 @@ def sharded(rank, world, shapes, kitti, aerial):
         lambda seeds: (np.float32(0.5), np.float32(6.0), np.float32(0.3),
                        seeds, np.float32(2.0), VIEWPOINT))
     return res
+
+
+def traced_collectives(rank, world):
+    """Two `psum` and an `all_gather_tiled` of CPU tensors inside a traced
+    frame; the results, the record's counters and its span names."""
+    import torch.distributed as dist
+
+    from pointclouds_tpu_torch.parallel import comm
+    from pointclouds_tpu_torch.utils import profiling
+
+    group = dist.new_group(list(range(world)))
+    profiling.set_tracing(True)
+    try:
+        with profiling.frame("mesh"):
+            s = comm.psum(torch.arange(4.0), group)
+            comm.psum(s, group)
+            g = comm.all_gather_tiled(torch.full((2,), float(rank)), group)
+    finally:
+        profiling.set_tracing(False)
+    rec = profiling.last_frame()
+    return dict(psum=s.numpy(), all_gather=g.numpy(), counts=dict(rec.counts),
+                spans=[x.name for x in rec.spans])

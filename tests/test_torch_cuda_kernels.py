@@ -16,6 +16,7 @@ import pointclouds_tpu_torch as port
 from pointclouds_tpu_torch.pipelines.aerial import extract_clusters
 from pointclouds_tpu_torch.pipelines.scenes import aerial_scene, kitti_scene
 from pointclouds_tpu_torch.spatial import kernels, sweep
+from pointclouds_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -1012,6 +1013,18 @@ def test_cluster_propagate_cases(dev, case):
     assert got[1].any() == (case != "none")
 
 
+def _one_frame(call, dev):
+    """``call()`` as the one call of a traced frame: (its result, the frame's
+    record, which sums the cluster loops' counters over the frame)."""
+    profiling.set_tracing(True)
+    try:
+        with profiling.frame("test", dev):
+            out = call()
+    finally:
+        profiling.set_tracing(False)
+    return out, profiling.last_frame()
+
+
 def _serpentine(r, lanes=10, per=110):
     """A chain of points 0.9 r apart: ``lanes`` rows of ``per`` points along
     x, 1.8 r apart in y, joined at alternate ends by one point each."""
@@ -1051,18 +1064,19 @@ def test_cluster_multisweep_windows_rounds(dev):
     want = kernels.cluster_multisweep_windows_plain(planar, starts, r2,
                                                     max_rounds=64)
     before = kernels.LAUNCHES["cluster_multisweep_windows"]
-    got = kernels.cluster_multisweep_windows(planar, starts, r2,
-                                             max_rounds=64)
+    got, rec = _one_frame(lambda: kernels.cluster_multisweep_windows(
+        planar, starts, r2, max_rounds=64), dev)
     rounds = got[2]
     assert kernels.LAUNCHES["cluster_multisweep_windows"] - before == rounds
     assert rounds > kernels.WINDOW_ROUND_BATCH
     assert not got[1].any() and not want[1].any()
     assert torch.equal(got[0], want[0])
     batch = kernels.WINDOW_ROUND_BATCH
-    assert kernels.WINDOW_ROUNDS["host_reads"] == -(-rounds // batch)
+    assert rec.count("cluster.round_batches") == -(-rounds // batch)
+    assert rec.count("cluster.rounds") == rounds
     rows = (starts[:, 18:27] - starts[:, 9:18]).clamp(min=0).sum(1)
     full = 128 * 128 * int((rows * (starts[:, 27] != 0)).sum()) * rounds
-    assert 0 < kernels.WINDOW_ROUNDS["pairs_visited"] < full
+    assert 0 < rec.count("cluster.pairs_visited") < full
     cut = kernels.cluster_multisweep_windows(planar, starts, r2,
                                              max_rounds=2)
     assert cut[2] == 2 and cut[1].any()
@@ -1123,12 +1137,13 @@ def test_cluster_multisweep(dev, case):
     want = kernels.cluster_multisweep_plain(planar, rowlist, r2, cap=cap,
                                             max_rounds=max_rounds)
     before = kernels.LAUNCHES["cluster_multisweep"]
-    got = kernels.cluster_multisweep(planar, rowlist, r2, cap=cap,
-                                     max_rounds=max_rounds)
+    got, rec = _one_frame(lambda: kernels.cluster_multisweep(
+        planar, rowlist, r2, cap=cap, max_rounds=max_rounds), dev)
     rounds = got[2]
     assert kernels.LAUNCHES["cluster_multisweep"] - before == rounds
-    assert kernels.LIST_ROUNDS["host_reads"] == -(
+    assert rec.count("cluster.round_batches") == -(
         -rounds // kernels.LIST_ROUND_BATCH)
+    assert rec.count("cluster.rounds") == rounds
     if case == "cap1":
         assert rounds == 1 and got[1].any() and want[1].any()
         return
