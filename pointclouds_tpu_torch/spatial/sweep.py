@@ -90,39 +90,13 @@ def _window_starts_from_bounds(lo, hi, has_valid, slin_p, suse_p, extent,
     a = torch.clamp(lo[:, None] + sh[None, :] - 1, 0, table_size)
     zhi = torch.clamp(hi[:, None] + sh[None, :] + 1, 0, table_size)
 
-    # first_row(c) = #rows with cell id < c (rows are cell-sorted).
-    all_rows = slin_p.shape[0]
-    nbt = slin_p[: p_nb * 128].reshape(p_nb, 128)
-    p_hi = nbt[:, -1]
-
-    def rows_less_blocked(c):
-        w = c.shape[1]
-        cf = c.reshape(nb * w, 1)
-        nfull = (p_hi[None, :] < cf).sum(dim=1)
-        jb = torch.clamp(nfull, max=p_nb - 1)
-        cin = (nbt[jb] < cf).sum(dim=1)
-        cnt = torch.where(nfull >= p_nb, p_nb * 128, nfull * 128 + cin)
-        return torch.clamp(cnt, max=all_rows).reshape(nb, w)
-
-    if nb <= 2048 and p_nb <= 2048:
-        first_row = rows_less_blocked(a)
-        last_row_raw = rows_less_blocked(zhi + 1)
-    else:
-        # Dense first-row table + suffix-min scan.
-        pos = torch.arange(nrows * 128, dtype=torch.int64, device=dev)
-        first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                           slin_p[1:] != slin_p[:-1]])
-        raw = torch.full((table_size + 2,), 2**30, dtype=torch.int64,
-                         device=dev)
-        raw[torch.where(first, slin_p.long(), table_size + 1)] = torch.where(
-            first, pos, 2**30)
-        with profiling.host_read("windows.table"):  # a scalar upload
-            raw[table_size + 1] = slin_p.shape[0]
-        prefix = torch.flip(torch.cummin(torch.flip(raw, [0]), 0).values, [0])
-        first_row = prefix[a.long()]
-        last_row_raw = prefix[(zhi + 1).long()]
-    first_row = first_row.to(torch.int32)
-    last_row_raw = last_row_raw.to(torch.int32)
+    # first_row(c) = #rows with cell id < c, by binary search in the
+    # cell-sorted point blocks at every size (the reference's block compare
+    # and dense-table scan give the same counts). The wr padding past the
+    # blocks holds sentinels only, which the clamp to the valid rows drops.
+    rows = torch.searchsorted(slin_p[: p_nb * 128],
+                              torch.cat([a, zhi + 1], dim=1), out_int32=True)
+    first_row, last_row_raw = rows[:, :NSHIFT], rows[:, NSHIFT:]
 
     # Exclusive end, clamped to the valid row count.
     n_use_rows = suse_p.sum().to(torch.int32)

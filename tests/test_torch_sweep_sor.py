@@ -150,23 +150,63 @@ def test_rescue_select_plain_vs_pallas(request, front, k):
     _assert_contract(got, want)
 
 
-def test_window_starts_dense_table_matches_jax():
-    """The dense first-row table branch (more than 2048 query blocks)."""
+TABLE = 1 << 21
+
+
+def _window_case(case):
+    """(lo, hi, has_valid, slin_p, suse_p, extent, nrows, p_nb, wr) of a
+    window-pack case: query blocks' cell ranges against cell-sorted point
+    rows with a sentinel tail."""
     rng = np.random.default_rng(3)
-    slin = np.sort(rng.integers(0, 5000, 1024)).astype(np.int32)
-    slin_p = np.concatenate([slin, np.full(1024, 1 << 21, np.int32)])
-    suse_p = slin_p < (1 << 21)
     extent = np.array([10, 20, 25], np.int32)
-    lo = np.sort(rng.integers(0, 5000, 2100)).astype(np.int32)
-    hi = np.minimum(lo + rng.integers(0, 30, 2100), 4999).astype(np.int32)
-    has_valid = rng.random(2100) < 0.9
+    nq, p_nb, nrows, wr, nvalid, hi_id = 2100, 8, 16, 4, 1024, 5000
+    if case == "blocked":
+        nq, p_nb, nrows, nvalid = 300, 40, 40, 4000
+    elif case == "no_tail":
+        nq, p_nb, nrows, nvalid = 2100, 12, 12, 12 * 128
+    elif case == "all_invalid":
+        nvalid = 0
+    elif case == "wr_padding":
+        nq, p_nb, nrows, wr, nvalid, hi_id = 3, 3, 8, 8, 300, 400
+    elif case.startswith("cross"):
+        nq = 2100 if case == "cross_dense" else 600
+        extent = np.array([100, 100, 200], np.int32)
+    slin = np.sort(rng.integers(0, hi_id, nvalid)).astype(np.int32)
+    if case.startswith("cross"):
+        # Points in the middle of the id range; query blocks below, above
+        # and across them, a sentinel tail of empty query blocks.
+        slin = np.sort(rng.integers(900_000, 1_100_000, nvalid)).astype(
+            np.int32)
+        lo = np.sort(np.concatenate([rng.integers(0, TABLE, nq - 240),
+                                     rng.choice(slin, 200) + 1,
+                                     np.full(40, TABLE)])).astype(np.int32)
+        hi = np.minimum(lo + rng.integers(0, 60_000, nq), TABLE)
+    else:
+        lo = np.sort(rng.integers(0, hi_id, nq))
+        hi = np.minimum(lo + rng.integers(0, 30, nq), hi_id - 1)
+    slin_p = np.concatenate([slin, np.full(nrows * 128 - nvalid, TABLE)])
+    slin_p = slin_p.astype(np.int32)
+    if case == "wr_padding":  # the cloud's own blocks, as the same-cloud sweep
+        lo, hi = slin_p[: nq * 128].reshape(nq, 128)[:, [0, -1]].T
+    has_valid = rng.random(nq) < 0.9
+    return (lo.astype(np.int32), hi.astype(np.int32), has_valid, slin_p,
+            slin_p < TABLE, extent, nrows, p_nb, wr)
+
+
+@pytest.mark.parametrize("case", ["dense", "blocked", "no_tail", "all_invalid",
+                                  "wr_padding", "cross_dense", "cross_blocked"])
+def test_window_starts_dense_table_matches_jax(case):
+    """The port's one binary search against both of the reference's
+    branches: its dense first-row table (more than 2048 query blocks) and
+    its block compare (at most 2048): the pack and ``block_ok`` bitwise,
+    with and without a sentinel tail, over all-invalid rows, over the wr
+    padding of a 3-block cloud, and for cross-cloud query blocks whose
+    corners fall below and above every point id, up to table_size + 1."""
+    *arrays, nrows, p_nb, wr = _window_case(case)
     want = jsweep._window_starts_from_bounds(
-        jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(has_valid),
-        jnp.asarray(slin_p), jnp.asarray(suse_p), jnp.asarray(extent), 16, 8,
-        4, 1 << 21)
+        *(jnp.asarray(a) for a in arrays), nrows, p_nb, wr, TABLE)
     got = sweep._window_starts_from_bounds(
-        *(torch.from_numpy(a) for a in (lo, hi, has_valid, slin_p, suse_p,
-                                        extent)), 16, 8, 4, 1 << 21)
+        *(torch.from_numpy(a) for a in arrays), nrows, p_nb, wr, TABLE)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 

@@ -13,6 +13,7 @@ repository root:
 It imports no JAX."""
 
 import collections
+import contextlib
 
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ import _ranks_torch
 import pointclouds_tpu_torch as port
 from pointclouds_tpu_torch.parallel.launch import run_ranks
 from pointclouds_tpu_torch.pipelines.scenes import aerial_scene, velodyne_scene
+from pointclouds_tpu_torch.spatial import sweep
 from pointclouds_tpu_torch.utils import profiling
 
 VIEWPOINT = [0.0, 0.0, 1e4]
@@ -94,25 +96,34 @@ def _traced(clouds, case, device="cpu", cloud=None):
 _RUNS = {}
 
 
+@contextlib.contextmanager
+def _spy_host_reads():
+    """Counts the `host_read` calls made inside, by site."""
+    calls = collections.Counter()
+    real = profiling.host_read
+
+    def spy(site):
+        calls[site] += 1
+        return real(site)
+
+    profiling.host_read = spy
+    try:
+        yield calls
+    finally:
+        profiling.host_read = real
+
+
 def _both(clouds, case):
     """(traced output, its record, the `host_read` calls it made by site,
     untraced output) of ``case``: one run each, kept for the tests that
     read them."""
     if case not in _RUNS:
-        calls = collections.Counter()
-        real = profiling.host_read
-
-        def spy(site):
-            calls[site] += 1
-            return real(site)
-
-        profiling.host_read = spy
         profiling.set_tracing(True)
         try:
-            on, rec = _traced(clouds, case)
+            with _spy_host_reads() as calls:
+                on, rec = _traced(clouds, case)
         finally:
             profiling.set_tracing(False)
-            profiling.host_read = real
         _RUNS[case] = (on, rec, calls, _run(clouds, case))
     return _RUNS[case]
 
@@ -293,3 +304,41 @@ def test_card_frame_syncs_only_in_host_reads(clouds, case, tracing):
     if case[1] != "xla":
         assert rec.count("cluster.round_batches") >= 1
         assert rec.count("cluster.pairs_visited") > 0
+
+
+@pytest.mark.cuda
+def test_card_window_pack_has_no_scan():
+    """A structure of more than 2048 blocks on the card (where the
+    reference builds a dense first-row table and scans it): its window pack
+    equals the CPU's, and the pack runs no `cummin` or `flip` and makes no
+    host read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    table, nb, wr = sweep.SWEEP_TABLE_SIZE, 2100, 4
+    gen = torch.Generator().manual_seed(7)
+    nvalid = nb * 128 - 1000
+    slin = torch.cat([
+        torch.randint(0, 400_000, (nvalid,), generator=gen).sort().values,
+        torch.full((nb * 128 - nvalid,), table)]).to(torch.int32)
+    xyz = torch.rand((nb * 128, 3), generator=gen)
+    extent = torch.tensor([40, 100, 100], dtype=torch.int32)
+
+    def build(dev):
+        return sweep.structure_from_sorted(
+            xyz.to(dev), (slin < table).to(dev), slin.to(dev),
+            extent.to(dev), torch.tensor(1.0, device=dev),
+            torch.tensor(False, device=dev), wr)
+
+    want = build("cpu")
+    build("cuda")
+    torch.cuda.synchronize()
+    with _spy_host_reads() as calls, profile(
+            activities=[ProfilerActivity.CPU]) as prof:
+        got = build("cuda")
+        torch.cuda.synchronize()
+    for key in ("starts_skip", "block_ok"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    names = {e.key for e in prof.key_averages()}
+    assert "aten::searchsorted" in names
+    assert not names & {"aten::cummin", "aten::flip"}
+    assert not calls
