@@ -68,27 +68,50 @@ def _shift_offsets(extent):
                         for dx in (-1, 0, 1) for dy in (-1, 0, 1)])
 
 
-def _window_starts(slin_p, suse_p, extent, nrows, nb, wr, table_size):
+def _window_starts(slin_p, suse_p, extent, nrows, nb, wr, table_size,
+                   max_rows=None):
     """Per-block window pack (start, skip, length, has-valid) and the
     per-block length certificate, for the same-cloud sweep."""
     blocks = slin_p[: nb * 128].reshape(nb, 128)
-    has_valid = suse_p[: nb * 128].reshape(nb, 128).any(dim=1)
+    use = suse_p[: nb * 128].reshape(nb, 128)
     with profiling.span("windows"):
+        # Each block's last valid cell (its first cell where it has none):
+        # the last row's cell but in the block that holds the last valid
+        # row and sentinel padding.
+        hi_valid = torch.where(use, blocks, blocks[:, :1]).amax(dim=1)
         return _window_starts_from_bounds(blocks[:, 0], blocks[:, -1],
-                                          has_valid, slin_p, suse_p, extent,
-                                          nrows, nb, wr, table_size)
+                                          use.any(dim=1), slin_p, suse_p,
+                                          extent, nrows, nb, wr, table_size,
+                                          hi_valid=hi_valid,
+                                          max_rows=max_rows)
 
 
 def _window_starts_from_bounds(lo, hi, has_valid, slin_p, suse_p, extent,
-                               nrows, p_nb, wr, table_size):
+                               nrows, p_nb, wr, table_size, *,
+                               hi_valid=None, max_rows=None):
     """Window pack for query blocks with first/last cell ids ``lo``/``hi``
     against the cell-sorted point rows. Returns (starts_pack i32[NB, 28]:
-    9 window starts, 9 dedup skips, 9 lengths, has-valid; block_ok)."""
+    9 window starts, 9 dedup skips, 9 lengths, has-valid; block_ok).
+
+    ``hi_valid``: each block's last valid cell (default ``hi``). The valid
+    rows are a prefix, so only the block holding the last valid row can
+    end in sentinel padding, whose ``hi`` stretches its windows to the last
+    valid row of the cloud. A window that fails its certificate so ends at
+    ``hi_valid`` instead; every other window is the reference's, bit for
+    bit.
+
+    ``max_rows``: the most rows a window may take, ``wr`` by default (the
+    reference's). A caller whose kernel walks windows of any length (the
+    hop loop) passes the row count: every window is then taken whole and
+    certified, and a window that fits ``wr`` is the reference's."""
     nb = lo.shape[0]
     dev = lo.device
+    cap = wr if max_rows is None else max_rows
     sh = _shift_offsets(extent).to(torch.int32)
     a = torch.clamp(lo[:, None] + sh[None, :] - 1, 0, table_size)
-    zhi = torch.clamp(hi[:, None] + sh[None, :] + 1, 0, table_size)
+    ends = torch.stack([hi, hi if hi_valid is None else hi_valid], dim=1)
+    zhi = torch.clamp(ends[:, :, None] + sh[None, None, :] + 1, 0,
+                      table_size).reshape(nb, -1)
 
     # first_row(c) = #rows with cell id < c, by binary search in the
     # cell-sorted point blocks at every size (the reference's block compare
@@ -96,17 +119,21 @@ def _window_starts_from_bounds(lo, hi, has_valid, slin_p, suse_p, extent,
     # blocks holds sentinels only, which the clamp to the valid rows drops.
     rows = torch.searchsorted(slin_p[: p_nb * 128],
                               torch.cat([a, zhi + 1], dim=1), out_int32=True)
-    first_row, last_row_raw = rows[:, :NSHIFT], rows[:, NSHIFT:]
+    first_row = rows[:, :NSHIFT]
 
-    # Exclusive end, clamped to the valid row count.
+    # Exclusive ends [NB, ends, 9], clamped to the valid row count.
     n_use_rows = suse_p.sum().to(torch.int32)
-    last_row = torch.minimum(last_row_raw, n_use_rows)
+    last_rows = torch.minimum(rows[:, NSHIFT:], n_use_rows).reshape(
+        nb, -1, NSHIFT)
     start = torch.clamp(first_row // 128, 0, nrows - wr)
-    win_ok = (first_row >= start * 128) & (last_row <= (start + wr) * 128)
-    win_ok = win_ok | (first_row >= last_row)
+    first3, start3 = first_row[:, None, :], start[:, None, :]
+    oks = ((first3 >= start3 * 128) & (last_rows <= (start3 + cap) * 128)
+           | (first3 >= last_rows))
+    last_row = torch.where(oks[:, 0], last_rows[:, 0], last_rows[:, 1])
+    win_ok = oks.any(dim=1)
     block_ok = win_ok.all(dim=1)
 
-    need_end = torch.clamp(-((-last_row) // 128) - start, 0, wr)
+    need_end = torch.clamp(-((-last_row) // 128) - start, 0, cap)
     length = torch.where(first_row >= last_row, 0, need_end)
 
     # Dedup overlapping windows: a candidate read twice would be counted
@@ -496,9 +523,11 @@ def cluster_cell_size(radius, hi_abs):
                    (hi_abs * 6e-7).reshape(one))[0] + 1e-7
 
 
-def _sorted_structure(xyz, valid, cell_size, wr: int, table_size: int):
+def _sorted_structure(xyz, valid, cell_size, wr: int, table_size: int,
+                      max_rows: int | None = None):
     """Sort, pack and window-compute: the front half of the cluster and
-    moments sweeps. ``cell_size`` is a float32 0-d tensor."""
+    moments sweeps. ``cell_size`` is a float32 0-d tensor; ``max_rows`` as
+    in `_window_starts_from_bounds`."""
     n = xyz.shape[0]
     dev = xyz.device
     use = valid & torch.isfinite(xyz).all(dim=-1)
@@ -530,7 +559,7 @@ def _sorted_structure(xyz, valid, cell_size, wr: int, table_size: int):
     planar = _pack_planar(_pad_tail(sxc, tail, 0.0), _pad_tail(syc, tail, 0.0),
                           _pad_tail(szc, tail, 0.0), suse_p, nrows)
     starts_skip, block_ok = _window_starts(slin_p, suse_p, extent, nrows, nb,
-                                           wr, table_size)
+                                           wr, table_size, max_rows)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(n, dtype=order.dtype, device=dev)
     return dict(planar=planar, order=order, inv=inv, use=use,
@@ -584,7 +613,9 @@ def sweep_cluster_labels(xyz, valid, radius, *, wr: int = 7,
     backend), in bursts of at most ``sweeps`` rounds: a first burst, then up
     to 8 more resumed from the current labels while the last round still
     changed any. Above it, the reference's hop loop (`_hop_loop_labels`)
-    over the windows, whatever ``row_cap`` and ``sweeps``.
+    over the windows, whatever ``row_cap`` and ``sweeps``; its kernel walks
+    a window of any length, so it takes each whole where the reference
+    caps it at ``wr`` rows and flags the block.
 
     Returns (labels i32[N], exact bool): label = smallest original row in
     the component, or with ``rep_labels=False`` a canonical component id
@@ -594,17 +625,20 @@ def sweep_cluster_labels(xyz, valid, radius, *, wr: int = 7,
     n = xyz.shape[0]
     r32 = np.float32(radius)
     r2 = float(r32 * r32)
+    nrows = max(-(-n // 128), wr)
+    hop = nrows * 8 * 128 * 4 > CLUSTER_RESIDENT_BYTES
     with profiling.span("cluster.structure"):
         use_pre = valid & torch.isfinite(xyz).all(dim=-1)
         hi_abs = torch.where(use_pre[:, None], xyz.abs(), 0.0).amax()
         cell_size = cluster_cell_size(scalar_like(r32, xyz), hi_abs)
-        s = _sorted_structure(xyz, valid, cell_size, wr, table_size)
-    planar, nrows, nb = s["planar"], s["nrows"], s["nb"]
+        s = _sorted_structure(xyz, valid, cell_size, wr, table_size,
+                              nrows if hop else None)
+    planar, nb = s["planar"], s["nb"]
     starts_skip = s["starts_skip"]
     nall = nrows * 128
     with profiling.span("cluster.rounds"):
         exact = s["block_ok"][:nb].all() & ~s["table_overflow"]
-        if nrows * 8 * 128 * 4 > CLUSTER_RESIDENT_BYTES:
+        if hop:
             labels, iters = _hop_loop_labels(planar, starts_skip, r2, nb,
                                              max_iters)
             exact = exact & (iters < max_iters)
@@ -660,19 +694,21 @@ def _hop_loop_labels(planar, starts_skip, r2: float, nb: int,
         starts_it = torch.cat([starts_skip, active.to(torch.int32)[:, None]],
                               dim=1).contiguous()
         m, changed = cluster_propagate(planar, lab, starts_it, r2)
-        if nall > nb * 128:
-            m = torch.cat([m, lab[nb * 128:]])
-        new = torch.minimum(lab, m)
-        # Hook: each discovery also lowers its old root's label.
-        new.scatter_reduce_(0, torch.clamp(lab, 0, nall - 1).long(), m,
-                            reduce="amin")
-        for _ in range(2):
-            new = torch.minimum(new, new[torch.clamp(new, 0, nall - 1).long()])
-        diff_rows = (new != lab).reshape(nrows, 128).any(dim=1)
-        cum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                         torch.cumsum(diff_rows.to(torch.int64), 0)])
-        active = ((cum[hi_rows] - cum[lo_rows]) > 0).any(dim=1)
-        lab = new
+        with profiling.span("cluster.hop.update"):
+            if nall > nb * 128:
+                m = torch.cat([m, lab[nb * 128:]])
+            new = torch.minimum(lab, m)
+            # Hook: each discovery also lowers its old root's label.
+            new.scatter_reduce_(0, torch.clamp(lab, 0, nall - 1).long(), m,
+                                reduce="amin")
+            for _ in range(2):
+                new = torch.minimum(new,
+                                    new[torch.clamp(new, 0, nall - 1).long()])
+            diff_rows = (new != lab).reshape(nrows, 128).any(dim=1)
+            cum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                             torch.cumsum(diff_rows.to(torch.int64), 0)])
+            active = ((cum[hi_rows] - cum[lo_rows]) > 0).any(dim=1)
+            lab = new
         iters += 1
         with profiling.host_read("cluster.hop"):  # the loop's condition
             if not bool(changed.any()):
