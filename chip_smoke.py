@@ -34,6 +34,11 @@ Phases:
    op's own call (2 live blocks of 32) and `ransac_score_counts` also at
    the RANSAC op's on the 10K slab (128 rows), each with its device time,
    device launches, registers and shared memory a call at both captures,
+   `ransac_hypotheses` (kernel 19, RANSAC's plane hypotheses; bitwise, by
+   sign of zero too) at the KITTI frame's inputs (500 hypotheses through
+   the position map) and a QL2 tile's (aerial_scene(42, 2.5) at the
+   aerial-3dep-ql2 cell's caps: 300, compact positions), with the same
+   device numbers at both,
    `segmented_scan_sums` also at the 1M voxel
    op's (16 tiles), with its device time and device launches a call at
    both (phase2.json);
@@ -179,7 +184,8 @@ stage medians (as phase 4), the normals and `knn` (same-cloud and
 cross-cloud) 100K op p50s, the `knn` calls' device times and the
 1.2M `euclidean_cluster` p50, and the device time (torch.profiler) of an
 aerial frame and of the 1.2M call. Each
-tree's ptxas log and numbers go to chiprun_out/ab.json.
+tree's ptxas log and numbers go to chiprun_out/ab.json. A captured kernel
+that a tree does not have (an older commit's) is left out of its numbers.
 
     python3 chip_smoke.py --ab DIR [DIR ...] --captures LABEL [LABEL ...]
 
@@ -204,7 +210,8 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 PALLAS = "pointclouds_tpu/spatial/pallas_kernels.py"
 KERNELS = {
-    # name: (module that calls it, CUDA source, Pallas wrapper line)
+    # name: (module that calls it, CUDA source, Pallas wrapper line, or the
+    # JAX package's XLA code where a kernel replaces no Pallas kernel)
     "segmented_scan_sums": ("ops.filters", "segscan.cu", 3370),
     "sweep_select_rows": ("spatial.sweep", "select.cu", 694),
     "rescue_select": ("spatial.sweep", "select.cu", 835),
@@ -223,6 +230,8 @@ KERNELS = {
     "cluster_propagate": ("spatial.sweep", "propagate.cu", 969),
     "sor_select": ("spatial.cellgrid", "cellsel.cu", 230),
     "segmented_select": ("spatial.cellgrid", "cellsel.cu", 152),
+    "ransac_hypotheses": ("ops.segmentation", "ransac.cu",
+                          "pointclouds_tpu/ops/segmentation.py:204"),
 }
 # The kernels phase 8 checks (at the cell-grid backends' and the large
 # cloud's shapes).
@@ -238,7 +247,8 @@ SEG_CALLERS = ("point_sor_mean_dists", "cell_knn_subset")
 BITWISE = ("segmented_scan_sums", "ransac_score_counts", "sweep_moments",
            "rescue_knn_idx", "count_within", "rescue_radius_count_groups",
            "brute_radius_count", "brute_knn_idx", "sweep_knn_select",
-           "nn_argmin", "cluster_propagate", "sor_select")
+           "nn_argmin", "cluster_propagate", "sor_select",
+           "ransac_hypotheses")
 KITTI = dict(voxel=0.15, sor_std=2.0, ransac_thresh=0.15, cluster_r=0.8,
              sor_k=20, ransac_iters=500, ds_cap=98_304,
              ransac_subsample=4096, obstacle_cap=8192)
@@ -246,17 +256,20 @@ KITTI_POINTS = 122_000
 AERIAL = dict(ds_cap=229_376, obstacle_cap=196_608, ransac_subsample=4096,
               normals_cell_factor=6, cluster_sweeps=16)
 VIEWPOINT = [0.0, 0.0, 10000.0]
+# The aerial-3dep-ql2 cell's caps (its tile: aerial_scene(seed, 2.5)).
+QL2 = dict(ds_cap=524_288, obstacle_cap=425_984)
 # The kernels each path must launch.
 PATHS = {
     "kitti": ["segmented_scan_sums", "sweep_select_rows", "rescue_select",
-              "cluster_multisweep"],
+              "cluster_multisweep", "ransac_hypotheses"],
     "aerial": ["segmented_scan_sums", "sweep_moments",
-               "cluster_multisweep_windows"],
+               "cluster_multisweep_windows", "ransac_hypotheses"],
     "kitti_default": ["segmented_scan_sums", "sweep_select_rows",
-                      "cluster_multisweep", "ransac_score_counts"],
+                      "cluster_multisweep", "ransac_score_counts",
+                      "ransac_hypotheses"],
     "aerial_default": ["segmented_scan_sums", "sweep_moments",
                        "rescue_knn_idx", "ransac_score_counts",
-                       "cluster_multisweep_windows"],
+                       "cluster_multisweep_windows", "ransac_hypotheses"],
     # The per-op API (phase 6).
     "voxel": ["segmented_scan_sums"],
     "passthrough": [],
@@ -266,7 +279,7 @@ PATHS = {
     "ror": ["count_within", "rescue_radius_count_groups",
             "brute_radius_count"],
     "normals": ["sweep_moments", "rescue_knn_idx", "brute_knn_idx"],
-    "ransac": ["ransac_score_counts"],
+    "ransac": ["ransac_score_counts", "ransac_hypotheses"],
     # The per-op API's kNN, clustering, ICP and I/O (phase 7).
     "knn": ["sweep_knn_select", "rescue_knn_idx", "brute_knn_idx"],
     "knn_cross": ["sweep_knn_select", "rescue_knn_idx"],
@@ -274,8 +287,10 @@ PATHS = {
     "icp": ["nn_argmin"],
     "io": [],
     # The KITTI cell-grid backends and the large-cloud hop loop (phase 8).
-    "kitti_xla": ["segmented_scan_sums", "segmented_select"],
-    "kitti_pallas": ["segmented_scan_sums", "sor_select", "segmented_select"],
+    "kitti_xla": ["segmented_scan_sums", "segmented_select",
+                  "ransac_hypotheses"],
+    "kitti_pallas": ["segmented_scan_sums", "sor_select", "segmented_select",
+                     "ransac_hypotheses"],
     "cluster_large": ["cluster_propagate"],
     # The int64-keyed grid at 2^24 points (phase 9): torch ops, no kernel.
     "knn_huge": [],
@@ -436,11 +451,13 @@ def check_kernel(name, args, kwargs, K):
         # exact integer sums).
         got_t = got if isinstance(got, tuple) else (got,)
         want_t = want if isinstance(want, tuple) else (want,)
+        # The hypotheses' planes also by sign of zero and NaN payload.
+        same = same_bits if name == "ransac_hypotheses" else torch.equal
         for g, w in zip(got_t, want_t):
-            if not torch.equal(g, w):
+            if not same(g, w):
                 raise AssertionError(f"{name}: not bitwise equal")
         finite = [(g[torch.isfinite(g)] - w[torch.isfinite(w)]).abs()
-                  for g, w in zip(got_t, want_t)]
+                  for g, w in zip(got_t, want_t) if g.dtype != torch.bool]
         err = max(float(f.max()) if f.numel() else 0.0 for f in finite)
         tol = "bitwise"
     elif name in ("cluster_multisweep", "cluster_multisweep_windows"):
@@ -514,6 +531,11 @@ def select_work(name, args, kwargs) -> str:
                 f"{int(valid.sum())} valid queries, active groups "
                 f"per live block max {mx} median {med:g} (total "
                 f"{int(groups.sum())})")
+    if name == "ransac_hypotheses":
+        xyz, cnt, _, iterations, order = args
+        return (f"{iterations} hypotheses over {int(cnt)} valid of "
+                f"{xyz.shape[0]} rows, "
+                f"{'compact' if order is None else 'position map'}")
     if name == "ransac_score_counts":
         hyp, pts = args
         real = int((hyp[4] >= 0).sum())
@@ -597,7 +619,8 @@ def kernel_row(name, args, kwargs, K, card_line, library=None, label=""):
         f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} [{card_line}]")
     return dict(name=name, route="cuda",
                 source=f"pointclouds_tpu_torch/spatial/csrc/{src}",
-                replaces=f"{PALLAS}:{line}", max_abs_err=err, ms=ms,
+                replaces=line if isinstance(line, str) else f"{PALLAS}:{line}",
+                max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms, **extra)
 
@@ -656,6 +679,14 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32, outside the tensor cores
 # Operations per query-candidate pair: d2 (3 subtractions, one multiply,
 # two fmas at 2 each) and the compare.
 PAIR_OPS = 9
+# Operations per RANSAC hypothesis (kernel 19), counted at the f32 rate:
+# three threefry-2x32 draws of 117 integer operations each (2 key adds, 20
+# rounds of add, two shifts, or and xor, 5 key injections of 3 adds), three
+# 64-bit modulos, 5 compare-adds of the distinct triple, and 31 f32
+# operations of the plane (6 subtractions, the cross product's 3 multiplies
+# and 3 fmas, the norm's multiply and 2 fmas, sqrt, the compare, 3
+# divisions, the offset's multiply, 2 fmas and negation; an fma counts 2).
+HYP_OPS = 3 * 117 + 3 + 5 + 31
 
 
 def _nbytes(*ts) -> int:
@@ -740,6 +771,12 @@ def work(name, args, kwargs, out):
         return sor_must_move(q, qm, cand, cv, outs), PAIR_OPS * pairs
     if name == "segmented_select":
         return nbytes, args[0].numel()  # one compare per element
+    if name == "ransac_hypotheses":
+        # Bytes: the count, each hypothesis' three points (and their three
+        # position -> row entries), its plane and flag; not the whole cloud.
+        iterations, order = args[3], args[4]
+        per = 3 * 12 + (0 if order is None else 3 * 8) + 3 * 4 + 4 + 1
+        return 8 + per * iterations, HYP_OPS * iterations
     raise KeyError(name)
 
 
@@ -2179,13 +2216,15 @@ TILED_AERIAL = dict(ransac_iters=300, ransac_subsample=4096,
 SHARDED_AERIAL = dict(ransac_iters=300, obstacle_cap=196_608)
 MESH_PATHS = {
     "tiled kitti": ["segmented_scan_sums", "sweep_select_rows",
-                    "rescue_select", "cluster_multisweep"],
+                    "rescue_select", "cluster_multisweep",
+                    "ransac_hypotheses"],
     "tiled aerial": ["segmented_scan_sums", "sweep_moments",
-                     "cluster_multisweep_windows"],
+                     "cluster_multisweep_windows", "ransac_hypotheses"],
     "sharded kitti": ["segmented_scan_sums", "sweep_select_rows",
-                      "rescue_select", "cluster_multisweep"],
+                      "rescue_select", "cluster_multisweep",
+                      "ransac_hypotheses"],
     "sharded aerial": ["segmented_scan_sums", "sweep_moments",
-                       "cluster_multisweep_windows"],
+                       "cluster_multisweep_windows", "ransac_hypotheses"],
 }
 
 
@@ -2907,6 +2946,8 @@ def ab_child(tree: Path, inputs: Path, kernels_only=False) -> dict:
     res["rounds"] = {}
     for label, captured in torch.load(inputs, weights_only=False).items():
         for name, (args, kwargs) in captured.items():
+            if not hasattr(K, name):
+                continue  # a kernel this (older) tree does not have
             key = f"{name} {label}"
             res["kernels"][key] = check_kernel(name, args, kwargs, K)[2]
             call = lambda: getattr(K, name)(*args, **kwargs)  # noqa: E731
@@ -3196,20 +3237,26 @@ def main() -> int:
                         ("count_within", "ror count 100K"),
                         ("nn_argmin", "icp 10K"),
                         ("rescue_radius_count_groups", "ror rescue"),
-                        ("ransac_score_counts", "ransac kitti full")):
+                        ("ransac_score_counts", "ransac kitti full"),
+                        ("ransac_hypotheses", "kitti")):
         next(r for r in rows if r["name"] == name).update(
             kernel_device(name, *captured[name], K, card_line, label))
     nn_lattice_device = kernel_device("nn_argmin", *nn_lattice(), K,
                                       card_line, NN_LATTICE)
-    # Kernel 12 also at the noisy ROR op's own call (2 live blocks), and
-    # kernel 5 at the RANSAC op on the 10K slab (128 rows).
+    # Kernel 12 also at the noisy ROR op's own call (2 live blocks),
+    # kernel 5 at the RANSAC op on the 10K slab (128 rows), and kernel 19
+    # at a QL2 tile (the aerial-3dep-ql2 cell's scene and caps: 300
+    # hypotheses over ~500K compact rows).
     slab10k = api.PointCloud.from_numpy(slab_cloud(10_000))
     extra = {}
     for name, label, run in (
             ("rescue_radius_count_groups", "ror rescue noisy 100K",
              lambda: api.radius_outlier_removal(noisy, 0.5, 5)),
             ("ransac_score_counts", "ransac op 10K",
-             lambda: ransac_op(api, slab10k))):
+             lambda: ransac_op(api, slab10k)),
+            ("ransac_hypotheses", "ql2 tile",
+             lambda: run_aerial(pc, aerial_scene(seed=42, scale=2.5), 0,
+                                "cuda", **QL2))):
         args, kwargs = capture_inputs(run, [name])[name]
         extra[f"{name} {label}"] = dict(
             kernel_row(name, args, kwargs, K, card_line, label=label),

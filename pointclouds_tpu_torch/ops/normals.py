@@ -16,9 +16,8 @@ import math
 import numpy as np
 import torch
 
-from ..spatial.kernels import _sqrt_f32, fma_f32
+from ..spatial.kernels import _dot3, _sqrt_f32, fma_f32
 from ..utils import profiling
-from .segmentation import _dot3
 
 
 def _viewpoint(viewpoint, xyz):

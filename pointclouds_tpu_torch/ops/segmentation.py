@@ -2,8 +2,9 @@
 `pointclouds_tpu/ops/segmentation.py::ransac_plane_masked` and
 `_ransac_sequential_scan`.
 
-Hypotheses come from the threefry port, so the same seed draws the same
-three points per iteration as the JAX package. Three scorings, as there:
+Hypotheses come from the threefry port (on the card, kernel
+`ransac_hypotheses`, one launch), so the same seed draws the same three
+points per iteration as the JAX package. Three scorings, as there:
 the tournament (every hypothesis on an evenly spaced subsample, the top
 ``rescore_top`` rescored over the full cloud), full scoring of every
 hypothesis (kernel `ransac_score_counts` up to 4096 iterations), and the
@@ -20,9 +21,8 @@ import numpy as np
 import torch
 
 from ..core.cloud import compaction_order
-from ..spatial.kernels import _sqrt_f32, fma_f32, ransac_score_counts
+from ..spatial.kernels import ransac_hypotheses, ransac_score_counts
 from ..utils import profiling
-from ..utils.threefry import mod_u64, random_bits64
 from .registration import _to_planar
 
 # ln(1 - 0.999), the reference's adaptive-termination constant.
@@ -36,32 +36,6 @@ _PARALLEL_MIN_ITERS = 16
 _KERNEL_MAX_ITERS = 4096
 # Matmul scoring works on at most this many point-hypothesis pairs at once.
 _SCORE_CHUNK_ELEMS = 1 << 26
-
-
-def _dot3(a, b):
-    """Row dot products of [..., 3] f32 tensors in the form XLA's CPU
-    backend gives the JAX package's ``jnp.sum(a * b, axis=1)``:
-    fma(a2, b2, fma(a1, b1, a0 * b0)). Its ``jnp.cross`` is likewise
-    fma(a_j, b_k, -(a_k * b_j)) per component (both measured bitwise), so
-    the hypotheses' normals and offsets are the JAX package's bits."""
-    return fma_f32(a[..., 2], b[..., 2],
-                   fma_f32(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
-
-
-def _sample_three_distinct(seed: int, iterations: int, cnt):
-    """[iterations, 3] distinct positions in [0, cnt): one threefry draw,
-    then shrinking-range modulo and shifts past the chosen values."""
-    cnt = torch.clamp(torch.as_tensor(cnt).to(torch.int64), min=3)
-    hi, lo = random_bits64(seed, (3, iterations), device=cnt.device)
-    a = mod_u64(hi[0], lo[0], cnt)
-    b = mod_u64(hi[1], lo[1], cnt - 1)
-    b = b + (b >= a)
-    lo_ab = torch.minimum(a, b)
-    hi_ab = torch.maximum(a, b)
-    c = mod_u64(hi[2], lo[2], cnt - 2)
-    c = c + (c >= lo_ab)
-    c = c + (c >= hi_ab)
-    return torch.stack([a, b, c], dim=1)
 
 
 @contextlib.contextmanager
@@ -169,26 +143,14 @@ def ransac_plane_masked(xyz, valid, threshold, seed, iterations: int, *,
     dev = xyz.device
     with profiling.span("ransac.hypotheses"):
         cnt = valid.sum()
-        samples = _sample_three_distinct(seed, iterations, cnt)
         if position_rows is not None:
             order = position_rows.long()
         elif assume_compact:
             order = None  # position p is row p
         else:
             order = compaction_order(valid)
-        flat = samples.reshape(-1)
-        idx = flat if order is None else order[flat]
-        p = xyz[idx].reshape(iterations, 3, 3)
-
-        v1 = p[:, 1] - p[:, 0]
-        v2 = p[:, 2] - p[:, 0]
-        nrm = torch.stack([fma_f32(v1[:, j], v2[:, k], -(v1[:, k] * v2[:, j]))
-                           for j, k in ((1, 2), (2, 0), (0, 1))], dim=1)
-        length = _sqrt_f32(_dot3(nrm, nrm))
-        degenerate = length < 1e-10
-        safe_len = torch.where(degenerate, 1.0, length)
-        normal = nrm / safe_len[:, None]
-        d = -_dot3(normal, p[:, 0])
+        normal, d, degenerate = ransac_hypotheses(xyz, cnt, seed, iterations,
+                                                  order)
 
     use_pt = valid & torch.isfinite(xyz).all(dim=-1)
     if score_subsample is not None and iterations > rescore_top:

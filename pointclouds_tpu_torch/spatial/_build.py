@@ -55,6 +55,8 @@ _SIGNATURES = {
     "pc_cluster_propagate": ([_P, _P, _P, _P, _I, ctypes.c_float, _P], _I),
     "pc_sor_select": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "pc_segmented_select": ([_P, _P, ctypes.c_longlong, _I, _I, _P], _I),
+    "pc_ransac_hypotheses": ([_P, _P, _P, _P, _I, ctypes.c_uint32,
+                              ctypes.c_uint32, _P], _I),
 }
 
 

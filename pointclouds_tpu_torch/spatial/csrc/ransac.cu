@@ -28,6 +28,22 @@
 // the tile's last CTA to arrive writes them out as f32 and leaves the
 // scratch zero (count_block): no memset, no conversion kernel. Bound on
 // Hopper: operations (each staged row is reused by 128 hypotheses).
+//
+// Plane hypotheses (pc_ransac_hypotheses, below) replace no Pallas kernel:
+// the JAX package draws them in XLA (`ops/segmentation.py::
+// ransac_plane_masked`: jax.random.bits, the distinct triple, the gather,
+// jnp.cross and the norm), which the port's torch version replays in ~380
+// short operations (threefry's 20 rounds as masked int64 ops). Here one
+// thread makes one hypothesis: the three threefry-2x32 draws of its flat
+// counters r * iterations + t, the shrinking-range modulo and the shifts
+// past the chosen positions, the position -> row map, the gather of three
+// points and the plane in the pinned forms (cross as fma(a_j, b_k,
+// -(a_k*b_j)), norm and offset as fma(z, z, fma(y, y, x*x)), every
+// rounding explicit), bitwise the torch version and the JAX reference on
+// the CPU. The valid count is read on the device, so no host read. Bound on
+// Hopper: at 300-500 hypotheses (a few blocks of 128 threads) neither bytes
+// nor operations; the one launch's latency is the cost, against the ~360
+// launches of the torch version.
 #include "countwalk.cuh"
 
 namespace {
@@ -110,5 +126,98 @@ extern "C" int pc_ransac_score_counts(const float* hyp, const float* pts,
   ransac_kernel<kRansacWarps><<<tiles * split, kRansacWarps * 32, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       hyp, pts, out, nh, nr, split, counts, arrived);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+__device__ __forceinline__ unsigned rotl32(unsigned x, int d) {
+  return (x << d) | (x >> (32 - d));
+}
+
+// jax.random.bits' 64 bits at flat counter i under the key (k0, k1):
+// Threefry-2x32 (20 rounds) of (i >> 32, i & 0xFFFFFFFF), high word first
+// (utils/threefry.py::random_bits64).
+__device__ __forceinline__ unsigned long long threefry_bits(
+    unsigned k0, unsigned k1, unsigned long long i) {
+  const unsigned ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  unsigned x0 = (unsigned)(i >> 32) + ks[0];
+  unsigned x1 = (unsigned)i + ks[1];
+#pragma unroll
+  for (int r = 0; r < 5; ++r) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl32(x1, rot[r & 1][j]) ^ x0;
+    }
+    x0 += ks[(r + 1) % 3];
+    x1 += ks[(r + 2) % 3] + (unsigned)(r + 1);
+  }
+  return ((unsigned long long)x0 << 32) | x1;
+}
+
+constexpr int kHypThreads = 128;
+
+// xyz: f32 [n, 3]; cnt: the int64 valid count (clamped to 3 here); order:
+// int64 position -> row map, or null (position p is row p). out: f32
+// normal [I, 3], then d [I], then the degenerate flags as bytes (bool [I]).
+__global__ void __launch_bounds__(kHypThreads)
+    ransac_hypotheses_kernel(const float* __restrict__ xyz,
+                             const long long* __restrict__ cnt_p,
+                             const long long* __restrict__ order,
+                             float* __restrict__ out, int iterations,
+                             unsigned k0, unsigned k1) {
+  const int t = blockIdx.x * kHypThreads + threadIdx.x;
+  if (t >= iterations) return;
+  const long long n_valid = *cnt_p;
+  const unsigned long long cnt =
+      n_valid < 3 ? 3ull : (unsigned long long)n_valid;
+  const unsigned long long it = (unsigned long long)iterations;
+  const long long a = (long long)(threefry_bits(k0, k1, t) % cnt);
+  long long b = (long long)(threefry_bits(k0, k1, it + t) % (cnt - 1));
+  b += b >= a;
+  const long long lo = a < b ? a : b;
+  const long long hi = a < b ? b : a;
+  long long c = (long long)(threefry_bits(k0, k1, 2 * it + t) % (cnt - 2));
+  c += c >= lo;
+  c += c >= hi;
+  const float* p0 = xyz + 3 * (order ? order[a] : a);
+  const float* p1 = xyz + 3 * (order ? order[b] : b);
+  const float* p2 = xyz + 3 * (order ? order[c] : c);
+  const float v1x = __fsub_rn(p1[0], p0[0]), v1y = __fsub_rn(p1[1], p0[1]),
+              v1z = __fsub_rn(p1[2], p0[2]);
+  const float v2x = __fsub_rn(p2[0], p0[0]), v2y = __fsub_rn(p2[1], p0[1]),
+              v2z = __fsub_rn(p2[2], p0[2]);
+  const float n0 = __fmaf_rn(v1y, v2z, -__fmul_rn(v1z, v2y));
+  const float n1 = __fmaf_rn(v1z, v2x, -__fmul_rn(v1x, v2z));
+  const float n2 = __fmaf_rn(v1x, v2y, -__fmul_rn(v1y, v2x));
+  const float len =
+      __fsqrt_rn(__fmaf_rn(n2, n2, __fmaf_rn(n1, n1, __fmul_rn(n0, n0))));
+  const bool degenerate = len < 1e-10f;
+  const float safe = degenerate ? 1.0f : len;
+  const float nx = __fdiv_rn(n0, safe), ny = __fdiv_rn(n1, safe),
+              nz = __fdiv_rn(n2, safe);
+  float* normal = out + 3LL * t;
+  normal[0] = nx;
+  normal[1] = ny;
+  normal[2] = nz;
+  out[3LL * iterations + t] =
+      -__fmaf_rn(nz, p0[2], __fmaf_rn(ny, p0[1], __fmul_rn(nx, p0[0])));
+  reinterpret_cast<unsigned char*>(out + 4LL * iterations)[t] = degenerate;
+}
+
+}  // namespace
+
+// order may be null; out: f32 [4 * iterations + ceil(iterations / 4)].
+extern "C" int pc_ransac_hypotheses(const float* xyz, const long long* cnt,
+                                    const long long* order, float* out,
+                                    int iterations, unsigned k0, unsigned k1,
+                                    void* stream) {
+  if (iterations == 0) return 0;
+  const int blocks = (iterations + kHypThreads - 1) / kHypThreads;
+  ransac_hypotheses_kernel<<<blocks, kHypThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      xyz, cnt, order, out, iterations, k0, k1);
   return (int)cudaGetLastError();
 }

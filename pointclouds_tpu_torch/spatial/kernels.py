@@ -3,7 +3,8 @@
 Counterparts of the Pallas kernels (`pointclouds_tpu/spatial/
 pallas_kernels.py`) on the paths of the KITTI pipeline (every SOR
 backend), the aerial pipeline and the per-op API (filters, normals, kNN,
-clustering, ICP). Each wrapper
+clustering, ICP), and one kernel in place of XLA code (19, RANSAC's
+plane hypotheses). Each wrapper
 checks its inputs, runs
 the plain version for CPU tensors, and for CUDA tensors
 launches the kernel (built from ``csrc/`` at first use) or raises; it
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..utils import profiling
+from ..utils.threefry import mod_u64, prng_key, random_bits64
 
 LAUNCHES = {
     "segmented_scan_sums": 0,
@@ -44,6 +46,7 @@ LAUNCHES = {
     "cluster_propagate": 0,
     "sor_select": 0,
     "segmented_select": 0,
+    "ransac_hypotheses": 0,
 }
 
 # Relative inclusion band of the moments' second walk
@@ -1424,3 +1427,90 @@ def segmented_select(work, *, k: int):
                 k, _stream())
     LAUNCHES["segmented_select"] += 1
     return out[0], out[1], out[2], out[3] > 0.5
+
+
+# ── 19. RANSAC plane hypotheses ─────────────────────────────────────────────
+
+
+def _dot3(a, b):
+    """Row dot products of [..., 3] f32 tensors in the form XLA's CPU
+    backend gives the JAX package's ``jnp.sum(a * b, axis=1)``:
+    fma(a2, b2, fma(a1, b1, a0 * b0)). Its ``jnp.cross`` is likewise
+    fma(a_j, b_k, -(a_k * b_j)) per component (both measured bitwise), so
+    the hypotheses' normals and offsets are the JAX package's bits."""
+    return fma_f32(a[..., 2], b[..., 2],
+                   fma_f32(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
+
+
+def _sample_three_distinct(seed: int, iterations: int, cnt):
+    """[iterations, 3] distinct positions in [0, cnt): one threefry draw,
+    then shrinking-range modulo and shifts past the chosen values."""
+    cnt = torch.clamp(torch.as_tensor(cnt).to(torch.int64), min=3)
+    hi, lo = random_bits64(seed, (3, iterations), device=cnt.device)
+    a = mod_u64(hi[0], lo[0], cnt)
+    b = mod_u64(hi[1], lo[1], cnt - 1)
+    b = b + (b >= a)
+    lo_ab = torch.minimum(a, b)
+    hi_ab = torch.maximum(a, b)
+    c = mod_u64(hi[2], lo[2], cnt - 2)
+    c = c + (c >= lo_ab)
+    c = c + (c >= hi_ab)
+    return torch.stack([a, b, c], dim=1)
+
+
+def ransac_hypotheses_plain(xyz, cnt, seed: int, iterations: int,
+                            order=None):
+    """The torch version: the threefry draw, the triples, one gather and
+    the planes as whole-tensor operations (~380 on the card)."""
+    samples = _sample_three_distinct(seed, iterations, cnt)
+    flat = samples.reshape(-1)
+    idx = flat if order is None else order[flat]
+    p = xyz[idx].reshape(iterations, 3, 3)
+
+    v1 = p[:, 1] - p[:, 0]
+    v2 = p[:, 2] - p[:, 0]
+    nrm = torch.stack([fma_f32(v1[:, j], v2[:, k], -(v1[:, k] * v2[:, j]))
+                       for j, k in ((1, 2), (2, 0), (0, 1))], dim=1)
+    length = _sqrt_f32(_dot3(nrm, nrm))
+    degenerate = length < 1e-10
+    safe_len = torch.where(degenerate, 1.0, length)
+    normal = nrm / safe_len[:, None]
+    d = -_dot3(normal, p[:, 0])
+    return normal, d, degenerate
+
+
+def ransac_hypotheses(xyz, cnt, seed: int, iterations: int, order=None):
+    """RANSAC's plane hypotheses, the JAX package's bit for bit: for
+    hypothesis t, three distinct sample positions drawn from
+    ``jax.random.bits(PRNGKey(seed), (3, iterations))[:, t]`` modulo the
+    valid count ``cnt`` (int64 0-d, read on the device; at least 3), mapped
+    to rows by ``order`` int64[N] (None: position p is row p), and the plane
+    through the three points of ``xyz`` f32[N, 3] in the pinned f32 forms.
+
+    Returns (normal f32[I, 3], d f32[I], degenerate bool[I]): a triple
+    whose cross product is shorter than 1e-10 is degenerate and keeps its
+    unnormalised cross product as the normal. A NaN point gives NaNs.
+
+    Replaces no Pallas kernel: the XLA code of the JAX package's
+    `ransac_plane_masked` (csrc/ransac.cu)."""
+    n = xyz.shape[0]
+    dev = xyz.device
+    _check("ransac_hypotheses.xyz", xyz, torch.float32, (n, 3))
+    _check("ransac_hypotheses.cnt", cnt, torch.int64, (), dev)
+    if order is not None:
+        _check("ransac_hypotheses.order", order, torch.int64, (n,), dev)
+    if n < 3:
+        raise ValueError(f"ransac_hypotheses: {n} rows; a triple needs 3")
+    if not _on_cuda(xyz):
+        return ransac_hypotheses_plain(xyz, cnt, seed, iterations, order)
+    k1, k2 = prng_key(seed)
+    # One allocation: normal, d, then the flags' bytes.
+    out = torch.empty(4 * iterations + -(-iterations // 4),
+                      dtype=torch.float32, device=dev)
+    _lib().call("pc_ransac_hypotheses", xyz.data_ptr(), cnt.data_ptr(),
+                None if order is None else order.data_ptr(), out.data_ptr(),
+                iterations, k1, k2, _stream())
+    LAUNCHES["ransac_hypotheses"] += 1
+    return (out[:3 * iterations].view(iterations, 3),
+            out[3 * iterations:4 * iterations],
+            out[4 * iterations:].view(torch.bool)[:iterations])

@@ -18,6 +18,8 @@ from pointclouds_tpu_torch.pipelines.scenes import aerial_scene, kitti_scene
 from pointclouds_tpu_torch.spatial import kernels, sweep
 from pointclouds_tpu_torch.utils import profiling
 
+from _hypotheses import assert_same_bits, hypothesis_cloud, position_map
+
 pytestmark = pytest.mark.cuda
 
 
@@ -659,6 +661,61 @@ def test_block_scratch_left_reset(dev, kernel):
             assert (counts == 0).all() and (arrived == 0).all()
 
 
+# Kernel 19's cases: (case, mapping, seed, iterations, rows, valid rows).
+# "kitti" is the KITTI frame's call (500 hypotheses over the 98,304-row
+# buffer through `position_rows`), "aerial" the aerial tile's (300 over
+# 524,288 rows, the leading 457,000 valid, `assume_compact`).
+HYPOTHESIS_CASES = {
+    "kitti": ("kitti", "rows", 2**31 - 1, 500, 98_304, 93_388),
+    "aerial": ("aerial", "compact", 2_200_000_033 % 2**31, 300, 524_288,
+               457_000),
+    "cnt0": ("cnt0", "rows", 7, 500, 2048, 0),
+    "cnt1": ("cnt1", "rows", 7, 500, 2048, 0),
+    "cnt2": ("cnt2", "compact", 7, 500, 2048, 0),
+    "cnt3": ("cnt3", "rows", 7, 500, 2048, 0),
+    "iters1": ("iters1", "rows", 7, 1, 2048, 1945),
+    "iters4097": ("iters4097", "rows", 7, 4097, 2048, 1945),
+    "compaction": ("compaction", "compaction", 7, 500, 2048, 1945),
+    "degenerate": ("degenerate", "rows", 7, 500, 2048, 0),
+    "nan": ("nan", "rows", 7, 500, 2048, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(HYPOTHESIS_CASES))
+def test_ransac_hypotheses(dev, case):
+    """Kernel 19 bitwise against the plain version on the card and on the
+    CPU, one device launch a call, and no host read (sync debug mode
+    "error"): KITTI- and aerial-sized inputs and the edge cases."""
+    name, mapping, seed, iterations, n, n_valid = HYPOTHESIS_CASES[case]
+    xyz, valid, rows = hypothesis_cloud(name, mapping, seed, n, n_valid)
+    xyz, valid = torch.from_numpy(xyz), torch.from_numpy(valid)
+    order = position_map(mapping, valid, rows)
+    want = kernels.ransac_hypotheses_plain(xyz, valid.sum(), seed,
+                                           iterations, order)
+    x, cnt = xyz.to(dev), valid.to(dev).sum()
+    o = None if order is None else order.to(dev)
+
+    def call():
+        return kernels.ransac_hypotheses(x, cnt, seed, iterations, o)
+
+    got = _count_launch("ransac_hypotheses", call)
+    plain = kernels.ransac_hypotheses_plain(x, cnt, seed, iterations, o)
+    for g, p, w in zip(got, plain, want):
+        assert_same_bits(g, p)
+        assert_same_bits(g, w)
+    assert got[2].any() == (case == "degenerate")
+    assert torch.isnan(got[0]).any() == (case == "nan")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, g in zip(again, got):
+        assert_same_bits(a, g)
+    assert _device_launches(call) == 1
+
+
 def _pinned_d2(q, c):
     """The kernels' d2, fma(dz, dz, fma(dx, dx, dy*dy)), of query points q
     [..., 3] and candidate points c [..., 3]."""
@@ -1265,3 +1322,36 @@ def test_cellgrid_pipeline_gpu_equals_cpu(dev):
             assert (kernels.LAUNCHES[kname] > before) == (d == dev)
         for a, b in zip(*outs):
             assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("pipeline", ["kitti", "aerial"])
+def test_pipeline_frame_one_hypotheses_launch(dev, pipeline):
+    """A traced pipeline frame on the card records one `ransac_hypotheses`
+    launch (the CPU run none), and its plane and inliers equal the CPU
+    run's."""
+    if pipeline == "kitti":
+        data = kitti_scene(seed=3, scale=0.1)
+        args = (np.float32(0.15), np.float32(2.0), np.float32(0.15), 7,
+                np.float32(0.8))
+        kw = dict(ransac_subsample=4096, obstacle_cap=8192)
+        run = port.kitti_obstacle_pipeline
+    else:
+        data = aerial_scene(seed=3, scale=0.05)
+        args = (np.float32(0.5), np.float32(12.0), np.float32(0.3), 0,
+                np.float32(2.0), [0.0, 0.0, 10000.0])
+        kw = dict(ransac_subsample=4096)
+        run = port.aerial_pipeline
+    outs, recs = [], []
+    for d in ("cpu", dev):
+        c = port.make_cloud_arrays(data, device=d)
+        run(c.xyz, c.valid, *args, **kw)  # kernels built, caches warm
+        profiling.set_tracing(True)
+        try:
+            outs.append(run(c.xyz, c.valid, *args, **kw))
+        finally:
+            profiling.set_tracing(False)
+        recs.append(profiling.last_frame())
+    assert "ransac_hypotheses" not in recs[0].launches
+    assert recs[1].launches["ransac_hypotheses"] == 1
+    for f in ("plane_normal", "plane_d", "inlier_mask"):
+        assert torch.equal(getattr(outs[1], f).cpu(), getattr(outs[0], f))

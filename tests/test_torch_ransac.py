@@ -2,6 +2,8 @@
 hypotheses give the same winning plane under the tournament, full scoring
 (kernel `ransac_score_counts`) and the sequential adaptive scan."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,8 @@ from pointclouds_tpu_torch.ops.registration import _to_planar
 from pointclouds_tpu_torch.ops.segmentation import ransac_plane_masked
 from pointclouds_tpu_torch.spatial import kernels
 from pointclouds_tpu_torch.utils.interop import to_torch
+
+from _hypotheses import assert_same_bits, hypothesis_cloud, position_map
 
 THR = np.float32(0.15)
 
@@ -200,3 +204,68 @@ def test_scoring_leaves_tf32_flag_alone(flag):
         assert torch.backends.cuda.matmul.allow_tf32 is flag
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@functools.partial(jax.jit, static_argnames=("iterations", "mapping"))
+def _jax_hypotheses(xyz, valid, seed, rows, iterations: int, mapping: str):
+    """The hypothesis block of the JAX package's `ransac_plane_masked`
+    (normal, d, degenerate), jitted as there."""
+    cnt = jnp.sum(valid.astype(jnp.int32))
+    samples = JS._sample_three_distinct(jax.random.PRNGKey(seed), iterations,
+                                        cnt)
+    if mapping == "compact":
+        idx = samples
+    else:
+        order = (rows.astype(jnp.int32) if mapping == "rows"
+                 else jax_compaction_order(valid))
+        idx = jnp.take(order, samples.reshape(-1)).reshape(samples.shape)
+    p = jnp.take(xyz, idx.reshape(-1), axis=0).reshape(idx.shape[0], 3, 3)
+    nrm = jnp.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+    length = jnp.linalg.norm(nrm, axis=1)
+    degenerate = length < 1e-10
+    normal = nrm / jnp.where(degenerate, 1.0, length)[:, None]
+    return normal, -jnp.sum(normal * p[:, 0], axis=1), degenerate
+
+
+HYPOTHESIS_CASES = [("cnt0", 0, 300), ("cnt1", 1, 300), ("cnt2", 2, 300),
+                    ("cnt3", 3, 300), ("full", 4, 300), ("iters1", 5, 1),
+                    ("iters500", 2**31 - 1, 500), ("iters4097", 7, 4097),
+                    ("degenerate", 8, 500), ("nan", 9, 500)]
+
+
+@pytest.mark.parametrize("mapping", ["rows", "compact", "compaction"])
+@pytest.mark.parametrize("case,seed,iterations", HYPOTHESIS_CASES)
+def test_hypotheses_plain_match_jax(case, seed, iterations, mapping):
+    """`kernels.ransac_hypotheses` on CPU tensors (its plain version, no
+    launch) against the JAX package's hypotheses, bit for bit but the sign
+    of a zero offset: valid counts
+    0-3 and a full cloud, 1 to 4,097 hypotheses, the three position maps
+    (`position_rows`, `assume_compact`, the compaction order), degenerate
+    triples and a NaN point."""
+    xyz, valid, rows = hypothesis_cloud(case, mapping, seed)
+    want = _jax_hypotheses(jnp.asarray(xyz), jnp.asarray(valid), seed,
+                           jnp.asarray(rows), iterations, mapping)
+    tv = torch.from_numpy(valid)
+    order = position_map(mapping, tv, rows)
+    kernels.reset_launch_counts()
+    got = kernels.ransac_hypotheses(torch.from_numpy(xyz), tv.sum(), seed,
+                                    iterations, order)
+    assert kernels.LAUNCHES["ransac_hypotheses"] == 0  # CPU: plain
+    assert [tuple(g.shape) for g in got] == [(iterations, 3), (iterations,),
+                                             (iterations,)]
+    for name, g, w in zip(("normal", "d", "degenerate"), got, want):
+        g, w = g.numpy(), np.asarray(w)
+        if name == "d":
+            # XLA's sum starts from +0, the pinned form from nx*px, so a
+            # zero offset (a degenerate triple, a plane through the origin)
+            # may carry the other sign; every use takes |n.p + d|.
+            zero = w == 0
+            assert (g[zero] == 0).all()
+            g, w = g[~zero], w[~zero]
+        assert_same_bits(g, w)
+    deg = got[2].numpy()
+    nan = np.isnan(got[0].numpy()).any(axis=1)
+    assert deg.any() == (case == "degenerate")
+    assert nan.any() == (case == "nan")
+    if case in ("degenerate", "nan"):
+        assert (~deg & ~nan).any()

@@ -10,7 +10,7 @@ import pointclouds_tpu  # noqa: F401  (x64, as the package runs)
 from pointclouds_tpu.ops.segmentation import (
     _sample_three_distinct as jax_sample_three,
 )
-from pointclouds_tpu_torch.ops.segmentation import _sample_three_distinct
+from pointclouds_tpu_torch.spatial.kernels import _sample_three_distinct
 from pointclouds_tpu_torch.utils.threefry import mod_u64, random_bits64
 
 SEEDS = list(range(100)) + [2**31 - 1]
